@@ -1,0 +1,120 @@
+"""Weight bridge: a flax parameter tree of ``ddp_tpu`` -> a torch state_dict.
+
+The port's modules carry the flax module names, so a flax path maps to a
+torch key by a fixed rename of flax's automatic submodule names and of the
+leaf names, plus a layout change of the kernels:
+
+  - Conv ``kernel`` [kh, kw, in, out] -> ``weight`` [out, in, kh, kw]
+  - Dense ``kernel`` [in, out]        -> ``weight`` [out, in]
+  - LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``
+  - Embed ``embedding``               -> ``weight``
+  - BatchNorm ``mean`` / ``var`` (the ``batch_stats`` collection) ->
+    ``running_mean`` / ``running_var`` (and ``num_batches_tracked`` = 0)
+
+Swin's PatchMerging uses the same (ky, kx, C) channel order in both packages,
+so its reduction needs only the Dense transpose. Leaves are numpy arrays (or
+anything ``np.asarray`` takes); the state_dict holds views of them, not
+copies. A flax leaf with no rule raises.
+"""
+from __future__ import annotations
+
+import re
+import warnings
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+# flax's automatic submodule names -> the port's attribute names
+_MODULE_RENAMES = (
+    (("GroupNorm32_0", "GroupNorm_0"), ("norm",)),
+    (("BatchNorm_0", "BatchNorm_0"), ("norm",)),
+    (("Conv_0",), ("conv",)),
+    (("Dense_0",), ("fc1",)),
+    (("Dense_1",), ("fc2",)),
+    (("LearnedSinusoidalPosEmb_0",), ("pos_emb",)),
+)
+_AUTO_NAME = re.compile(r"^[A-Z]\w*_\d+$")
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+                 "bias": "bias", "weights": "weights",
+                 "relative_position_bias_table": "relative_position_bias_table"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), v
+
+
+def _module_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    out, i = [], 0
+    while i < len(path):
+        for src, dst in _MODULE_RENAMES:
+            if path[i:i + len(src)] == src:
+                out.extend(dst)
+                i += len(src)
+                break
+        else:
+            if _AUTO_NAME.match(path[i]):
+                raise KeyError(f"no rule for flax module {'/'.join(path)}")
+            out.append(path[i])
+            i += 1
+    return tuple(out)
+
+
+def _to_torch(leaf_name: str, value) -> torch.Tensor:
+    """A view of the (transposed) leaf; ``load_state_dict`` copies it."""
+    a = np.asarray(value)
+    if leaf_name == "kernel":
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    with warnings.catch_warnings():
+        # arrays from jax are read-only; the view is only ever read
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(a)
+
+
+def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax ``params`` (+ ``batch_stats``) -> torch state_dict. Raises on any
+    flax leaf that no rule maps."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _walk(params):
+        *mod, leaf = path
+        if leaf not in _PARAM_LEAVES:
+            raise KeyError(f"no rule for flax leaf {'/'.join(path)}")
+        key = ".".join(_module_path(tuple(mod)) + (_PARAM_LEAVES[leaf],))
+        sd[key] = _to_torch(leaf, value)
+    for path, value in _walk(batch_stats or {}):
+        *mod, leaf = path
+        if leaf not in _STAT_LEAVES:
+            raise KeyError(f"no rule for flax batch stat {'/'.join(path)}")
+        prefix = ".".join(_module_path(tuple(mod)))
+        sd[f"{prefix}.{_STAT_LEAVES[leaf]}"] = _to_torch(leaf, value)
+        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return sd
+
+
+def check_complete(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Raise unless ``sd`` fills every entry of ``model.state_dict()`` with the
+    right shape and holds nothing else."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    shapes = sorted(f"{k}: {tuple(sd[k].shape)} != {want[k]}"
+                    for k in set(want) & set(sd) if tuple(sd[k].shape) != want[k])
+    if missing or extra or shapes:
+        raise KeyError(f"state_dict mismatch: unfilled torch entries {missing}, "
+                       f"unmapped flax leaves {extra}, shape mismatches {shapes}")
+
+
+def load_flax(model: nn.Module, params: Mapping,
+              batch_stats: Optional[Mapping] = None) -> nn.Module:
+    """Load a flax tree into ``model`` in place (strict: see check_complete)."""
+    sd = params_from_flax(params, batch_stats)
+    check_complete(model, sd)
+    model.load_state_dict(sd)
+    return model

@@ -1,0 +1,55 @@
+"""Segmentation metrics (port of ``ddp_tpu/evaluation/metrics.py:22-68``).
+
+mmseg ``intersect_and_union`` / mIoU, aAcc, mAcc as numpy histograms.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+
+def intersect_and_union(
+    pred: np.ndarray, label: np.ndarray, num_classes: int, ignore_index: int = 255
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Per-class (intersection, union, pred-area, label-area) histograms."""
+    mask = label != ignore_index
+    pred = pred[mask]
+    label = label[mask]
+    inter = pred[pred == label]
+    area_inter = np.bincount(inter, minlength=num_classes)[:num_classes]
+    area_pred = np.bincount(pred, minlength=num_classes)[:num_classes]
+    area_label = np.bincount(label, minlength=num_classes)[:num_classes]
+    area_union = area_pred + area_label - area_inter
+    return area_inter, area_union, area_pred, area_label
+
+
+class SegMetricAccumulator:
+    """Streaming mIoU/aAcc/mAcc accumulator (reference pre_eval pattern)."""
+
+    def __init__(self, num_classes: int, ignore_index: int = 255):
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.inter = np.zeros(num_classes, np.int64)
+        self.union = np.zeros(num_classes, np.int64)
+        self.pred = np.zeros(num_classes, np.int64)
+        self.label = np.zeros(num_classes, np.int64)
+
+    def update(self, pred: np.ndarray, label: np.ndarray):
+        i, u, p, l = intersect_and_union(
+            np.asarray(pred), np.asarray(label), self.num_classes, self.ignore_index)
+        self.inter += i
+        self.union += u
+        self.pred += p
+        self.label += l
+
+    def compute(self) -> Dict[str, float]:
+        iou = self.inter / np.maximum(self.union, 1)
+        acc = self.inter / np.maximum(self.label, 1)
+        present = self.label > 0
+        return {
+            "aAcc": float(self.inter.sum() / max(self.label.sum(), 1)),
+            "mIoU": float(iou[present].mean()) if present.any() else 0.0,
+            "mAcc": float(acc[present].mean()) if present.any() else 0.0,
+            "IoU_per_class": iou,
+        }
