@@ -1,6 +1,6 @@
 """The DDP diffusion engine: the multi-step reverse rollout (DDIM / DDPM).
 
-Port of ``ddp_tpu/core/diffusion.py:37-196`` (reference ddp.py:215-290).
+Port of ``ddp_tpu/core/diffusion.py:37-196`` (reference ddp.py:156-165,215-290).
 JAX draws the rollout's noise from PRNG keys inside ``rollout``; torch cannot
 reproduce those bits, so here the caller hands in the initial latent noise
 (and, for DDPM, the per-step noise). The model-side ``denoise_fn`` maps
@@ -43,6 +43,15 @@ class DiffusionConfig:
 
     def time_pairs(self):
         return sampling_time_pairs(self.timesteps, self.sample_range, self.time_difference)
+
+
+def sample_times(batch: int, sample_range: Tuple[float, float],
+                 generator: Optional[torch.Generator] = None,
+                 device=None) -> torch.Tensor:
+    """t ~ U(sample_range) per sample, float32 [batch] (reference ddp.py:156-158)."""
+    lo, hi = sample_range
+    u = torch.rand(batch, generator=generator, dtype=torch.float32, device=device)
+    return lo + (hi - lo) * u
 
 
 def q_sample(x0: torch.Tensor, log_snr: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

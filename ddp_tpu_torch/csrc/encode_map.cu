@@ -26,28 +26,14 @@
 // C interface (loaded with ctypes): returns cudaGetLastError() after the
 // launch; the caller raises if it is not 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dtype.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
+using ddp::from_f32;
+using ddp::Pack;
+using ddp::squash;
+using ddp::to_f32;
 
 template <typename T, int VEC>
 __global__ void encode_map_kernel(const int64_t* __restrict__ labels,
@@ -67,10 +53,7 @@ __global__ void encode_map_kernel(const int64_t* __restrict__ labels,
       const Pack<T, VEC> src =
           *reinterpret_cast<const Pack<T, VEC>*>(table + lab * c + col);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float s = 1.0f / (1.0f + expf(-to_f32(src.v[j])));
-        res.v[j] = from_f32<T>((s * 2.0f - 1.0f) * bit_scale);
-      }
+      for (int j = 0; j < VEC; ++j) res.v[j] = from_f32<T>(squash(to_f32(src.v[j]), bit_scale));
     } else {
 #pragma unroll
       for (int j = 0; j < VEC; ++j) res.v[j] = from_f32<T>(0.0f);

@@ -1,14 +1,25 @@
-"""DDPSegmentor serving path (port of ``ddp_tpu/models/segmentor.py:39-145,229-294``).
+"""DDPSegmentor (port of ``ddp_tpu/models/segmentor.py:39-294``).
 
-Swin -> FPN -> MultiStageMerging gives one 1/4-scale feature map, encoded
-once per image. Then ``diffusion.timesteps`` DDIM steps, each: 1x1 fusion conv
-over [features, latent] plus the time MLP of the log-SNR, the time-FiLM
-window decoder, argmax, and the argmax re-embedded through the encode-map
-CUDA kernel (``ops/q_sample.py``). Softmax is averaged over the steps, over
-the randsteps hypotheses (folded r-major into the batch), then bilinearly
-upsampled. Images are NHWC, probabilities [B, H, W, K].
+Swin -> FPN -> MultiStageMerging gives one 1/4-scale feature map.
 
-The training forward (``__call__`` of the JAX module) is not ported yet.
+Training (``forward``, the JAX module's ``__call__``): the ground truth,
+nearest-downsampled to the feature grid with 255 mapped to K, is embedded,
+squashed and corrupted at t ~ U(sample_range) in one q_sample CUDA kernel
+(``ops/q_sample.py``; its backward is the dtable kernel); the fusion conv and
+the time-FiLM window decoder give logits, the FCN aux head runs on the clean
+features, and both losses are the fused x4 upsample + cross-entropy CUDA
+kernels (``ops/upsample_ce.py``). ``loss_at="quarter"``, ``self_aligned`` and
+the resize + CE branch for a non-integer scale follow the JAX module.
+
+Serving: ``diffusion.timesteps`` DDIM steps, each: 1x1 fusion conv over
+[features, latent] plus the time MLP of the log-SNR, the time-FiLM window
+decoder, argmax, and the argmax re-embedded through the encode-map CUDA
+kernel. Softmax is averaged over the steps, over the randsteps hypotheses
+(folded r-major into the batch), then bilinearly upsampled. Images are NHWC,
+probabilities [B, H, W, K].
+
+Random draws (t, the noise, dropout and drop path masks) come from the
+``torch.Generator`` the caller passes; ``t`` and ``noise`` may be given.
 """
 from __future__ import annotations
 
@@ -19,14 +30,17 @@ from torch import nn
 
 from ..core import diffusion as diff
 from ..core.diffusion import DiffusionConfig
+from ..core.schedules import log_snr_to_alpha_sigma
 from ..device import resolve_device
 from ..nn.common import ConvModule
 from ..nn.fpn import FPN, MultiStageMerging
 from ..nn.heads import DeformableHeadWithTime, FCNHead
+from ..nn.losses import cross_entropy_seg, seg_accuracy
 from ..nn.swin import SwinTransformer, swin_variant
 from ..nn.time_embed import TimeMLP
 from ..ops import q_sample
-from ..ops.resize import resize
+from ..ops.resize import resize, resize_nearest
+from ..ops.upsample_ce import upsample_ce
 
 
 class DDPSegmentor(nn.Module):
@@ -37,18 +51,24 @@ class DDPSegmentor(nn.Module):
                  decoder_heads: int = 8, decoder_ffn_dim: int = 1024,
                  decoder_attn: str = "window", decoder_window: int = 8,
                  decoder_film: str = "v1", decoder_pos: str = "sine",
-                 device=None):
+                 aux_weight: float = 0.4, drop_path_rate: float = 0.3,
+                 self_aligned: bool = False, loss_at: str = "full", device=None):
         super().__init__()
         if backbone_type != "swin":
             raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
+        if loss_at not in ("full", "quarter"):
+            raise ValueError(f"loss_at must be 'full' or 'quarter', got {loss_at!r}")
         self.num_classes = num_classes
         self.embed_dims = embed_dims
         self.bit_scale = bit_scale
         self.diffusion = diffusion
         self.align_corners = align_corners
+        self.aux_weight = aux_weight
+        self.self_aligned = self_aligned
+        self.loss_at = loss_at
         with torch.device(resolve_device(device)):
             kw = swin_variant(backbone_variant)
-            self.backbone = SwinTransformer(**kw)
+            self.backbone = SwinTransformer(drop_path_rate=drop_path_rate, **kw)
             dims = [kw["embed_dims"] * 2 ** i for i in range(len(kw["depths"]))]
             self.neck_fpn = FPN(dims, embed_dims, num_outs=4)
             self.neck_merge = MultiStageMerging(4 * embed_dims, embed_dims)
@@ -66,9 +86,10 @@ class DDPSegmentor(nn.Module):
         self.eval()
 
     # --- building blocks -------------------------------------------------
-    def extract_feat(self, img: torch.Tensor) -> torch.Tensor:
+    def extract_feat(self, img: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """backbone -> FPN -> merge: [B, H, W, 3] -> [B, H/4, W/4, C]."""
-        return self.neck_merge(self.neck_fpn(self.backbone(img)))
+        return self.neck_merge(self.neck_fpn(self.backbone(img, generator)))
 
     def encode_map(self, labels: torch.Tensor) -> torch.Tensor:
         """Class-index map [...] -> squashed analog-bits latent [..., C]."""
@@ -76,11 +97,102 @@ class DDPSegmentor(nn.Module):
         flat = q_sample.encode_map(labels.reshape(-1), table, self.bit_scale)
         return flat.reshape(labels.shape + (table.shape[-1],))
 
+    def corrupt_fused(self, labels: torch.Tensor, t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Embed, squash and corrupt an int label map [B, h, w] in one q_sample
+        kernel. ``t`` [B] (drawn from U(sample_range) when None) and ``noise``
+        [B·h·w, C] in the table's type (drawn N(0, 1) when None).
+        Returns (x_t [B, h, w, C], log_snr [B])."""
+        b, h, w = labels.shape
+        table = self.embedding_table.weight
+        if t is None:
+            t = diff.sample_times(b, self.diffusion.sample_range, generator, labels.device)
+        log_snr = self.diffusion.log_snr_fn(t.float())
+        alpha, sigma = log_snr_to_alpha_sigma(log_snr)
+        if noise is None:
+            noise = torch.randn((b * h * w, table.shape[-1]), generator=generator,
+                                dtype=table.dtype, device=labels.device)
+        rows = q_sample.q_sample(labels.reshape(-1), table, self.bit_scale,
+                                 alpha.repeat_interleave(h * w),
+                                 sigma.repeat_interleave(h * w),
+                                 noise.reshape(b * h * w, -1).to(table.dtype))
+        return rows.reshape(b, h, w, table.shape[-1]), log_snr
+
     def denoise_logits(self, x: torch.Tensor, mask_t: torch.Tensor,
                        log_snr: torch.Tensor) -> torch.Tensor:
         """Fuse conditioning features with the noisy latent and decode."""
         feat = self.transform(torch.cat([x, mask_t], dim=-1))
         return self.decode_head(feat, self.time_mlp(log_snr))
+
+    # --- training --------------------------------------------------------
+    def forward(self, img: torch.Tensor, gt: torch.Tensor, t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss and logs (forward_train, ddp.py:131-178). img
+        [B, H, W, 3]; gt [B, H, W] int labels, 255 = ignore; ``t`` [B] and
+        ``noise`` (the latent's shape, or [B·h·w, C]) are drawn from
+        ``generator`` when None. BatchNorm, dropout and drop path act as the
+        module's mode (``train()``/``eval()``) says."""
+        gt = gt.long()
+        x = self.extract_feat(img, generator)
+        b, h, w, c = x.shape
+        cfg = self.diffusion
+        if self.self_aligned:
+            # stage 1 (no gradient: only its argmax is used) decodes pure
+            # noise at t = 1 and re-embeds the model's own prediction; stage 2
+            # corrupts that with the same noise (self_aligned_ddp.py:149-173)
+            if noise is None:
+                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                                    device=x.device)
+            noise = noise.reshape(x.shape).to(x.dtype)
+            with torch.no_grad():
+                log_snr1 = cfg.log_snr_fn(torch.ones(b, dtype=x.dtype, device=x.device))
+                pred = torch.argmax(self.denoise_logits(x, noise, log_snr1), dim=-1)
+            latent = self.encode_map(pred)
+            if t is None:
+                t = diff.sample_times(b, cfg.sample_range, generator, x.device)
+            log_snr = cfg.log_snr_fn(t.to(x.dtype))
+            noised = diff.q_sample(latent, log_snr, noise)
+        else:
+            gt_down = resize_nearest(gt[..., None], (h, w))[..., 0]
+            gt_down = torch.where(gt_down == 255, self.num_classes, gt_down)
+            noised, log_snr = self.corrupt_fused(gt_down, t, noise, generator)
+        logits = self.denoise_logits(x, noised, log_snr)
+
+        # the aux head is skipped at weight 0 (as in the JAX module)
+        aux_logits = self.aux_head(x, generator) if self.aux_weight else None
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        full = tuple(gt.shape[1:3])
+        s = full[0] // h
+        if self.loss_at == "quarter":
+            gt_q = resize_nearest(gt[..., None], (h, w))[..., 0]
+            loss_ce = cross_entropy_seg(logits, gt_q)
+            acc = seg_accuracy(logits, gt_q)
+            loss_aux = (self.aux_weight * cross_entropy_seg(aux_logits, gt_q)
+                        if aux_logits is not None else zero)
+        elif not self.align_corners and s > 1 and full == (h * s, w * s):
+            # the fused upsample + CE kernels: the full-resolution logits are
+            # never materialised
+            loss_ce, acc = upsample_ce(logits, gt, s, with_acc=True)
+            loss_aux = (self.aux_weight * upsample_ce(aux_logits, gt, s)
+                        if aux_logits is not None else zero)
+        else:
+            logits_up = resize(logits, full, mode="bilinear", align_corners=self.align_corners)
+            loss_ce = cross_entropy_seg(logits_up, gt)
+            acc = seg_accuracy(logits_up, gt)
+            if aux_logits is not None:
+                aux_up = resize(aux_logits, full, mode="bilinear",
+                                align_corners=self.align_corners)
+                loss_aux = self.aux_weight * cross_entropy_seg(aux_up, gt)
+            else:
+                loss_aux = zero
+        loss = loss_ce + loss_aux
+        logs = {"decode.loss_ce": loss_ce, "decode.acc_seg": acc, "aux.loss_ce": loss_aux,
+                "loss": loss}
+        return loss, logs
 
     # --- inference -------------------------------------------------------
     def _rollout_hypotheses(self, img: torch.Tensor,

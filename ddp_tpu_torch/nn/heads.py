@@ -3,9 +3,8 @@
   - DeformableHeadWithTime: flatten HW -> sine pos-enc -> time-FiLM encoder
     -> reshape -> 1x1 conv_seg (deformable_head_with_time.py:21-189). Only
     the window-attention decoder with sine positions is ported so far.
-  - FCNHead: the training-time auxiliary head (3x3 conv+BN+ReLU, 1x1
-    conv_seg). Serving never runs it; it is here so that every parameter of
-    the JAX segmentor has a home in the port.
+  - FCNHead: the training-time auxiliary head (3x3 conv+BN+ReLU, dropout
+    0.1 in training, 1x1 conv_seg) on the clean encoder features.
 """
 from __future__ import annotations
 
@@ -15,7 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .common import ConvModule
+from .common import ConvModule, dropout
 from .pos_embed import sine_pos_embed
 from .transformer import TimeFiLMEncoder
 
@@ -48,19 +47,22 @@ class DeformableHeadWithTime(nn.Module):
 
 
 class FCNHead(nn.Module):
-    """Auxiliary FCN head (dropout is the identity at eval and is not ported)."""
+    """Auxiliary FCN head; dropout draws from the generator the caller passes."""
 
     def __init__(self, num_classes: int, in_channels: int, channels: int = 256,
-                 num_convs: int = 1, norm: str = "SyncBN"):
+                 num_convs: int = 1, dropout: float = 0.1, norm: str = "SyncBN"):
         super().__init__()
         self.num_convs = num_convs
+        self.dropout = dropout
         for i in range(num_convs):
             self.add_module(f"conv{i}", ConvModule(
                 in_channels if i == 0 else channels, channels, (3, 3), norm=norm,
                 act="relu"))
         self.conv_seg = nn.Conv2d(channels, num_classes, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.num_convs):
             x = getattr(self, f"conv{i}")(x)
+        x = dropout(x, self.dropout, self.training, generator)
         return self.conv_seg(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

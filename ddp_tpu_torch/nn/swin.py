@@ -10,7 +10,9 @@ Parity traps carried over from the JAX package:
     the JAX package's layout (mmseg's unfold is (C, ky, kx); the torch
     checkpoint importer permutes between them), so weights bridge from the
     JAX package with a plain transpose;
-  - the FFN GELU is the tanh approximation (flax default).
+  - the FFN GELU is the tanh approximation (flax default);
+  - drop path grows linearly over all blocks, ``linspace(0, rate, sum(depths))``
+    (12 blocks for Swin-T), and draws from the generator the caller passes.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Mlp
+from .common import Mlp, drop_path
 
 
 @functools.lru_cache(maxsize=128)
@@ -94,7 +96,8 @@ def window_attention(qkv: torch.Tensor, num_heads: int, bias: Optional[torch.Ten
         attn = attn + bias[None]
     if mask is not None:
         nw = mask.shape[0]
-        attn = (attn.reshape(bnw // nw, nw, num_heads, n, n) + mask[None, :, None])
+        attn = (attn.reshape(bnw // nw, nw, num_heads, n, n)
+                + mask.to(attn.dtype)[None, :, None])
         attn = attn.reshape(bnw, num_heads, n, n)
     attn = torch.softmax(attn, dim=-1)
     return (attn @ v).transpose(1, 2).reshape(bnw, n, c)
@@ -124,16 +127,18 @@ class WindowAttention(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0):
         super().__init__()
         self.window = window
         self.shift = shift
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, window)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         win = self.window
         pad_h, pad_w = (-h) % win, (-w) % win
@@ -151,8 +156,8 @@ class SwinBlock(nn.Module):
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         if pad_h or pad_w:
             y = y[:, :h, :w]
-        x = x + y
-        return x + self.ffn(self.norm2(x))
+        x = x + drop_path(y, self.drop_path, self.training, generator)
+        return x + drop_path(self.ffn(self.norm2(x)), self.drop_path, self.training, generator)
 
 
 class PatchMerging(nn.Module):
@@ -180,25 +185,31 @@ class SwinTransformer(nn.Module):
     def __init__(self, embed_dims: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: int = 7,
                  patch_size: int = 4, mlp_ratio: float = 4.0,
-                 out_indices: Sequence[int] = (0, 1, 2, 3), in_chans: int = 3):
+                 out_indices: Sequence[int] = (0, 1, 2, 3), in_chans: int = 3,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.patch_size = patch_size
         self.depths = tuple(depths)
         self.out_indices = tuple(out_indices)
         self.patch_embed = nn.Conv2d(in_chans, embed_dims, patch_size, stride=patch_size)
         self.patch_norm = nn.LayerNorm(embed_dims, eps=1e-5)
+        dpr = np.linspace(0.0, drop_path_rate, sum(self.depths))
+        block_idx = 0
         for stage, depth in enumerate(self.depths):
             dim = embed_dims * 2 ** stage
             for blk in range(depth):
                 self.add_module(f"stage{stage}_block{blk}", SwinBlock(
                     dim, num_heads[stage], window,
-                    shift=0 if blk % 2 == 0 else window // 2, mlp_ratio=mlp_ratio))
+                    shift=0 if blk % 2 == 0 else window // 2, mlp_ratio=mlp_ratio,
+                    drop_path=float(dpr[block_idx])))
+                block_idx += 1
             if stage in self.out_indices:
                 self.add_module(f"out_norm{stage}", nn.LayerNorm(dim, eps=1e-5))
             if stage < len(self.depths) - 1:
                 self.add_module(f"downsample{stage}", PatchMerging(dim, dim * 2))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
         p = self.patch_size
         pad_h, pad_w = (-x.shape[1]) % p, (-x.shape[2]) % p
         if pad_h or pad_w:
@@ -208,7 +219,7 @@ class SwinTransformer(nn.Module):
         outs = []
         for stage, depth in enumerate(self.depths):
             for blk in range(depth):
-                x = getattr(self, f"stage{stage}_block{blk}")(x)
+                x = getattr(self, f"stage{stage}_block{blk}")(x, generator)
             if stage in self.out_indices:
                 outs.append(getattr(self, f"out_norm{stage}")(x))
             if stage < len(self.depths) - 1:

@@ -37,4 +37,8 @@ class TimeMLP(nn.Module):
         self.fc2 = nn.Linear(dim, dim)
 
     def forward(self, log_snr: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(self.pos_emb(log_snr))))
+        # the embedding is computed in the log-SNR's type (float32 in
+        # training) and enters the MLP in the weights' type (bf16 under the
+        # mixed-precision policy)
+        emb = self.pos_emb(log_snr).to(self.fc1.weight.dtype)
+        return self.fc2(gelu(self.fc1(emb)))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels at first use.
 
-All ``ddp_tpu_torch/csrc/*.cu`` sources are compiled by one ``nvcc`` call into
-a shared library with a plain C interface, written to
-``ddp_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, and loaded with ``ctypes``. Nothing here includes PyTorch's headers,
-so a build takes seconds. Importing this module builds nothing.
+Each ``ddp_tpu_torch/csrc/*.cu`` source is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, written to ``ddp_tpu_torch/_build/`` under
+a name keyed by a hash of the sources and flags, and loaded with ``ctypes``.
+Nothing here includes PyTorch's headers, so a build takes seconds. Importing
+this module builds nothing.
 """
 from __future__ import annotations
 
@@ -21,10 +22,26 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# every exported kernel entry and its C signature (pointers and the stream
+# are c_void_p; ctypes would otherwise pass them as 32-bit ints)
+_ENTRIES = {
+    # labels, table, out, n, c, k, bit_scale, dtype, stream
+    "ddp_encode_map": [_P, _P, _P, _I64, _I, _I, _F, _I, _P],
+    # labels, table, alpha, sigma, noise, out, n, c, k, bit_scale, dtype, stream
+    "ddp_q_sample": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I, _P],
+    # labels, demb, out, n, c, k, stream
+    "ddp_dtable": [_P, _P, _P, _I64, _I, _I, _P],
+    # logits, labels, sums, lse, nb, h, w, k, scale, ignore_index, dtype, stream
+    "ddp_upsample_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I, _P],
+    # logits, labels, lse, g, dlogits, nb, h, w, k, scale, ignore_index, dtype, stream
+    "ddp_upsample_ce_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I, _P],
+}
 
 
 def _nvcc() -> str:
@@ -58,18 +75,26 @@ def library_path() -> str:
 def _compile(out_path: str) -> None:
     srcs, _ = _sources()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out_path)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out_path)  # atomic: a concurrent loader sees all or nothing
 
 
 def load_library() -> ctypes.CDLL:
@@ -81,10 +106,21 @@ def load_library() -> ctypes.CDLL:
             if not os.path.exists(path):
                 _compile(path)
             lib = ctypes.CDLL(path)
-            fn = lib.ddp_encode_map
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for name, argtypes in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int  # cudaError_t of the launch
             _lib = lib
         return _lib
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the current CUDA stream of
+    ``device``; raise if the launch returned a CUDA error."""
+    import torch
+
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA kernel launch failed: cudaError {err}")

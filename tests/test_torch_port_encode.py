@@ -74,7 +74,7 @@ def test_plain_rejects_out_of_range_labels():
 
 
 def test_cuda_wrapper_rejects_cpu_tensors():
-    before = TQ.launches
+    before = dict(TQ.launches)
     with pytest.raises(ValueError, match="CUDA"):
         TQ.encode_map_cuda(torch.zeros(3, dtype=torch.int64), torch.zeros(7, 4), 0.01)
     assert TQ.launches == before
@@ -91,6 +91,6 @@ def test_cuda_kernel_matches_plain(n):
     TQ.reset_launches()
     got = TQ.encode_map(labels, table, 0.01)
     torch.cuda.synchronize()
-    assert TQ.launches == 1
+    assert TQ.launches["encode_map"] == 1
     want = TQ.encode_map_plain(labels, table, 0.01)
     assert (got - want).abs().max().item() <= 1e-6 * 0.01

@@ -108,7 +108,11 @@ def test_sample_matches_jax(hw):
 def test_port_imports_no_jax():
     code = ("import sys, ddp_tpu_torch, ddp_tpu_torch.models.segmentor, "
             "ddp_tpu_torch.config, ddp_tpu_torch.convert, ddp_tpu_torch.evaluation.batched, "
-            "ddp_tpu_torch.evaluation.metrics, ddp_tpu_torch.ops._build; "
+            "ddp_tpu_torch.evaluation.metrics, ddp_tpu_torch.ops._build, "
+            "ddp_tpu_torch.ops.q_sample, ddp_tpu_torch.ops.upsample_ce, ddp_tpu_torch.nn.losses, "
+            "ddp_tpu_torch.nn.common, ddp_tpu_torch.train.optim, ddp_tpu_torch.train.step, "
+            "ddp_tpu_torch.train.checkpoint, ddp_tpu_torch.train.events, "
+            "ddp_tpu_torch.train.loop, ddp_tpu_torch.data.seg_datasets; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu')); print(bad); "
             # importing loads no CUDA library
