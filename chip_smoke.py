@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile OUT    # also write per-kernel device-time
                                            # tables of one sample() call and one
                                            # train step to OUT (and OUT.train)
+    python3 chip_smoke.py --phases build,kernels   # a subset (device and
+                                           # build always run)
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -17,7 +19,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. kernels - each CUDA kernel against its plain PyTorch version on the card
                at the main paths' shapes and at edge shapes, with its time
                (cold L2), the plain version's time, one PyTorch call's time
-               where one computes the same function, and its bound.
+               where one computes the same function, and its bound; the
+               upsample_ce backward's line also gives its tile, grid, shared
+               bytes, registers and spilled bytes.
   3. reference       - a small sample() through the card and through the CPU.
   4. train_reference - one tiny train step's loss on the card and on the CPU
                (same weights, t, noise and batch; dropout off).
@@ -307,28 +311,48 @@ def check_dtable(card, smi, flush):
     return row
 
 
-def _ce_inputs(b, h, w, k, scale, dtype, seed=2):
+def _ce_inputs(b, h, w, k, scale, dtype, seed=2, labels="random"):
+    """labels: "random" with a block of ignored pixels, "ignored" (every
+    pixel 255) or "one" (every pixel class k // 2)."""
     g = _gen(seed)
     logits = torch.randn(b, h, w, k, generator=g).to(dtype).cuda()
-    labels = torch.randint(0, k, (b, scale * h, scale * w), generator=g)
-    labels[0, :scale * 3, :scale * 5] = 255  # a block of ignored pixels
-    return logits, labels.cuda()
+    lab = torch.randint(0, k, (b, scale * h, scale * w), generator=g)
+    lab[0, :scale * 3, :scale * 5] = 255  # a block of ignored pixels
+    if labels == "ignored":
+        lab.fill_(255)
+    elif labels == "one":
+        lab.fill_(k // 2)
+    return logits, lab.cuda()
 
 
 def _ce_cases():
-    return (("path", CE_SHAPE, SCALE, torch.float32),
-            ("path_bf16", CE_SHAPE, SCALE, torch.bfloat16),
-            ("h10_s2_k7", (2, 10, 16, 7), 2, torch.float32),
-            ("h10_s4_k19", (2, 10, 16, 19), 4, torch.float32),
-            ("h12_s4_k19_bf16", (2, 12, 16, 19), 4, torch.bfloat16))
+    """(name, logits shape, scale, dtype, labels). The backward's tiles are
+    8 x 8 for scales 2..5 and 4 x 4 above; the edge cases cross the image's
+    edge with ragged tiles, take h = 1 (both row taps clamp to one row), the
+    odd scale 3 whose weights are not dyadic, scale 8, and a last class
+    chunk of 1, 19 or 22 of 32 lanes."""
+    cases = [("path", CE_SHAPE, SCALE, torch.float32, "random"),
+             ("path_bf16", CE_SHAPE, SCALE, torch.bfloat16, "random"),
+             ("h10_s2_k7", (2, 10, 16, 7), 2, torch.float32, "random"),
+             ("h10_s4_k19", (2, 10, 16, 19), 4, torch.float32, "random"),
+             ("h12_s4_k19_bf16", (2, 12, 16, 19), 4, torch.bfloat16, "random")]
+    for name, shape, scale, labels in (("b1_h13_w11_s4_k33", (1, 13, 11, 33), 4, "random"),
+                                       ("b2_h1_w7_s4_k19", (2, 1, 7, 19), 4, "random"),
+                                       ("h9_w14_s3_k150", (2, 9, 14, 150), 3, "random"),
+                                       ("h6_w9_s8_k33", (1, 6, 9, 33), 8, "random"),
+                                       ("h7_w5_s2_k7_ignored", (2, 7, 5, 7), 2, "ignored"),
+                                       ("h9_w10_s4_k19_one", (2, 9, 10, 19), 4, "one")):
+        cases.append((name, shape, scale, torch.float32, labels))
+        cases.append((name + "_bf16", shape, scale, torch.bfloat16, labels))
+    return cases
 
 
 def check_upsample_ce(card, smi, flush):
     from ddp_tpu_torch.ops import upsample_ce as U
 
     fwd_errs, bwd_errs = {}, {}
-    for case, shape, scale, dtype in _ce_cases():
-        logits, labels = _ce_inputs(*shape, scale, dtype)
+    for case, shape, scale, dtype, lab_mode in _ce_cases():
+        logits, labels = _ce_inputs(*shape, scale, dtype, labels=lab_mode)
         sums, lse = U.upsample_ce_fwd_cuda(logits, labels, scale)
         want, want_lse = U.upsample_ce_fwd_plain(logits, labels, scale)
         g = torch.full((1,), 0.5, device="cuda")
@@ -372,13 +396,21 @@ def check_upsample_ce(card, smi, flush):
         # written once; per upsampled element one exponential and ~10 FLOPs
         nbytes=lat + lab + out_px * 4 + lat, flops=elems * 10, exps=elems,
         err=bwd_errs["path"], flush=flush)]
+    geo = U.bwd_geometry(b, h, w, k, SCALE)
+    build = {"tile": [geo.tile_h, geo.tile_w], "class_chunk": geo.chunk,
+             "grid": list(geo.grid), "threads": 32 * (geo.tile_h + 1),
+             "dynamic_shared_bytes": geo.smem_bytes,
+             **U.bwd_kernel_attrs(SCALE, torch.float32)}
     for row, errs in zip(rows, (fwd_errs, bwd_errs)):
-        emit({"phase": "kernels", "kernel": row["name"], "max_abs_err": errs,
-              "tolerance": "fwd: nll rtol 1e-5 (atomic order), counts exact; "
-                           "bwd: rtol 1e-4, atol 1e-6",
-              "library_ms": "null: no single PyTorch call computes a bilinear upsample "
-                            "fused with cross-entropy",
-              "row": row, "card": smi})
+        line = {"phase": "kernels", "kernel": row["name"], "max_abs_err": errs,
+                "tolerance": "fwd: nll rtol 1e-5 (atomic order), counts exact; "
+                             "bwd: rtol 1e-4, atol 1e-6",
+                "library_ms": "null: no single PyTorch call computes a bilinear upsample "
+                              "fused with cross-entropy",
+                "row": row, "card": smi}
+        if row["name"] == "upsample_ce_bwd":
+            line["build"] = build  # f32, scale 4: registers, local (spill) bytes
+        emit(line)
     return rows
 
 
@@ -715,25 +747,40 @@ def phase_train(smi: str, profile: str = None):
     return launches
 
 
+PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of the phases after device (default: all; "
+                         "serve needs main)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
+        ap.error(f"--phases takes a subset of {','.join(PHASES)}; serve needs main")
     import ddp_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     name, smi = phase_device()
     phase_build()
-    kernels = phase_kernels(name, smi)
-    phase_reference()
-    phase_train_reference(smi)
-    model, cfg, serve_launches = phase_main(smi, args.profile)
-    phase_serve(model, cfg, smi)
-    del model
-    torch.cuda.empty_cache()
-    train_launches = phase_train(smi, args.profile)
+    kernels = phase_kernels(name, smi) if "kernels" in phases else []
+    if "reference" in phases:
+        phase_reference()
+    if "train_reference" in phases:
+        phase_train_reference(smi)
+    launches = {}
+    if "main" in phases:
+        model, cfg, launches["serve"] = phase_main(smi, args.profile)
+        if "serve" in phases:
+            phase_serve(model, cfg, smi)
+        del model
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        launches["train"] = phase_train(smi, args.profile)
     for row in kernels:
-        serving = row["name"] == "encode_map"
-        row["launches"] = (serve_launches if serving else train_launches)[row["name"]]
-        row["launches_per"] = "sample() call" if serving else "train step"
+        path = "serve" if row["name"] == "encode_map" else "train"
+        row["launches"] = launches[path][row["name"]] if path in launches else None
+        row["launches_per"] = "sample() call" if path == "serve" else "train step"
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

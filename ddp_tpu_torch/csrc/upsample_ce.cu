@@ -18,35 +18,67 @@
 // log-sum-exp (B*S*h*S*w f32, 2 MB at the path's shape), which the backward
 // reads instead of recomputing it. Nothing upsampled is written.
 //
+// Bound: at B=2, h=w=128, K=150, S=4 the forward reads 19.7 MB of f32 logits
+// and 4.2 MB of int64 labels, but takes 16 x 32768 x 150 = 78.6 M exponentials
+// (0.019 ms on the SFU against 0.007 ms of bytes). What the TPU kernel kept
+// out of HBM, the S^2-times larger upsampled logits, stays out of it here too.
+//
+// Forward: one warp owns one latent pixel (b, i, j), its lanes stride over
+// the K classes (coalesced loads of the K-vector), and the 3 x 3 neighbourhood
+// it needs is re-read from L1/L2 by the neighbouring warps. Per row phase p
+// the warp lerps the S output pixels (S*i + p, S*j + q) for every class,
+// keeps an online max / sum of exponentials per pixel in registers (one exp
+// per element), merges the lanes by shuffles, and adds its sums to the
+// block's; one atomicAdd per block and sum. Float atomics change the
+// summation order from run to run.
+//
 // Backward (replaces :_bwd_kernel, reached through _kernel_grad from the VJP
 // _ce_sums_bwd): dlogits[b, i, j, :] = g * sum over the output pixels whose
 // taps include (i, j) of w_row * w_col * (softmax(z) - onehot(label)) over
-// valid labels.
+// valid labels. It reads the logits, the labels and the forward's lse and
+// writes dlogits (46 MB, 0.014 ms at the path's shape); its floor is the same
+// 78.6 M exponentials, so what bounds it on the card is instruction issue:
+// every output pixel's softmax must be computed once, and the transposed
+// lerps must cost a few FMAs per (output pixel, class).
+//   - tiles: a block of TH + 1 warps owns TH x TW latent pixels of one image
+//     and 32 classes (one per lane; the grid's y walks the class chunks, the
+//     last one partial). TH = TW = 8 for S <= 5, 4 above (bwd_tile), fixed
+//     at compile time so that the walk over the cells unrolls;
+//     ops/upsample_ce.py:bwd_geometry picks the same tile, the grid and the
+//     shared bytes, and the launch checks them. The output pixels whose taps
+//     reach the tile are the
+//     (S*TH + S) x (S*TW + S) region from S*i0 - ceil(S/2): the tile's cells,
+//     the later phases of the cell before and the earlier phases of the cell
+//     after. Their taps lie in the (TH+2) x (TW+2) latent halo.
+//   - staging (opt-in dynamic shared memory, 60 KB at 8 x 8 and S = 4), with
+//     8 loads in flight a thread: the halo's logits in f32, edge-clamped as
+//     the upsample clamps them, and the region's lse and label. An ignored
+//     pixel, and one outside the image, gets lse = +inf, so that its softmax
+//     is 0 with no mask or branch, and label -1, as does a valid label
+//     outside [0, K) (softmax only): the plain version's valid / in_range
+//     masks.
+//   - dz once: a warp owns S output rows of the region. It lerps each row at
+//     the halo's columns, then walks the cells left to right (unrolled); per
+//     phase it forms z, dz = exp(z - lse) - [c == label], one exponential
+//     (ex2.approx of z log2 e - lse log2 e, the product staged; ~1e-6
+//     relative at |z - lse| < 20) per output pixel and class (1.27x the
+//     minimum at 8 x 8 for the halo, against 4x for a gather per latent
+//     pixel), and adds w_lo * dz and w_hi * dz into three rolling registers
+//     for the columns cj - 1, cj,
+//     cj + 1. Column cj - 1 is complete after cell cj and goes to
+//     dzy[row][col] in shared memory. At the image's edge the clamp sends
+//     both taps to one column: the virtual columns -1 and w are folded into
+//     0 and w - 1, as _lerp_T's two index_add_ calls do.
+//   - rows: each latent pixel sums the 2S rows of dzy that tap it (both
+//     weights on the border row), scales by g and writes its 32 classes once.
+// No atomics: a block's output is its own tile, and within the block the
+// column pass owns its rows and the row pass its pixels, with one barrier
+// between them. The sums run in another order than the plain version's.
 //
-// Bound: at B=2, h=w=128, K=150, S=4 the forward reads 19.7 MB of f32 logits
-// and 4.2 MB of int64 labels, but takes 16 x 32768 x 150 = 78.6 M exponentials;
-// the backward adds 19.7 MB of dlogits. What the TPU kernel kept out of HBM,
-// the S^2-times larger upsampled logits, stays out here too: one warp owns
-// one latent pixel (b, i, j), its lanes stride over the K classes (coalesced
-// loads of the K-vector), and the 3 x 3 neighbourhood it needs is re-read
-// from L1/L2 by the neighbouring warps instead of from HBM.
-//   - forward: per row phase p the warp lerps the S output pixels
-//     (S*i + p, S*j + q) for every class, keeps an online max / sum of
-//     exponentials per pixel in registers (one exp per element), merges the
-//     lanes by shuffles, and adds its sums to the block's; one atomicAdd per
-//     block and sum. Float atomics change the summation order from run to run.
-//   - backward: a gather, not a scatter. The up to 2S x 2S output pixels
-//     whose taps include (i, j) belong to the 3 x 3 neighbouring latent
-//     cells, so neighbouring warps would collide on every dlogits entry if
-//     they scattered (atomics on 4.9 M addresses); gathering, each warp writes
-//     its own K-vector once with no atomics, at the price of recomputing each
-//     output pixel's softmax for each of the (up to 4) latent pixels it taps:
-//     about 4x the forward's exponentials. The output pixels' log-sum-exp and
-//     labels are staged per warp in shared memory first.
-//
-// S is a template parameter (2..8) so that the per-pixel accumulators live in
-// registers. C interface (loaded with ctypes): each entry returns
-// cudaGetLastError() after its launch; the caller raises if it is not 0.
+// S is a template parameter (2..8) so that the phase loops unroll and the
+// tap weights are constants. C interface (loaded with ctypes): each entry
+// returns cudaGetLastError() after its launch; the caller raises if it is
+// not 0.
 
 #include <math.h>
 
@@ -56,8 +88,43 @@ namespace {
 
 using ddp::to_f32;
 
-constexpr int kWarps = 8;  // latent pixels per block, one per warp
+constexpr int kWarps = 8;  // forward: latent pixels per block, one per warp
 constexpr unsigned kFull = 0xffffffffu;
+// backward: classes per block (one per lane), and the opt-in shared memory
+// of one block
+constexpr int kChunk = 32;
+constexpr int kMaxSmem = 232448;
+
+// the backward's tile edge at scale S: 8 x 8 where three blocks' shared
+// memory fits on an SM (S <= 5), else 4 x 4 (ops/upsample_ce.py:bwd_geometry)
+template <int S>
+__host__ __device__ constexpr int bwd_tile() {
+  return S <= 5 ? 8 : 4;
+}
+
+// global loads each thread keeps in flight while the backward stages a tile
+constexpr int kInFlight = 8;
+
+// a staged output pixel of the backward: its lse times log2(e) (+inf where
+// it counts nothing, so that its softmax is 0) and its label (-1 where it
+// counts nothing or has no class: it matches no lane)
+struct Px {
+  float lse;
+  int lab;
+};
+
+// 2^x to ~2 ulp, one SFU instruction (0 for -inf and below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared bytes of the backward at tile TH x TW (ops/upsample_ce.py:bwd_smem_bytes)
+size_t bwd_smem_bytes(int scale, int th, int tw) {
+  return sizeof(float) * kChunk * ((size_t)(th + 2) * (tw + 2) + (size_t)scale * (th + 1) * tw) +
+         sizeof(Px) * (size_t)scale * scale * (th + 1) * (tw + 1);
+}
 
 template <int S>
 __device__ __forceinline__ constexpr bool minus(int p) {
@@ -92,11 +159,6 @@ __device__ __forceinline__ void phase_taps(int p, int i, int n, int* lo, int* hi
 
 __device__ __forceinline__ float lerp(float lo, float wlo, float hi, float whi) {
   return __fadd_rn(__fmul_rn(lo, wlo), __fmul_rn(hi, whi));
-}
-
-// v[slot] for slot in {0, 1, 2} without a runtime-indexed (local-memory) array
-__device__ __forceinline__ float pick3(const float* v, int slot) {
-  return slot == 0 ? v[0] : (slot == 1 ? v[1] : v[2]);
 }
 
 // merge an online (max, sum of exp(z - max)) pair with lane ^ off's
@@ -194,84 +256,165 @@ upsample_ce_fwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__
 }
 
 template <typename T, int S>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__((bwd_tile<S>() + 1) * 32)
 upsample_ce_bwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__ labels,
                        const float* __restrict__ lse, const float* __restrict__ g,
-                       float* __restrict__ dlogits, int nb, int h, int w, int k,
+                       float* __restrict__ dlogits, int h, int w, int k,
                        int64_t ignore_index) {
-  constexpr int kCand = 3 * S;  // candidate (neighbour cell, phase) pairs per axis
-  __shared__ float s_lse[kWarps][kCand * kCand];
-  // label of each candidate output pixel: the class, -1 for ignore_index or no
-  // such pixel, -2 for a label outside [0, k) (a valid pixel with no class)
-  __shared__ int s_lab[kWarps][kCand * kCand];
+  constexpr int TH = bwd_tile<S>(), TW = TH;
+  constexpr int kWarpsB = TH + 1;        // warp t owns region rows t, t + TH + 1, ...
+  constexpr int VW = TW + 2;             // halo columns
+  constexpr int NV = (TH + 2) * VW;      // halo pixels
+  // the region's output pixels: the tile's cells, and the phases p >= S / 2
+  // (ceil(S / 2) of them) of the cell before and p < S / 2 of the cell after
+  constexpr int kBefore = S - S / 2;
+  constexpr int NROWS = S * (TH + 1), NCOLS = S * (TW + 1), NPX = NROWS * NCOLS;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ float4 smem[];
+  float* s_v = reinterpret_cast<float*>(smem);              // [TH + 2][VW][32]
+  Px* s_px = reinterpret_cast<Px*>(s_v + NV * kChunk);      // [NROWS][NCOLS]
+  float* s_dzy = reinterpret_cast<float*>(s_px + NPX);      // [NROWS][TW][32]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t pix = (int64_t)blockIdx.x * kWarps + warp;
-  if (pix >= (int64_t)nb * h * w) return;  // whole warps leave; no block barrier below
-  const int j = (int)(pix % w);
-  const int i = (int)((pix / w) % h);
-  const int64_t b = pix / ((int64_t)w * h);
+  const int tiles_w = (w + TW - 1) / TW;
+  const int i0 = (int)(blockIdx.x / tiles_w) * TH, j0 = (int)(blockIdx.x % tiles_w) * TW;
+  const int c = blockIdx.y * kChunk + lane;
+  const int64_t b = blockIdx.z;
   const int hh = S * h, ww = S * w;
+  const int y0 = S * i0 - kBefore, x0 = S * j0 - kBefore;
 
-  // candidate a = (d + 1) * S + p on an axis: neighbour cell i + d, phase p
-  for (int t = lane; t < kCand * kCand; t += 32) {
-    const int a = t / kCand, c = t % kCand;
-    const int ci = i + a / S - 1, cj = j + c / S - 1;
-    if (ci >= 0 && ci < h && cj >= 0 && cj < w) {
-      const int64_t o = (b * hh + (S * ci + a % S)) * (int64_t)ww + S * cj + c % S;
-      const int64_t lab = labels[o];
-      s_lse[warp][t] = lse[o];
-      s_lab[warp][t] = lab == ignore_index ? -1 : (lab >= 0 && lab < k ? (int)lab : -2);
-    } else {
-      s_lab[warp][t] = -1;
+  // 1. stage the halo (rows i0 - 1 .. i0 + TH, columns j0 - 1 .. j0 + TW,
+  // clamped to the image as the upsample's taps are) and the region's
+  // pixels, kInFlight loads at a time
+  for (int e0 = warp; e0 < NV; e0 += kInFlight * kWarpsB) {
+    float v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * kWarpsB;
+      const int r = min(max(i0 - 1 + e / VW, 0), h - 1);
+      const int col = min(max(j0 - 1 + e % VW, 0), w - 1);
+      v[u] = e < NV && c < k ? to_f32(logits[((b * h + r) * w + col) * (int64_t)k + c]) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (e0 + u * kWarpsB < NV) s_v[(e0 + u * kWarpsB) * kChunk + lane] = v[u];
+  }
+  for (int e0 = threadIdx.x; e0 < NPX; e0 += kInFlight * kWarpsB * 32) {
+    int64_t lab[kInFlight];
+    float l[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * kWarpsB * 32;
+      const int y = y0 + e / NCOLS, x = x0 + e % NCOLS;
+      lab[u] = ignore_index;  // no such output pixel
+      l[u] = 0.0f;
+      if (e < NPX && y >= 0 && y < hh && x >= 0 && x < ww) {
+        const int64_t o = (b * hh + y) * (int64_t)ww + x;
+        lab[u] = labels[o];
+        l[u] = lse[o];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * kWarpsB * 32;
+      if (e >= NPX) continue;
+      const bool valid = lab[u] != ignore_index;
+      s_px[e] = Px{valid ? l[u] * kLog2e : INFINITY,
+                   valid && lab[u] >= 0 && lab[u] < k ? (int)lab[u] : -1};
     }
   }
-  __syncwarp();
+  __syncthreads();
 
   float wlo[S], whi[S];
 #pragma unroll
-  for (int p = 0; p < S; ++p) phase_weights<S>(p, &wlo[p], &whi[p]);
-  const float gs = __ldg(g);
-  const int rows[3] = {max(i - 1, 0), i, min(i + 1, h - 1)};
-  const int cols[3] = {max(j - 1, 0), j, min(j + 1, w - 1)};
-  for (int c = lane; c < k; c += 32) {
-    // the 3 x 3 neighbourhood; every tap of every candidate lies in it
-    float v[3][3];
+  for (int q = 0; q < S; ++q) phase_weights<S>(q, &wlo[q], &whi[q]);
+
+  // 2. dz of every output pixel of the region, once, and the transposed
+  // column lerp into dzy; a warp owns whole rows, so no two write one entry.
+  // Pixels outside the image carry lse = +inf and add 0, with no branch.
+#pragma unroll 1
+  for (int m = 0; m < S; ++m) {
+    const int r = warp + m * kWarpsB;
+    const int y = y0 + r;
+    if (y < 0 || y >= hh) continue;  // no such row; the row pass reads none
+    const int p = y % S;
+    float wrl, wrh;
+    phase_weights<S>(p, &wrl, &wrh);
+    // the halo row of the row's low tap, unclamped (the staging clamped it);
+    // the high tap is the next halo row
+    const int lo = (minus<S>(p) ? y / S - 1 : y / S) - (i0 - 1);
+    const float* vlo = s_v + lo * VW * kChunk + lane;
+    const float* vhi = vlo + VW * kChunk;
+    const Px* px = s_px + r * NCOLS;
+    float* dzy = s_dzy + r * TW * kChunk + lane;
+    // the row lerped at halo columns lc - 1, lc, lc + 1 of cell lc
+    float zm = 0.0f;
+    float z0 = lerp(vlo[0], wrl, vhi[0], wrh);
+    float zp = lerp(vlo[kChunk], wrl, vhi[kChunk], wrh);
+    // partial sums of dz for the columns cj - 1 and cj (a2: cj + 1)
+    float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
-    for (int r = 0; r < 3; ++r)
+    for (int lc = 0; lc < VW; ++lc) {
+      const int cj = j0 - 1 + lc;
+      float a2 = 0.0f;
 #pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        v[r][cc] = to_f32(logits[((b * h + rows[r]) * w + cols[cc]) * (int64_t)k + c]);
-    float acc = 0.0f;
-    for (int a = 0; a < kCand; ++a) {
-      const int ci = i + a / S - 1, p = a % S;
-      if (ci < 0 || ci >= h) continue;
-      int rl, rh;
-      phase_taps<S>(p, ci, h, &rl, &rh);
-      const float wy = (rl == i ? wlo[p] : 0.0f) + (rh == i ? whi[p] : 0.0f);
-      if (wy == 0.0f) continue;
-      float zy[3];  // this output row lerped at the three latent columns
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) {
-        const float col[3] = {v[0][cc], v[1][cc], v[2][cc]};
-        zy[cc] = lerp(pick3(col, rl - i + 1), wlo[p], pick3(col, rh - i + 1), whi[p]);
+      for (int q = 0; q < S; ++q) {
+        // the halo's first cell reaches the region only by its phases
+        // after S / 2, its last only by those before
+        if (minus<S>(q) ? lc == 0 : lc == VW - 1) continue;
+        const Px o = px[S * (lc - 1) + kBefore + q];
+        const float z = minus<S>(q) ? lerp(zm, wlo[q], z0, whi[q])
+                                    : lerp(z0, wlo[q], zp, whi[q]);
+        const float dz = ex2(fmaf(z, kLog2e, -o.lse)) - (c == o.lab ? 1.0f : 0.0f);
+        if (minus<S>(q)) {
+          a0 = fmaf(wlo[q], dz, a0);
+          a1 = fmaf(whi[q], dz, a1);
+        } else {
+          a1 = fmaf(wlo[q], dz, a1);
+          a2 = fmaf(whi[q], dz, a2);
+        }
       }
-      float row_acc = 0.0f;
-      for (int e = 0; e < kCand; ++e) {
-        const int cj = j + e / S - 1, q = e % S;
-        if (cj < 0 || cj >= w) continue;
-        int cl, ch;
-        phase_taps<S>(q, cj, w, &cl, &ch);
-        const float wx = (cl == j ? wlo[q] : 0.0f) + (ch == j ? whi[q] : 0.0f);
-        if (wx == 0.0f) continue;
-        const int lab = s_lab[warp][a * kCand + e];
-        if (lab == -1) continue;
-        const float z = lerp(pick3(zy, cl - j + 1), wlo[q], pick3(zy, ch - j + 1), whi[q]);
-        const float d = expf(z - s_lse[warp][a * kCand + e]) - (c == lab ? 1.0f : 0.0f);
-        row_acc += wx * d;
+      // the clamp at the image's edge: both taps on column 0 (w - 1)
+      if (cj == 0) a1 += a0;
+      if (cj == w - 1) {
+        a1 += a2;
+        a2 = 0.0f;
       }
-      acc += wy * row_acc;
+      // column cj - 1 has all its terms; keep it if it is the tile's
+      if (lc >= 2) dzy[(lc - 2) * kChunk] = a0;
+      a0 = a1;
+      a1 = a2;
+      zm = z0;
+      z0 = zp;
+      if (lc + 2 < VW) zp = lerp(vlo[(lc + 2) * kChunk], wrl, vhi[(lc + 2) * kChunk], wrh);
     }
-    dlogits[((b * h + i) * w + j) * (int64_t)k + c] = gs * acc;
+  }
+  __syncthreads();
+
+  // 3. the transposed row lerp: latent pixel (i, j) sums the rows of dzy that
+  // tap row i, the later phases of cell i - 1, all of cell i, the earlier of
+  // cell i + 1 (both weights on the border rows), and writes its classes once
+  const float gs = __ldg(g);
+  constexpr int kRow = TW * kChunk;
+  for (int e = warp; e < TH * TW; e += kWarpsB) {
+    const int ti = e / TW, tj = e % TW;
+    const int i = i0 + ti, j = j0 + tj;
+    if (i >= h || j >= w) continue;
+    const float* col = s_dzy + (S * ti + kBefore) * kRow + tj * kChunk + lane;
+    float acc = 0.0f;
+#pragma unroll
+    for (int p = 0; p < S; ++p) {
+      const float d = col[p * kRow];
+      if (minus<S>(p)) {
+        acc = fmaf(whi[p], d, acc);
+        if (i == 0) acc = fmaf(wlo[p], d, acc);
+        if (i + 1 < h) acc = fmaf(wlo[p], col[(S + p) * kRow], acc);
+      } else {
+        acc = fmaf(wlo[p], d, acc);
+        if (i == h - 1) acc = fmaf(whi[p], d, acc);
+        if (i > 0) acc = fmaf(whi[p], col[(p - S) * kRow], acc);
+      }
+    }
+    if (c < k) dlogits[((b * h + i) * w + j) * (int64_t)k + c] = gs * acc;
   }
 }
 
@@ -281,16 +424,6 @@ cudaError_t launch_fwd(const void* logits, const int64_t* labels, float* sums, f
   const int64_t blocks = ((int64_t)nb * h * w + kWarps - 1) / kWarps;
   upsample_ce_fwd_kernel<T, S><<<(unsigned)blocks, kWarps * 32, 0, st>>>(
       static_cast<const T*>(logits), labels, sums, lse, nb, h, w, k, ignore);
-  return cudaGetLastError();
-}
-
-template <typename T, int S>
-cudaError_t launch_bwd(const void* logits, const int64_t* labels, const float* lse,
-                       const float* g, float* dlogits, int nb, int h, int w, int k,
-                       int64_t ignore, cudaStream_t st) {
-  const int64_t blocks = ((int64_t)nb * h * w + kWarps - 1) / kWarps;
-  upsample_ce_bwd_kernel<T, S><<<(unsigned)blocks, kWarps * 32, 0, st>>>(
-      static_cast<const T*>(logits), labels, lse, g, dlogits, nb, h, w, k, ignore);
   return cudaGetLastError();
 }
 
@@ -312,14 +445,51 @@ cudaError_t dispatch_fwd(int scale, const void* logits, const int64_t* labels, f
   }
 }
 
+template <typename T, int S>
+cudaError_t launch_bwd(const void* logits, const int64_t* labels, const float* lse,
+                       const float* g, float* dlogits, int nb, int h, int w, int k,
+                       int64_t ignore, int th, int tw, int gx, int gy, int gz, int smem,
+                       cudaStream_t st) {
+  constexpr int kTile = bwd_tile<S>();
+  // the geometry must be the compiled tile's, cover the output, and give
+  // the shared memory its layout needs
+  const int64_t tiles = (int64_t)((h + kTile - 1) / kTile) * ((w + kTile - 1) / kTile);
+  if (th != kTile || tw != kTile || gx != tiles || gy != (k + kChunk - 1) / kChunk ||
+      gz != nb || (int64_t)smem < (int64_t)bwd_smem_bytes(S, th, tw) || smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  // above 48 KB a launch is refused unless the kernel opts in (per device)
+  const cudaError_t err = cudaFuncSetAttribute(
+      upsample_ce_bwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  upsample_ce_bwd_kernel<T, S><<<dim3((unsigned)gx, (unsigned)gy, (unsigned)gz),
+                                 (kTile + 1) * 32, smem, st>>>(
+      static_cast<const T*>(logits), labels, lse, g, dlogits, h, w, k, ignore);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_bwd(int scale, const void* logits, const int64_t* labels,
                          const float* lse, const float* g, float* dlogits, int nb, int h,
-                         int w, int k, int64_t ignore, cudaStream_t st) {
+                         int w, int k, int64_t ignore, int th, int tw, int gx, int gy, int gz,
+                         int smem, cudaStream_t st) {
+  switch (scale) {
+#define X(T_, S_)                                                                      \
+  case S_:                                                                             \
+    return launch_bwd<T_, S_>(logits, labels, lse, g, dlogits, nb, h, w, k, ignore, th, \
+                              tw, gx, gy, gz, smem, st);
+    DDP_SCALES(X, T)
+#undef X
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t bwd_attrs(int scale, cudaFuncAttributes* attrs) {
   switch (scale) {
 #define X(T_, S_) \
   case S_:        \
-    return launch_bwd<T_, S_>(logits, labels, lse, g, dlogits, nb, h, w, k, ignore, st);
+    return cudaFuncGetAttributes(attrs, upsample_ce_bwd_kernel<T_, S_>);
     DDP_SCALES(X, T)
 #undef X
     default:
@@ -349,10 +519,15 @@ extern "C" int ddp_upsample_ce_fwd(const void* logits, const void* labels, void*
 }
 
 // dlogits [nb, h, w, k] float32 = g[0] * d(nll sum)/d(logits); lse from the
-// forward; g a float32 scalar on the device.
+// forward; g a float32 scalar on the device. The tile (tile_h x tile_w latent
+// pixels: 8 x 8 for scales 2..5, 4 x 4 above), the grid (tiles, class
+// chunks of 32, nb) and the dynamic shared bytes come from
+// ops/upsample_ce.py:bwd_geometry.
 extern "C" int ddp_upsample_ce_bwd(const void* logits, const void* labels, const void* lse,
                                    const void* g, void* dlogits, int nb, int h, int w, int k,
-                                   int scale, int64_t ignore_index, int dtype, void* stream) {
+                                   int scale, int64_t ignore_index, int dtype, int tile_h,
+                                   int tile_w, int grid_x, int grid_y, int grid_z,
+                                   int smem_bytes, void* stream) {
   if ((int64_t)nb * h * w == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* lab = static_cast<const int64_t*>(labels);
@@ -361,9 +536,26 @@ extern "C" int ddp_upsample_ce_bwd(const void* logits, const void* labels, const
   float* d = static_cast<float*>(dlogits);
   if (dtype == 0)
     return (int)dispatch_bwd<float>(scale, logits, lab, l, gg, d, nb, h, w, k, ignore_index,
-                                    st);
+                                    tile_h, tile_w, grid_x, grid_y, grid_z, smem_bytes, st);
   if (dtype == 1)
     return (int)dispatch_bwd<__nv_bfloat16>(scale, logits, lab, l, gg, d, nb, h, w, k,
-                                            ignore_index, st);
+                                            ignore_index, tile_h, tile_w, grid_x, grid_y,
+                                            grid_z, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// out[4] = registers per thread, local (spilled) bytes per thread, static
+// shared bytes and the largest block of the backward kernel for this scale
+// and dtype, from cudaFuncGetAttributes
+extern "C" int ddp_upsample_ce_bwd_attrs(int scale, int dtype, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = dtype == 0   ? bwd_attrs<float>(scale, &a)
+                          : dtype == 1 ? bwd_attrs<__nv_bfloat16>(scale, &a)
+                                       : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return (int)cudaSuccess;
 }

@@ -29,7 +29,7 @@ kernel counts a pixel as correct when the label's logit is >= the maximum
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -40,6 +40,8 @@ launches: Dict[str, int] = {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SCALE = 8  # the CUDA kernels are instantiated for scales 2..8
+BWD_CHUNK = 32  # classes per block of the backward kernel, one per lane
+BWD_MAX_SMEM = 232_448  # opt-in shared memory of one block on an H100
 
 
 def reset_launches() -> None:
@@ -151,6 +153,52 @@ def upsample_ce_grad_plain(logits: torch.Tensor, labels: torch.Tensor, lse: torc
     return g.to(dx.dtype) * dx
 
 
+class BwdGeometry(NamedTuple):
+    """Launch of the tiled backward kernel: a block of ``tile_h + 1`` warps
+    owns ``tile_h x tile_w`` latent pixels of one image and ``chunk`` classes;
+    ``grid`` = (tiles, class chunks, batch)."""
+    tile_h: int
+    tile_w: int
+    chunk: int
+    grid: Tuple[int, int, int]
+    smem_bytes: int
+
+
+def bwd_smem_bytes(scale: int, tile_h: int, tile_w: int) -> int:
+    """Shared bytes of one backward block: the (TH+2) x (TW+2) halo of logits
+    and the (S·TH+S) x TW x chunk column-lerped gradient, f32 per class; the
+    (S·TH+S) x (S·TW+S) region's lse and label, 8 bytes per output pixel."""
+    return (4 * BWD_CHUNK * ((tile_h + 2) * (tile_w + 2) + scale * (tile_h + 1) * tile_w)
+            + 8 * scale * scale * (tile_h + 1) * (tile_w + 1))
+
+
+def bwd_geometry(b: int, h: int, w: int, k: int, scale: int) -> BwdGeometry:
+    """The backward's launch at logits [b, h, w, k] and ``scale``: 8 x 8
+    tiles where three blocks fit on an SM's shared memory (scales 2..5),
+    else 4 x 4. The kernel is compiled for that tile (``bwd_tile`` in
+    ``csrc/upsample_ce.cu``) and refuses another."""
+    tile = next(t for t in (8, 4) if bwd_smem_bytes(scale, t, t) <= BWD_MAX_SMEM // 3)
+    tiles = -(-h // tile) * -(-w // tile)
+    return BwdGeometry(tile, tile, BWD_CHUNK, (tiles, -(-k // BWD_CHUNK), b),
+                       bwd_smem_bytes(scale, tile, tile))
+
+
+def bwd_kernel_attrs(scale: int, dtype: torch.dtype) -> Dict[str, int]:
+    """Registers, spilled (local) bytes and static shared bytes per thread
+    or block of the backward kernel's instantiation, as the card reports
+    them (``cudaFuncGetAttributes``); builds the kernels if needed."""
+    import ctypes
+
+    from ._build import load_library
+
+    out = (ctypes.c_int * 4)()
+    err = load_library().ddp_upsample_ce_bwd_attrs(scale, _DTYPE_CODES[dtype],
+                                                   ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ddp_upsample_ce_bwd_attrs: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "static_shared_bytes", "max_threads"), out))
+
+
 def _check_cuda(logits: torch.Tensor, labels: torch.Tensor, scale: int,
                 *more: torch.Tensor) -> None:
     tensors = (logits, labels) + more
@@ -203,9 +251,11 @@ def upsample_ce_bwd_cuda(logits: torch.Tensor, labels: torch.Tensor, lse: torch.
         raise ValueError(f"g must be one float32 value, got {g.dtype} {tuple(g.shape)}")
     dlogits = torch.empty((b, h, w, k), dtype=torch.float32, device=logits.device)
     if logits.numel():
+        geo = bwd_geometry(b, h, w, k, scale)
         _launch("upsample_ce_bwd", "ddp_upsample_ce_bwd", logits.device, logits.data_ptr(),
                 labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dlogits.data_ptr(), b, h,
-                w, k, scale, int(ignore_index), _DTYPE_CODES[logits.dtype])
+                w, k, scale, int(ignore_index), _DTYPE_CODES[logits.dtype], geo.tile_h,
+                geo.tile_w, *geo.grid, geo.smem_bytes)
     return dlogits
 
 
