@@ -20,8 +20,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                at the main paths' shapes and at edge shapes, with its time
                (cold L2), the plain version's time, one PyTorch call's time
                where one computes the same function, and its bound; the
-               upsample_ce backward's line also gives its tile, grid, shared
-               bytes, registers and spilled bytes.
+               upsample_ce forward's and backward's lines also give their
+               tile, grid, shared bytes, registers and spilled bytes.
   3. reference       - a small sample() through the card and through the CPU.
   4. train_reference - one tiny train step's loss on the card and on the CPU
                (same weights, t, noise and batch; dropout off).
@@ -313,24 +313,33 @@ def check_dtable(card, smi, flush):
 
 def _ce_inputs(b, h, w, k, scale, dtype, seed=2, labels="random"):
     """labels: "random" with a block of ignored pixels, "ignored" (every
-    pixel 255) or "one" (every pixel class k // 2)."""
+    pixel 255), "one" (every pixel class k // 2) or "outside" (random, with
+    rows of valid labels k + 3 and columns of -4, and the logits shifted by
+    +3 so that every pixel's max z is positive: then the kernel's correct
+    rule for such a label, 0 >= max z, and the plain version's argmax rule
+    both count none)."""
     g = _gen(seed)
-    logits = torch.randn(b, h, w, k, generator=g).to(dtype).cuda()
+    logits = torch.randn(b, h, w, k, generator=g)
     lab = torch.randint(0, k, (b, scale * h, scale * w), generator=g)
     lab[0, :scale * 3, :scale * 5] = 255  # a block of ignored pixels
     if labels == "ignored":
         lab.fill_(255)
     elif labels == "one":
         lab.fill_(k // 2)
-    return logits, lab.cuda()
+    elif labels == "outside":
+        logits += 3.0
+        lab[:, 1::5, :] = k + 3
+        lab[:, :, 2::7] = -4
+    return logits.to(dtype).cuda(), lab.cuda()
 
 
 def _ce_cases():
     """(name, logits shape, scale, dtype, labels). The backward's tiles are
-    8 x 8 for scales 2..5 and 4 x 4 above; the edge cases cross the image's
-    edge with ragged tiles, take h = 1 (both row taps clamp to one row), the
-    odd scale 3 whose weights are not dyadic, scale 8, and a last class
-    chunk of 1, 19 or 22 of 32 lanes."""
+    8 x 8 for scales 2..5 and 4 x 4 above, the forward's 8 wide and 16, 8 or
+    4 high; the edge cases cross the image's edge with ragged tiles, take
+    h = 1 (both row taps clamp to one row), the odd scale 3 whose weights
+    are not dyadic, scale 8, a last class chunk of 1, 19 or 22 of 32 lanes,
+    and valid labels outside [0, K)."""
     cases = [("path", CE_SHAPE, SCALE, torch.float32, "random"),
              ("path_bf16", CE_SHAPE, SCALE, torch.bfloat16, "random"),
              ("h10_s2_k7", (2, 10, 16, 7), 2, torch.float32, "random"),
@@ -341,7 +350,9 @@ def _ce_cases():
                                        ("h9_w14_s3_k150", (2, 9, 14, 150), 3, "random"),
                                        ("h6_w9_s8_k33", (1, 6, 9, 33), 8, "random"),
                                        ("h7_w5_s2_k7_ignored", (2, 7, 5, 7), 2, "ignored"),
-                                       ("h9_w10_s4_k19_one", (2, 9, 10, 19), 4, "one")):
+                                       ("h9_w10_s4_k19_one", (2, 9, 10, 19), 4, "one"),
+                                       ("h9_w14_s4_k150_outside", (2, 9, 14, 150), 4,
+                                        "outside")):
         cases.append((name, shape, scale, torch.float32, labels))
         cases.append((name + "_bf16", shape, scale, torch.bfloat16, labels))
     return cases
@@ -356,9 +367,11 @@ def check_upsample_ce(card, smi, flush):
         sums, lse = U.upsample_ce_fwd_cuda(logits, labels, scale)
         want, want_lse = U.upsample_ce_fwd_plain(logits, labels, scale)
         g = torch.full((1,), 0.5, device="cuda")
+        # the backward reads the kernel's lse, the plain version its own
         d = U.upsample_ce_bwd_cuda(logits, labels, lse, g, scale)
         d_want = U.upsample_ce_grad_plain(logits, labels, want_lse, g[0], scale)
-        fwd_errs[case] = (sums - want).abs().tolist()
+        lse_err = (lse - want_lse).abs()
+        fwd_errs[case] = {"sums": (sums - want).abs().tolist(), "lse": lse_err.max().item()}
         bwd_errs[case] = (d - d_want).abs().max().item()
         # NLL sum: float atomics add in no fixed order (rtol 1e-5); the counts
         # are exact (integers below 2^24; random logits have no ties)
@@ -368,6 +381,9 @@ def check_upsample_ce(card, smi, flush):
         if sums[1:].tolist() != want[1:].tolist():
             raise AssertionError(f"upsample_ce fwd {case}: counts {sums[1:].tolist()} vs "
                                  f"{want[1:].tolist()}")
+        # lse: ex2.approx (~2 ulp) per term against expf, and m log2 e rounded
+        if not (lse_err <= 4e-6 * want_lse.abs().clamp(min=1.0)).all():
+            raise AssertionError(f"upsample_ce fwd {case}: lse max abs err {lse_err.max().item()}")
         if not ((d - d_want).abs() <= 1e-4 * d_want.abs() + 1e-6).all():
             raise AssertionError(f"upsample_ce bwd {case}: max abs err {bwd_errs[case]}")
     logits, labels = _ce_inputs(*CE_SHAPE, SCALE, torch.float32)
@@ -382,11 +398,11 @@ def check_upsample_ce(card, smi, flush):
         "ddp_tpu/ops/pallas/upsample_ce.py:122",
         lambda: U.upsample_ce_fwd_cuda(logits, labels, SCALE),
         lambda: U.upsample_ce_fwd_plain(logits, labels, SCALE),
-        # logits and labels read once, three sums written; per upsampled
-        # element a column lerp, max/sum updates and the amortised row lerps
-        # (~8 FLOPs) and one exponential
-        nbytes=lat + lab + 12, flops=elems * 8, exps=elems,
-        err=fwd_errs["path"][0], flush=flush),
+        # logits and labels read once, three sums and the lse written; per
+        # upsampled element a column lerp, max/sum updates and the amortised
+        # row lerps (~8 FLOPs) and one exponential
+        nbytes=lat + lab + 12 + out_px * 4, flops=elems * 8, exps=elems,
+        err=fwd_errs["path"]["lse"], flush=flush),
         kernel_row(
         card, "upsample_ce_bwd", "ddp_tpu_torch/csrc/upsample_ce.cu",
         "ddp_tpu/ops/pallas/upsample_ce.py:173",
@@ -396,21 +412,28 @@ def check_upsample_ce(card, smi, flush):
         # written once; per upsampled element one exponential and ~10 FLOPs
         nbytes=lat + lab + out_px * 4 + lat, flops=elems * 10, exps=elems,
         err=bwd_errs["path"], flush=flush)]
-    geo = U.bwd_geometry(b, h, w, k, SCALE)
-    build = {"tile": [geo.tile_h, geo.tile_w], "class_chunk": geo.chunk,
-             "grid": list(geo.grid), "threads": 32 * (geo.tile_h + 1),
-             "dynamic_shared_bytes": geo.smem_bytes,
-             **U.bwd_kernel_attrs(SCALE, torch.float32)}
-    for row, errs in zip(rows, (fwd_errs, bwd_errs)):
-        line = {"phase": "kernels", "kernel": row["name"], "max_abs_err": errs,
-                "tolerance": "fwd: nll rtol 1e-5 (atomic order), counts exact; "
-                             "bwd: rtol 1e-4, atol 1e-6",
-                "library_ms": "null: no single PyTorch call computes a bilinear upsample "
-                              "fused with cross-entropy",
-                "row": row, "card": smi}
-        if row["name"] == "upsample_ce_bwd":
-            line["build"] = build  # f32, scale 4: registers, local (spill) bytes
-        emit(line)
+    fgeo, bgeo = U.fwd_geometry(b, h, w, k, SCALE), U.bwd_geometry(b, h, w, k, SCALE)
+    # f32, scale 4: tile, grid, shared bytes, registers, local (spill) bytes
+    builds = ({"tile": [fgeo.tile_h, fgeo.tile_w], "class_chunk": fgeo.chunk,
+               "grid": list(fgeo.grid), "threads": fgeo.threads,
+               "dynamic_shared_bytes": fgeo.smem_bytes,
+               **U.kernel_attrs("fwd", SCALE, torch.float32)},
+              {"tile": [bgeo.tile_h, bgeo.tile_w], "class_chunk": bgeo.chunk,
+               "grid": list(bgeo.grid), "threads": 32 * (bgeo.tile_h + 1),
+               "dynamic_shared_bytes": bgeo.smem_bytes,
+               **U.kernel_attrs("bwd", SCALE, torch.float32)})
+    # the same calls with bf16 logits (the mixed-precision step's)
+    lb = logits.to(torch.bfloat16)
+    bf16_ms = (time_ms(lambda: U.upsample_ce_fwd_cuda(lb, labels, SCALE), flush=flush),
+               time_ms(lambda: U.upsample_ce_bwd_cuda(lb, labels, lse, g, SCALE), flush=flush))
+    for row, errs, build, ms in zip(rows, (fwd_errs, bwd_errs), builds, bf16_ms):
+        emit({"phase": "kernels", "kernel": row["name"], "bf16_logits_ms": ms,
+              "max_abs_err": errs,
+              "tolerance": "fwd: nll rtol 1e-5 (atomic order), counts exact, "
+                           "lse |d| <= 4e-6 max(1, |lse|); bwd: rtol 1e-4, atol 1e-6",
+              "library_ms": "null: no single PyTorch call computes a bilinear upsample "
+                            "fused with cross-entropy",
+              "row": row, "build": build, "card": smi})
     return rows
 
 

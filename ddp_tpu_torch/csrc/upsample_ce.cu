@@ -19,18 +19,42 @@
 // reads instead of recomputing it. Nothing upsampled is written.
 //
 // Bound: at B=2, h=w=128, K=150, S=4 the forward reads 19.7 MB of f32 logits
-// and 4.2 MB of int64 labels, but takes 16 x 32768 x 150 = 78.6 M exponentials
-// (0.019 ms on the SFU against 0.007 ms of bytes). What the TPU kernel kept
-// out of HBM, the S^2-times larger upsampled logits, stays out of it here too.
-//
-// Forward: one warp owns one latent pixel (b, i, j), its lanes stride over
-// the K classes (coalesced loads of the K-vector), and the 3 x 3 neighbourhood
-// it needs is re-read from L1/L2 by the neighbouring warps. Per row phase p
-// the warp lerps the S output pixels (S*i + p, S*j + q) for every class,
-// keeps an online max / sum of exponentials per pixel in registers (one exp
-// per element), merges the lanes by shuffles, and adds its sums to the
-// block's; one atomicAdd per block and sum. Float atomics change the
-// summation order from run to run.
+// and 4.2 MB of int64 labels and writes 2.1 MB of lse, but takes 16 x 32768 x
+// 150 = 78.6 M exponentials (0.019 ms on the SFU against 0.008 ms of bytes).
+// What the TPU kernel kept out of HBM, the S^2-times larger upsampled logits,
+// stays out of it here too. So the SFU and instruction issue bound it: each
+// (output pixel, class) must cost one exponential and a few FP32
+// instructions, and nothing else may be paid per output pixel and class.
+//   - tiles: a block owns TH x 8 latent pixels of one image and their
+//     S*TH x S*8 output pixels, which no other block touches. TH is 16, 8 or
+//     4, the largest with S * TH <= 32 (fwd_tile), fixed at compile time
+//     so that the phase loops unroll; one thread per output row and latent
+//     column owns that cell's S output pixels of the row, so a block has
+//     S * TH * 8 <= 256 threads (256 at S = 4: 8 x 8 tiles, 512 blocks at the
+//     path's shape, one wave at 4 blocks per SM). ops/upsample_ce.py:
+//     fwd_geometry picks the same tile, the grid (tiles, batch) and the
+//     shared bytes, and the launch checks them.
+//   - staging, per chunk of 32 classes: the (TH+2) x 10 halo of logits in
+//     f32, edge-clamped as the upsample clamps it, 8 loads in flight a
+//     thread (lanes along the classes). A halo pixel takes 36 floats, so
+//     that the 8 lanes of a quarter warp (one output row) read 8 neighbouring
+//     pixels' float4s on distinct banks. Classes >= K of the last chunk are
+//     staged as -1e30: their z is -1e30 and their exponential 0. The tile's
+//     labels are staged once (coalesced, lanes along the output row) and its
+//     lse leaves through the same shared buffer.
+//   - per group of 4 classes a thread reads 6 float4s (the halo rows of its
+//     row's taps at its cell's 3 columns), lerps the rows, forms its S
+//     pixels' z, takes each pixel's maximum of the group, rescales its
+//     running sum once (one ex2 per pixel and group) and adds ex2(z log2 e -
+//     m log2 e) per class: one exponential per (output pixel, class), each
+//     pixel's (max, sum) in one thread, no branch per element and no
+//     cross-lane merge (~11 instructions per output pixel and class). The
+//     label's z is formed again once per chunk from the staged halo, with
+//     the same roundings, so z_label >= max z (the Pallas rule) compares
+//     exact values; lse = m + logf(s) once per pixel.
+//   - sums: per thread over its valid pixels, then shuffles, and one
+//     atomicAdd per block and sum. Float atomics change the summation order
+//     from run to run.
 //
 // Backward (replaces :_bwd_kernel, reached through _kernel_grad from the VJP
 // _ce_sums_bwd): dlogits[b, i, j, :] = g * sum over the output pixels whose
@@ -88,12 +112,36 @@ namespace {
 
 using ddp::to_f32;
 
-constexpr int kWarps = 8;  // forward: latent pixels per block, one per warp
 constexpr unsigned kFull = 0xffffffffu;
-// backward: classes per block (one per lane), and the opt-in shared memory
-// of one block
+// classes staged at a time (backward: per block, one per lane), and the
+// opt-in shared memory of one block
 constexpr int kChunk = 32;
 constexpr int kMaxSmem = 232448;
+
+// the forward's tile: fwd_tile<S>() x kFwdTileW latent pixels, the height
+// the largest of 16, 8, 4 with at most 32 output rows, one thread per output
+// row and latent column (ops/upsample_ce.py:fwd_geometry)
+constexpr int kFwdTileW = 8;
+template <int S>
+__host__ __device__ constexpr int fwd_tile() {
+  return S * 16 <= 32 ? 16 : S * 8 <= 32 ? 8 : 4;
+}
+template <int S>
+__host__ __device__ constexpr int fwd_threads() {
+  return S * fwd_tile<S>() * kFwdTileW;
+}
+// floats of a staged halo pixel in the forward: its chunk of classes and 4
+// more, so that neighbouring pixels' float4s fall on distinct banks
+constexpr int kFwdPixel = kChunk + 4;
+// blocks per SM the forward's registers leave room for (64 a thread at 256)
+constexpr int kFwdBlocks = 4;
+// the forward uses no opt-in shared memory
+constexpr int kFwdMaxSmem = 48 * 1024;
+
+// shared bytes of the forward at tile TH x TW (ops/upsample_ce.py:fwd_smem_bytes)
+__host__ __device__ constexpr size_t fwd_smem_bytes(int scale, int th, int tw) {
+  return sizeof(float) * ((size_t)(th + 2) * (tw + 2) * kFwdPixel + (size_t)scale * scale * th * tw);
+}
 
 // the backward's tile edge at scale S: 8 x 8 where three blocks' shared
 // memory fits on an SM (S <= 5), else 4 x 4 (ops/upsample_ce.py:bwd_geometry)
@@ -102,7 +150,7 @@ __host__ __device__ constexpr int bwd_tile() {
   return S <= 5 ? 8 : 4;
 }
 
-// global loads each thread keeps in flight while the backward stages a tile
+// global loads each thread keeps in flight while a kernel stages a halo
 constexpr int kInFlight = 8;
 
 // a staged output pixel of the backward: its lse times log2(e) (+inf where
@@ -145,102 +193,168 @@ __device__ __forceinline__ void phase_weights(int p, float* wlo, float* whi) {
   }
 }
 
-// the two (edge-clamped) taps of phase p of latent index i along an axis of n
-template <int S>
-__device__ __forceinline__ void phase_taps(int p, int i, int n, int* lo, int* hi) {
-  if (minus<S>(p)) {
-    *lo = max(i - 1, 0);
-    *hi = i;
-  } else {
-    *lo = i;
-    *hi = min(i + 1, n - 1);
-  }
-}
-
 __device__ __forceinline__ float lerp(float lo, float wlo, float hi, float whi) {
   return __fadd_rn(__fmul_rn(lo, wlo), __fmul_rn(hi, whi));
 }
 
-// merge an online (max, sum of exp(z - max)) pair with lane ^ off's
-__device__ __forceinline__ void merge_lse(float* m, float* s, int off) {
-  const float m2 = __shfl_xor_sync(kFull, *m, off);
-  const float s2 = __shfl_xor_sync(kFull, *s, off);
-  const float mm = fmaxf(*m, m2);
-  const float a = *m == -INFINITY ? 0.0f : *s * expf(*m - mm);
-  const float b = m2 == -INFINITY ? 0.0f : s2 * expf(m2 - mm);
-  *m = mm;
-  *s = a + b;
-}
-
 template <typename T, int S>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(fwd_threads<S>(), kFwdBlocks)
 upsample_ce_fwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__ labels,
-                       float* __restrict__ sums, float* __restrict__ lse_out, int nb,
-                       int h, int w, int k, int64_t ignore_index) {
-  __shared__ float red[3][kWarps];
+                       float* __restrict__ sums, float* __restrict__ lse_out, int h, int w,
+                       int k, int64_t ignore_index) {
+  constexpr int TH = fwd_tile<S>(), TW = kFwdTileW;
+  constexpr int kThreads = fwd_threads<S>(), kWarpsF = kThreads / 32;
+  constexpr int VW = TW + 2, NV = (TH + 2) * VW;  // halo columns and pixels
+  constexpr int RW = S * TW;                      // the tile's output columns
+  constexpr float kLog2e = 1.4426950408889634f;
+  constexpr float kPad = -1e30f;  // a class >= K: z = -1e30, exponential 0
+  constexpr int kNone = -2;       // the label code of a pixel that counts nothing
+  static_assert(kThreads % 32 == 0 && kThreads <= 256, "whole warps, 64 registers");
+  extern __shared__ float4 smem[];
+  float* s_v = reinterpret_cast<float*>(smem);                   // [NV][kFwdPixel]
+  int* s_lab = reinterpret_cast<int*>(s_v + NV * kFwdPixel);     // [S * TH][RW]
+  float* s_lse = reinterpret_cast<float*>(s_lab);                // the same, at the end
+  __shared__ float red[3][kWarpsF];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t pix = (int64_t)blockIdx.x * kWarps + warp;
+  const int tiles_w = (w + TW - 1) / TW;
+  const int i0 = (int)(blockIdx.x / tiles_w) * TH, j0 = (int)(blockIdx.x % tiles_w) * TW;
+  const int64_t b = blockIdx.y;
   const int hh = S * h, ww = S * w;
-  float nll = 0.0f, cnt = 0.0f, cor = 0.0f;  // lane 0's sums for this warp
-  if (pix < (int64_t)nb * h * w) {
-    const int j = (int)(pix % w);
-    const int i = (int)((pix / w) % h);
-    const int64_t b = pix / ((int64_t)w * h);
-    const int jm = max(j - 1, 0), jp = min(j + 1, w - 1);
-    float wclo[S], wchi[S];
+  const int y0 = S * i0, x0 = S * j0;
+
+  // 1. the tile's labels, coded: the class, -1 for a valid label outside
+  // [0, K) (no class matches it), kNone for an ignored pixel or one outside
+  // the image; S a thread, lanes along the output row
+  {
+    int64_t lab[S];
 #pragma unroll
-    for (int q = 0; q < S; ++q) phase_weights<S>(q, &wclo[q], &wchi[q]);
-    for (int p = 0; p < S; ++p) {
-      int rl, rh;
-      float wrl, wrh;
-      phase_taps<S>(p, i, h, &rl, &rh);
-      phase_weights<S>(p, &wrl, &wrh);
-      const T* lo_row = logits + ((b * h + rl) * w) * (int64_t)k;
-      const T* hi_row = logits + ((b * h + rh) * w) * (int64_t)k;
-      const int64_t* lab_row = labels + (b * hh + (S * i + p)) * (int64_t)ww + S * j;
-      int64_t lab[S];
-      float m[S], s[S], zl[S];
+    for (int u = 0; u < S; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int y = y0 + e / RW, x = x0 + e % RW;
+      lab[u] = y < hh && x < ww ? labels[(b * hh + y) * (int64_t)ww + x] : ignore_index;
+    }
+#pragma unroll
+    for (int u = 0; u < S; ++u)
+      s_lab[threadIdx.x + u * kThreads] = lab[u] == ignore_index ? kNone
+                                          : lab[u] >= 0 && lab[u] < k ? (int)lab[u] : -1;
+  }
+
+  // this thread's output row r of the tile and latent column lc: the halo
+  // rows of its row taps (unclamped: the staging clamped them) and weights
+  const int r = threadIdx.x / TW, lc = threadIdx.x % TW;
+  const int p = r % S;
+  float wrl, wrh;
+  phase_weights<S>(p, &wrl, &wrh);
+  const float* vlo = s_v + ((r / S + (minus<S>(p) ? 0 : 1)) * VW + lc) * kFwdPixel;
+  const float* vhi = vlo + VW * kFwdPixel;
+  float wcl[S], wch[S];
+  int lab[S];
+  float m[S], s[S], zl[S];  // per output pixel: max z, sum of exp(z - m), z of the label
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    phase_weights<S>(q, &wcl[q], &wch[q]);
+    m[q] = -INFINITY;
+    s[q] = 0.0f;
+    zl[q] = 0.0f;  // a label outside [0, K): the Pallas kernel's all-zero one-hot
+  }
+
+  for (int c0 = 0; c0 < k; c0 += kChunk) {
+    const int nc = min(kChunk, k - c0);
+    // 2. stage the chunk's halo (rows i0 - 1 .. i0 + TH, columns j0 - 1 ..
+    // j0 + TW, clamped to the image as the upsample's taps are), once every
+    // thread is done with the previous chunk
+    __syncthreads();
+    for (int e0 = warp; e0 < NV; e0 += kInFlight * kWarpsF) {
+      float v[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int e = e0 + u * kWarpsF;
+        const int row = min(max(i0 - 1 + e / VW, 0), h - 1);
+        const int col = min(max(j0 - 1 + e % VW, 0), w - 1);
+        v[u] = e < NV && lane < nc
+                   ? to_f32(logits[((b * h + row) * w + col) * (int64_t)k + c0 + lane])
+                   : kPad;
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        if (e0 + u * kWarpsF < NV) s_v[(e0 + u * kWarpsF) * kFwdPixel + lane] = v[u];
+    }
+    __syncthreads();
+    if (c0 == 0) {
+#pragma unroll
+      for (int q = 0; q < S; ++q) lab[q] = s_lab[r * RW + S * lc + q];
+    }
+
+    // 3. per group of 4 classes: the rows lerped at the cell's 3 halo
+    // columns, each pixel's z, its maximum, one rescale, one exponential
+    // per class
+    for (int g = 0; g < nc; g += 4) {
+      float zr[3][4];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float4 a = *reinterpret_cast<const float4*>(vlo + d * kFwdPixel + g);
+        const float4 c = *reinterpret_cast<const float4*>(vhi + d * kFwdPixel + g);
+        zr[d][0] = lerp(a.x, wrl, c.x, wrh);
+        zr[d][1] = lerp(a.y, wrl, c.y, wrh);
+        zr[d][2] = lerp(a.z, wrl, c.z, wrh);
+        zr[d][3] = lerp(a.w, wrl, c.w, wrh);
+      }
 #pragma unroll
       for (int q = 0; q < S; ++q) {
-        lab[q] = __ldg(lab_row + q);
-        m[q] = -INFINITY;
-        s[q] = 0.0f;
-        zl[q] = 0.0f;
-      }
-      for (int c = lane; c < k; c += 32) {
-        const float zm = lerp(to_f32(lo_row[jm * k + c]), wrl, to_f32(hi_row[jm * k + c]), wrh);
-        const float z0 = lerp(to_f32(lo_row[j * k + c]), wrl, to_f32(hi_row[j * k + c]), wrh);
-        const float zp = lerp(to_f32(lo_row[jp * k + c]), wrl, to_f32(hi_row[jp * k + c]), wrh);
+        const int d = minus<S>(q) ? 0 : 1;  // the pixel's column taps: d, d + 1
+        float z[4];
 #pragma unroll
-        for (int q = 0; q < S; ++q) {
-          const float z = minus<S>(q) ? lerp(zm, wclo[q], z0, wchi[q])
-                                      : lerp(z0, wclo[q], zp, wchi[q]);
-          if (z > m[q]) {
-            s[q] = s[q] * expf(m[q] - z) + 1.0f;
-            m[q] = z;
-          } else {
-            s[q] += expf(z - m[q]);
-          }
-          if (c == lab[q]) zl[q] = z;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < S; ++q) {
-        for (int off = 16; off > 0; off >>= 1) {
-          merge_lse(&m[q], &s[q], off);
-          zl[q] += __shfl_xor_sync(kFull, zl[q], off);  // one lane holds it, the rest 0
-        }
-        const float lse = m[q] + logf(s[q]);
-        if (lane == 0) {
-          lse_out[(b * hh + (S * i + p)) * (int64_t)ww + S * j + q] = lse;
-          if (lab[q] != ignore_index) {
-            nll += lse - zl[q];
-            cnt += 1.0f;
-            cor += zl[q] >= m[q] ? 1.0f : 0.0f;
-          }
-        }
+        for (int cc = 0; cc < 4; ++cc) z[cc] = lerp(zr[d][cc], wcl[q], zr[d + 1][cc], wch[q]);
+        const float mn = fmaxf(fmaxf(m[q], fmaxf(z[0], z[1])), fmaxf(z[2], z[3]));
+        const float ml = __fmul_rn(mn, kLog2e);
+        const float e01 = ex2(fmaf(z[0], kLog2e, -ml)) + ex2(fmaf(z[1], kLog2e, -ml));
+        const float e23 = ex2(fmaf(z[2], kLog2e, -ml)) + ex2(fmaf(z[3], kLog2e, -ml));
+        // the sum so far is scaled by 2^-(m log2 e) rounded as ml is, so the
+        // rescale is exactly 1 where the maximum stays (no drift over the
+        // groups); m = -inf before the first group: ex2(-inf) = 0 times s = 0
+        s[q] = fmaf(s[q], ex2(__fmul_rn(m[q], kLog2e) - ml), e01 + e23);
+        m[q] = mn;
       }
     }
+    // the label's z where the label is in this chunk, as in the loop above
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int cl = lab[q] - c0;
+      if (cl >= 0 && cl < nc) {
+        const int d = minus<S>(q) ? 0 : 1;
+        const float* lo = vlo + d * kFwdPixel + cl;
+        const float* hi = vhi + d * kFwdPixel + cl;
+        zl[q] = lerp(lerp(lo[0], wrl, hi[0], wrh), wcl[q],
+                     lerp(lo[kFwdPixel], wrl, hi[kFwdPixel], wrh), wch[q]);
+      }
+    }
+  }
+
+  // 4. each pixel's lse, through shared memory (each thread writes the
+  // entries whose labels it read, so no barrier is needed before), and the
+  // thread's sums over its valid pixels
+  float nll = 0.0f, cnt = 0.0f, cor = 0.0f;
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+    const float l = m[q] + logf(s[q]);
+    s_lse[r * RW + S * lc + q] = l;
+    if (lab[q] != kNone) {
+      nll += l - zl[q];
+      cnt += 1.0f;
+      cor += zl[q] >= m[q] ? 1.0f : 0.0f;  // ties count, as in the Pallas kernel
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < S; ++u) {
+    const int e = threadIdx.x + u * kThreads;
+    const int y = y0 + e / RW, x = x0 + e % RW;
+    if (y < hh && x < ww) lse_out[(b * hh + y) * (int64_t)ww + x] = s_lse[e];
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    nll += __shfl_xor_sync(kFull, nll, off);
+    cnt += __shfl_xor_sync(kFull, cnt, off);
+    cor += __shfl_xor_sync(kFull, cor, off);
   }
   if (lane == 0) {
     red[0][warp] = nll;
@@ -250,7 +364,8 @@ upsample_ce_fwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__
   __syncthreads();
   if (threadIdx.x < 3) {
     float t = 0.0f;
-    for (int v = 0; v < kWarps; ++v) t += red[threadIdx.x][v];
+#pragma unroll
+    for (int v = 0; v < kWarpsF; ++v) t += red[threadIdx.x][v];
     atomicAdd(&sums[threadIdx.x], t);
   }
 }
@@ -420,10 +535,18 @@ upsample_ce_bwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__
 
 template <typename T, int S>
 cudaError_t launch_fwd(const void* logits, const int64_t* labels, float* sums, float* lse,
-                       int nb, int h, int w, int k, int64_t ignore, cudaStream_t st) {
-  const int64_t blocks = ((int64_t)nb * h * w + kWarps - 1) / kWarps;
-  upsample_ce_fwd_kernel<T, S><<<(unsigned)blocks, kWarps * 32, 0, st>>>(
-      static_cast<const T*>(logits), labels, sums, lse, nb, h, w, k, ignore);
+                       int nb, int h, int w, int k, int64_t ignore, int th, int tw, int gx,
+                       int gy, int threads, int smem, cudaStream_t st) {
+  constexpr int kTile = fwd_tile<S>();
+  static_assert(fwd_smem_bytes(S, kTile, kFwdTileW) <= kFwdMaxSmem, "no opt-in needed");
+  // the geometry must be the compiled tile's, cover the output, and give
+  // the shared memory its layout needs
+  const int64_t tiles = (int64_t)((h + kTile - 1) / kTile) * ((w + kFwdTileW - 1) / kFwdTileW);
+  if (th != kTile || tw != kFwdTileW || gx != tiles || gy != nb || threads != fwd_threads<S>() ||
+      (int64_t)smem < (int64_t)fwd_smem_bytes(S, th, tw) || smem > kFwdMaxSmem)
+    return cudaErrorInvalidValue;
+  upsample_ce_fwd_kernel<T, S><<<dim3((unsigned)gx, (unsigned)gy), threads, smem, st>>>(
+      static_cast<const T*>(logits), labels, sums, lse, h, w, k, ignore);
   return cudaGetLastError();
 }
 
@@ -432,12 +555,13 @@ cudaError_t launch_fwd(const void* logits, const int64_t* labels, float* sums, f
 
 template <typename T>
 cudaError_t dispatch_fwd(int scale, const void* logits, const int64_t* labels, float* sums,
-                         float* lse, int nb, int h, int w, int k, int64_t ignore,
-                         cudaStream_t st) {
+                         float* lse, int nb, int h, int w, int k, int64_t ignore, int th,
+                         int tw, int gx, int gy, int threads, int smem, cudaStream_t st) {
   switch (scale) {
-#define X(T_, S_) \
-  case S_:        \
-    return launch_fwd<T_, S_>(logits, labels, sums, lse, nb, h, w, k, ignore, st);
+#define X(T_, S_)                                                                      \
+  case S_:                                                                             \
+    return launch_fwd<T_, S_>(logits, labels, sums, lse, nb, h, w, k, ignore, th, tw, gx, \
+                              gy, threads, smem, st);
     DDP_SCALES(X, T)
 #undef X
     default:
@@ -485,11 +609,12 @@ cudaError_t dispatch_bwd(int scale, const void* logits, const int64_t* labels,
 }
 
 template <typename T>
-cudaError_t bwd_attrs(int scale, cudaFuncAttributes* attrs) {
+cudaError_t kernel_attrs(bool fwd, int scale, cudaFuncAttributes* attrs) {
   switch (scale) {
-#define X(T_, S_) \
-  case S_:        \
-    return cudaFuncGetAttributes(attrs, upsample_ce_bwd_kernel<T_, S_>);
+#define X(T_, S_)                                                                   \
+  case S_:                                                                          \
+    return fwd ? cudaFuncGetAttributes(attrs, upsample_ce_fwd_kernel<T_, S_>)       \
+               : cudaFuncGetAttributes(attrs, upsample_ce_bwd_kernel<T_, S_>);
     DDP_SCALES(X, T)
 #undef X
     default:
@@ -497,24 +622,46 @@ cudaError_t bwd_attrs(int scale, cudaFuncAttributes* attrs) {
   }
 }
 
+// out[4] = registers per thread, local (spilled) bytes per thread, static
+// shared bytes and the largest block of one kernel, from cudaFuncGetAttributes
+int write_attrs(bool fwd, int scale, int dtype, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = dtype == 0   ? kernel_attrs<float>(fwd, scale, &a)
+                          : dtype == 1 ? kernel_attrs<__nv_bfloat16>(fwd, scale, &a)
+                                       : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // logits [nb, h, w, k] (dtype 0 = float32, 1 = bfloat16), labels
 // [nb, scale*h, scale*w] int64; sums float32[3] zero-filled (nll, count,
-// correct); lse [nb, scale*h, scale*w] float32. scale in 2..8.
+// correct); lse [nb, scale*h, scale*w] float32. scale in 2..8. The tile
+// (tile_h x tile_w latent pixels: 8 wide, 16, 8 or 4 high as scale is 2, 3-4
+// or above), the grid (tiles, nb), the threads (scale * tile_h * tile_w) and
+// the dynamic shared bytes come from ops/upsample_ce.py:fwd_geometry.
 extern "C" int ddp_upsample_ce_fwd(const void* logits, const void* labels, void* sums,
                                    void* lse, int nb, int h, int w, int k, int scale,
-                                   int64_t ignore_index, int dtype, void* stream) {
+                                   int64_t ignore_index, int dtype, int tile_h, int tile_w,
+                                   int grid_x, int grid_y, int threads, int smem_bytes,
+                                   void* stream) {
   if ((int64_t)nb * h * w == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* lab = static_cast<const int64_t*>(labels);
   float* s = static_cast<float*>(sums);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch_fwd<float>(scale, logits, lab, s, l, nb, h, w, k, ignore_index, st);
+    return (int)dispatch_fwd<float>(scale, logits, lab, s, l, nb, h, w, k, ignore_index,
+                                    tile_h, tile_w, grid_x, grid_y, threads, smem_bytes, st);
   if (dtype == 1)
     return (int)dispatch_fwd<__nv_bfloat16>(scale, logits, lab, s, l, nb, h, w, k,
-                                            ignore_index, st);
+                                            ignore_index, tile_h, tile_w, grid_x, grid_y,
+                                            threads, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -545,17 +692,12 @@ extern "C" int ddp_upsample_ce_bwd(const void* logits, const void* labels, const
 }
 
 // out[4] = registers per thread, local (spilled) bytes per thread, static
-// shared bytes and the largest block of the backward kernel for this scale
-// and dtype, from cudaFuncGetAttributes
+// shared bytes and the largest block of the forward (backward) kernel for
+// this scale and dtype, from cudaFuncGetAttributes
+extern "C" int ddp_upsample_ce_fwd_attrs(int scale, int dtype, int* out) {
+  return write_attrs(true, scale, dtype, out);
+}
+
 extern "C" int ddp_upsample_ce_bwd_attrs(int scale, int dtype, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t err = dtype == 0   ? bwd_attrs<float>(scale, &a)
-                          : dtype == 1 ? bwd_attrs<__nv_bfloat16>(scale, &a)
-                                       : cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = a.maxThreadsPerBlock;
-  return (int)cudaSuccess;
+  return write_attrs(false, scale, dtype, out);
 }

@@ -37,13 +37,16 @@ _ENTRIES = {
     "ddp_q_sample": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I, _P],
     # labels, demb, out, n, c, k, stream
     "ddp_dtable": [_P, _P, _P, _I64, _I, _I, _P],
-    # logits, labels, sums, lse, nb, h, w, k, scale, ignore_index, dtype, stream
-    "ddp_upsample_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I, _P],
+    # logits, labels, sums, lse, nb, h, w, k, scale, ignore_index, dtype,
+    # tile_h, tile_w, grid_x, grid_y, threads, smem_bytes, stream
+    "ddp_upsample_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I,
+                            _I, _I, _I, _I, _I, _I, _P],
     # logits, labels, lse, g, dlogits, nb, h, w, k, scale, ignore_index, dtype,
     # tile_h, tile_w, grid_x, grid_y, grid_z, smem_bytes, stream
     "ddp_upsample_ce_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I,
                             _I, _I, _I, _I, _I, _I, _P],
-    # scale, dtype, out int[4] (no stream: it launches nothing)
+    # scale, dtype, out int[4] (no stream: they launch nothing)
+    "ddp_upsample_ce_fwd_attrs": [_I, _I, _P],
     "ddp_upsample_ce_bwd_attrs": [_I, _I, _P],
 }
 

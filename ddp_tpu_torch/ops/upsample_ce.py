@@ -40,8 +40,10 @@ launches: Dict[str, int] = {"upsample_ce_fwd": 0, "upsample_ce_bwd": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SCALE = 8  # the CUDA kernels are instantiated for scales 2..8
-BWD_CHUNK = 32  # classes per block of the backward kernel, one per lane
-BWD_MAX_SMEM = 232_448  # opt-in shared memory of one block on an H100
+CHUNK = 32  # classes staged at a time by both kernels (the backward: one per lane)
+MAX_SMEM = 232_448  # opt-in shared memory of one block on an H100
+FWD_MAX_SMEM = 48 * 1024  # the forward's, which does not opt in
+FWD_TILE_W = 8  # latent columns of a forward tile (the 8 lanes of a quarter warp)
 
 
 def reset_launches() -> None:
@@ -168,7 +170,7 @@ def bwd_smem_bytes(scale: int, tile_h: int, tile_w: int) -> int:
     """Shared bytes of one backward block: the (TH+2) x (TW+2) halo of logits
     and the (S·TH+S) x TW x chunk column-lerped gradient, f32 per class; the
     (S·TH+S) x (S·TW+S) region's lse and label, 8 bytes per output pixel."""
-    return (4 * BWD_CHUNK * ((tile_h + 2) * (tile_w + 2) + scale * (tile_h + 1) * tile_w)
+    return (4 * CHUNK * ((tile_h + 2) * (tile_w + 2) + scale * (tile_h + 1) * tile_w)
             + 8 * scale * scale * (tile_h + 1) * (tile_w + 1))
 
 
@@ -177,25 +179,60 @@ def bwd_geometry(b: int, h: int, w: int, k: int, scale: int) -> BwdGeometry:
     tiles where three blocks fit on an SM's shared memory (scales 2..5),
     else 4 x 4. The kernel is compiled for that tile (``bwd_tile`` in
     ``csrc/upsample_ce.cu``) and refuses another."""
-    tile = next(t for t in (8, 4) if bwd_smem_bytes(scale, t, t) <= BWD_MAX_SMEM // 3)
+    tile = next(t for t in (8, 4) if bwd_smem_bytes(scale, t, t) <= MAX_SMEM // 3)
     tiles = -(-h // tile) * -(-w // tile)
-    return BwdGeometry(tile, tile, BWD_CHUNK, (tiles, -(-k // BWD_CHUNK), b),
+    return BwdGeometry(tile, tile, CHUNK, (tiles, -(-k // CHUNK), b),
                        bwd_smem_bytes(scale, tile, tile))
 
 
-def bwd_kernel_attrs(scale: int, dtype: torch.dtype) -> Dict[str, int]:
+class FwdGeometry(NamedTuple):
+    """Launch of the tiled forward kernel: a block of ``threads`` (one per
+    output row and latent column) owns ``tile_h x tile_w`` latent pixels of
+    one image and stages ``chunk`` classes at a time; ``grid`` = (tiles,
+    batch)."""
+    tile_h: int
+    tile_w: int
+    chunk: int
+    grid: Tuple[int, int]
+    threads: int
+    smem_bytes: int
+
+
+def fwd_smem_bytes(scale: int, tile_h: int, tile_w: int) -> int:
+    """Shared bytes of one forward block: the (TH+2) x (TW+2) halo of logits,
+    chunk + 4 floats per pixel (the 4 keep a quarter warp's float4 reads on
+    distinct banks); the S·TH x S·TW tile's labels, then its lse, 4 bytes per
+    output pixel."""
+    return 4 * ((tile_h + 2) * (tile_w + 2) * (CHUNK + 4) + scale * scale * tile_h * tile_w)
+
+
+def fwd_geometry(b: int, h: int, w: int, k: int, scale: int) -> FwdGeometry:
+    """The forward's launch at logits [b, h, w, k] and ``scale``: tiles 8
+    latent columns wide and 16, 8 or 4 rows high, the most with at most 32
+    output rows, so that a block has at most 256 threads (at 64 registers,
+    four blocks share an SM: 528 places for the 512 blocks of [2, 128, 128]
+    at scale 4, one wave). The kernel is compiled for that tile
+    (``fwd_tile`` in ``csrc/upsample_ce.cu``) and refuses another."""
+    tile_h = next(t for t in (16, 8, 4) if scale * t <= 32)
+    tiles = -(-h // tile_h) * -(-w // FWD_TILE_W)
+    return FwdGeometry(tile_h, FWD_TILE_W, CHUNK, (tiles, b), scale * tile_h * FWD_TILE_W,
+                       fwd_smem_bytes(scale, tile_h, FWD_TILE_W))
+
+
+def kernel_attrs(kernel: str, scale: int, dtype: torch.dtype) -> Dict[str, int]:
     """Registers, spilled (local) bytes and static shared bytes per thread
-    or block of the backward kernel's instantiation, as the card reports
-    them (``cudaFuncGetAttributes``); builds the kernels if needed."""
+    or block of the ``"fwd"`` or ``"bwd"`` kernel's instantiation, as the
+    card reports them (``cudaFuncGetAttributes``); builds the kernels if
+    needed."""
     import ctypes
 
     from ._build import load_library
 
     out = (ctypes.c_int * 4)()
-    err = load_library().ddp_upsample_ce_bwd_attrs(scale, _DTYPE_CODES[dtype],
-                                                   ctypes.addressof(out))
+    entry = f"ddp_upsample_ce_{kernel}_attrs"
+    err = getattr(load_library(), entry)(scale, _DTYPE_CODES[dtype], ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"ddp_upsample_ce_bwd_attrs: cudaError {err}")
+        raise RuntimeError(f"{entry}: cudaError {err}")
     return dict(zip(("registers", "local_bytes", "static_shared_bytes", "max_threads"), out))
 
 
@@ -232,9 +269,11 @@ def upsample_ce_fwd_cuda(logits: torch.Tensor, labels: torch.Tensor, scale: int,
     sums = torch.zeros(3, dtype=torch.float32, device=logits.device)
     lse = torch.empty((b, scale * h, scale * w), dtype=torch.float32, device=logits.device)
     if logits.numel():
+        geo = fwd_geometry(b, h, w, k, scale)
         _launch("upsample_ce_fwd", "ddp_upsample_ce_fwd", logits.device, logits.data_ptr(),
                 labels.data_ptr(), sums.data_ptr(), lse.data_ptr(), b, h, w, k, scale,
-                int(ignore_index), _DTYPE_CODES[logits.dtype])
+                int(ignore_index), _DTYPE_CODES[logits.dtype], geo.tile_h, geo.tile_w,
+                *geo.grid, geo.threads, geo.smem_bytes)
     return sums, lse
 
 

@@ -88,6 +88,26 @@ def test_accuracy_matches_pallas_and_oracle():
     np.testing.assert_allclose(float(acc2), float(acc_xla), atol=1e-6)
 
 
+def test_out_of_range_label_reference_discrepancy():
+    """Reference fault (ROADMAP queue 3): for a valid label outside [0, K)
+    the Pallas kernel adds lse − 0 to the NLL (its one-hot is all zero),
+    while the XLA oracle adds 0. The port follows the Pallas kernel."""
+    rng = np.random.RandomState(4)
+    logits = rng.randn(1, 4, 8, 7).astype(np.float32)
+    labels = rng.randint(0, 7, (1, 8, 16)).astype(np.int64)
+    labels[0, -1, :] = 7 + 3  # one row of valid labels at K + 3
+    lab_j = jnp.asarray(labels, jnp.int32)
+    pallas = float(_jax_fused(jnp.asarray(logits), lab_j, 2))
+    oracle = float(jax_oracle(jnp.asarray(logits), lab_j, 2))
+    port = U.upsample_ce(torch.from_numpy(logits), torch.from_numpy(labels), 2).item()
+    # the two references differ by that row's log-sum-exp over labels.size
+    _, lse = U.upsample_ce_fwd_plain(torch.from_numpy(logits), torch.from_numpy(labels), 2)
+    np.testing.assert_allclose(pallas - oracle, lse[0, -1].sum().item() / labels.size,
+                               rtol=1e-4)
+    assert pallas - oracle > 0.1
+    np.testing.assert_allclose(port, pallas, rtol=1e-5)
+
+
 def test_bf16_input():
     """bf16 logits, f32 arithmetic (as in the Pallas kernel) against the f32
     oracle at the bf16 rounding of the inputs."""

@@ -20,7 +20,7 @@ from ddp_tpu_torch.ops import upsample_ce as U
 @pytest.mark.parametrize("scale", range(2, U.MAX_SCALE + 1))
 def test_bwd_geometry_fits_the_card(scale, k):
     geo = U.bwd_geometry(2, 128, 128, k, scale)
-    assert geo.smem_bytes <= U.BWD_MAX_SMEM
+    assert geo.smem_bytes <= U.MAX_SMEM
     assert geo.smem_bytes == U.bwd_smem_bytes(scale, geo.tile_h, geo.tile_w)
     assert 1 <= geo.tile_h <= 8 and geo.tile_w >= 1  # the kernel takes tile_h <= 8
     assert geo.chunk == 32
