@@ -16,12 +16,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                timings are float32 unless a phase says bf16.
   1. build   - compiles ddp_tpu_torch/csrc/*.cu with nvcc (sm_90a, one nvcc
                per source, in parallel) and loads the library.
-  2. kernels - each CUDA kernel against its plain PyTorch version on the card
-               at the main paths' shapes and at edge shapes, with its time
-               (cold L2), the plain version's time, one PyTorch call's time
-               where one computes the same function, and its bound; the
-               upsample_ce forward's and backward's lines also give their
-               tile, grid, shared bytes, registers and spilled bytes.
+  2. kernels - ptxas's registers and spills of every kernel; each CUDA
+               kernel against its plain PyTorch version on the card at the
+               main paths' shapes and at edge shapes, with its time (cold L2),
+               the plain version's time, one PyTorch call's time where one
+               computes the same function, and its bound; the upsample_ce
+               forward's and backward's lines also give their tile, grid and
+               shared bytes. The table gradient is checked fused
+               (squash_dtable: f32/bf16 g and table, with and without alpha,
+               random, ragged, contended and region-map labels, and g with a
+               row stride) and alone
+               (dtable), and timed beside the unfused path it replaced.
   3. reference       - a small sample() through the card and through the CPU.
   4. train_reference - one tiny train step's loss on the card and on the CPU
                (same weights, t, noise and batch; dropout off).
@@ -36,6 +41,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                peak memory; one step with fixed t and noise and dropout off
                through the kernels and through the plain versions (loss and
                every gradient); then the same step in bf16 (mixed precision).
+  8. table_grad - the table gradient's backward at the training path's
+               shape, timed and profiled alone, and its autograd node in one
+               profiled f32 train step: device time and launches. It calls
+               only public functions, so run from an earlier checkout's root
+               (the script given by path, e.g. through runpy) it measures
+               that checkout's package.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -133,10 +144,11 @@ def plain_kernels():
     PyTorch versions (comparison runs only)."""
     from ddp_tpu_torch.ops import q_sample as Q, upsample_ce as U
 
-    saved = {(Q, n): getattr(Q, n) for n in ("encode_map_cuda", "q_sample_cuda", "dtable_cuda")}
+    saved = {(Q, n): getattr(Q, n) for n in ("encode_map_cuda", "q_sample_cuda", "dtable_cuda",
+                                             "squash_dtable_cuda")}
     saved.update({(U, n): getattr(U, n) for n in ("upsample_ce_fwd_cuda", "upsample_ce_bwd_cuda")})
     Q.encode_map_cuda, Q.q_sample_cuda = Q.encode_map_plain, Q.q_sample_plain
-    Q.dtable_cuda = Q.dtable_plain
+    Q.dtable_cuda, Q.squash_dtable_cuda = Q.dtable_plain, Q.squash_dtable_plain
     U.upsample_ce_fwd_cuda = U.upsample_ce_fwd_plain
     U.upsample_ce_bwd_cuda = (lambda logits, labels, lse, g, scale, ignore:
                               U.upsample_ce_grad_plain(logits, labels, lse, g[0], scale, ignore))
@@ -195,6 +207,19 @@ def kernel_row(card, name, source, replaces, fn, plain_fn, nbytes, flops, exps, 
             "library_ms": time_ms(library_fn, flush=flush) if library_fn else None}
 
 
+def sweep_ms(module, name, values, flush, fn):
+    """fn's time with the module constant ``name`` (a grid's blocks per SM)
+    set to each of ``values`` in turn, then restored."""
+    default, times = getattr(module, name), {}
+    try:
+        for v in values:
+            setattr(module, name, v)
+            times[v] = time_ms(fn, flush=flush)
+    finally:
+        setattr(module, name, default)
+    return times
+
+
 def check_encode_map(card, smi, flush):
     from ddp_tpu_torch.ops import q_sample as Q
 
@@ -224,7 +249,14 @@ def check_encode_map(card, smi, flush):
         lambda: Q.encode_map_plain(labels, table, BIT_SCALE),
         nbytes=N * 8 + k * C * 4 + N * C * 4,  # labels, table read once, out written once
         flops=N * C * 6, exps=N * C, err=errs[f"float32_n{N}_c{C}"], flush=flush)
+    tb = table.to(torch.bfloat16)
     emit({"phase": "kernels", "kernel": "encode_map", "max_abs_err": errs,
+          "bf16_ms": time_ms(lambda: Q.encode_map_cuda(labels, tb, BIT_SCALE), flush=flush),
+          # a plain write of the same bytes: what this card's stores reach
+          "fill_same_bytes_ms": time_ms(lambda: torch.empty(N, C, device="cuda").fill_(1.0),
+                                        flush=flush),
+          "ms_by_blocks_per_sm": sweep_ms(Q, "ENCODE_BLOCKS_PER_SM", (2, 4, 8, 16), flush,
+                                          lambda: Q.encode_map_cuda(labels, table, BIT_SCALE)),
           "tolerance": "f32 1e-6 x bit_scale; bf16 one ulp of |out| (2^-14)",
           "library_ms": "null: no single PyTorch call computes gather+squash",
           "row": row, "card": smi})
@@ -274,39 +306,127 @@ def check_q_sample(card, smi, flush):
     return row
 
 
+def region_labels(cfg):
+    """The training path's labels: train_batch's ground truth, nearest-
+    downsampled to the 1/4-scale grid with 255 mapped to K, flattened, as
+    corrupt_fused sees them."""
+    from ddp_tpu_torch.ops.resize import resize_nearest
+
+    gt = train_batch(cfg, 2)["label"]
+    h, w = gt.shape[1] // 4, gt.shape[2] // 4
+    down = resize_nearest(gt[..., None], (h, w))[..., 0]
+    return torch.where(down == 255, cfg.model.num_classes, down).reshape(-1).contiguous()
+
+
+def _dtable_inputs(case, n, c, g_dtype, table_dtype, region, seed=1):
+    """labels (random, or 70 % of the rows in one class, or the region map),
+    g (for "strided" the second half of the columns of a [n, 2c] tensor, as
+    the training path's g is a slice of the fusion conv's input gradient),
+    alpha and the table, on the card."""
+    k = K + 1
+    g = _gen(seed)
+    labels = torch.randint(0, k, (n,), generator=g)
+    if case == "contended":
+        labels[torch.rand(n, generator=g) < 0.7] = 3
+    elif case == "region":
+        labels = region.cpu()
+    if case == "strided":
+        grad = torch.randn(n, 2 * c, generator=g).to(g_dtype).cuda()[:, c:]
+    else:
+        grad = torch.randn(n, c, generator=g).to(g_dtype)
+    alpha = torch.rand(n, generator=g)
+    table = torch.randn(k, c, generator=g).to(table_dtype)
+    return labels.cuda(), grad.cuda(), alpha.cuda(), table.cuda()
+
+
+def _dtable_close(got, want):
+    # atomics add in no fixed order: relative 1e-5 of each sum, plus 1e-5 of
+    # the largest for sums that cancel to near 0
+    return bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * want.abs().max()).all())
+
+
 def check_dtable(card, smi, flush):
+    """The table gradient: squash_dtable (the main path's fused kernel) and
+    dtable (the same kernel without the squash's derivative, the Pallas
+    _dtable_kernel's counterpart) against their plain versions; times of the
+    fused kernel, of the unfused path it replaced (the plain glue that forms
+    demb, then dtable), of index_add_, and of the fused kernel's grid sized
+    for 1 to 4 blocks per SM."""
+    from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.ops import q_sample as Q
 
     k = K + 1
-    errs = {}
-    for case, n, c in (("random", N, C), ("ragged", N + 3, 250), ("contended", N, C)):
-        g = _gen(1)
-        labels = torch.randint(0, k, (n,), generator=g)
-        if case == "contended":  # 70 % of the rows in one class
-            labels[torch.rand(n, generator=g) < 0.7] = 3
-        labels = labels.cuda()
-        demb = torch.randn(n, c, generator=g).cuda()
-        got, want = Q.dtable_cuda(labels, demb, k), Q.dtable_plain(labels, demb, k)
-        err = (got - want).abs().max().item()
-        errs[f"{case}_n{n}_c{c}"] = err
-        # atomics add in no fixed order: relative 1e-5 of each sum, plus 1e-5
-        # for sums that cancel to near 0 (each is of ~200 to 23000 unit terms)
-        if not ((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * want.abs().max()).all():
-            raise AssertionError(f"dtable {case}: max abs err {err}")
-    g = _gen(1)
-    labels = torch.randint(0, k, (N,), generator=g).cuda()
-    demb = torch.randn(N, C, generator=g).cuda()
+    region = region_labels(get_config("ade20k_swin_t"))
+    if region.numel() != N:
+        raise AssertionError(f"region labels: {region.numel()} rows, want {N}")
+    shapes = {"random": (N, C), "ragged": (N + 3, 250), "contended": (N, C), "region": (N, C),
+              "strided": (N, C)}
+    errs, fused_errs = {}, {}
+    for case, (n, c) in shapes.items():
+        labels, grad, _, _ = _dtable_inputs(case, n, c, torch.float32, torch.float32, region)
+        grad = grad.contiguous()  # dtable takes a contiguous demb
+        got, want = Q.dtable_cuda(labels, grad, k), Q.dtable_plain(labels, grad, k)
+        errs[f"{case}_n{n}_c{c}"] = (got - want).abs().max().item()
+        if not _dtable_close(got, want):
+            raise AssertionError(f"dtable {case}: max abs err {errs[f'{case}_n{n}_c{c}']}")
+        for g_dtype in (torch.float32, torch.bfloat16):
+            for t_dtype in (torch.float32, torch.bfloat16):
+                labels, grad, alpha, table = _dtable_inputs(case, n, c, g_dtype, t_dtype, region)
+                for a in (alpha, None):
+                    got = Q.squash_dtable_cuda(labels, grad, a, table, BIT_SCALE)
+                    want = Q.squash_dtable_plain(labels, grad, a, table, BIT_SCALE)
+                    name = (f"{case}_n{n}_c{c}_g{str(g_dtype)[6:]}_table{str(t_dtype)[6:]}"
+                            f"_{'alpha' if a is not None else 'noalpha'}")
+                    fused_errs[name] = (got - want).abs().max().item()
+                    if not _dtable_close(got, want):
+                        raise AssertionError(f"squash_dtable {name}: max abs err "
+                                             f"{fused_errs[name]}")
+
+    def inputs(case, g_dtype):
+        return _dtable_inputs(case, N, C, g_dtype, torch.float32, region)
+
+    labels, grad, alpha, table = inputs("random", torch.float32)
+    demb = Q._squash_grad(labels, table, BIT_SCALE, grad * alpha[:, None])
     zeros = torch.zeros(k, C, device="cuda")
     row = kernel_row(
         card, "dtable", "ddp_tpu_torch/csrc/q_sample.cu",
         "ddp_tpu/ops/pallas/q_sample.py:93",
-        lambda: Q.dtable_cuda(labels, demb, k), lambda: Q.dtable_plain(labels, demb, k),
-        nbytes=N * 8 + N * C * 4 + k * C * 4, flops=N * C, exps=0,
-        err=errs[f"random_n{N}_c{C}"], flush=flush,
-        library_fn=lambda: zeros.index_add_(0, labels, demb))
-    emit({"phase": "kernels", "kernel": "dtable", "max_abs_err": errs,
+        lambda: Q.squash_dtable_cuda(labels, grad, alpha, table, BIT_SCALE),
+        lambda: Q.squash_dtable_plain(labels, grad, alpha, table, BIT_SCALE),
+        # labels, g, alpha and the table read once, the table's gradient
+        # written once; per element of g a multiply-add, per table entry the
+        # derivative (an exponential and ~5 FLOPs)
+        nbytes=N * 8 + N * C * 4 + N * 4 + 2 * k * C * 4, flops=N * C * 2 + k * C * 5,
+        exps=k * C, err=fused_errs[f"random_n{N}_c{C}_gfloat32_tablefloat32_alpha"],
+        flush=flush, library_fn=lambda: zeros.index_add_(0, labels, demb))
+    times = {
+        # the parent's path: the plain glue (sigmoid of the table, gather by
+        # label, the elementwise products) then the dtable kernel; and the
+        # same glue with index_add_
+        "unfused_glue_plus_dtable_ms": time_ms(lambda: Q.dtable_cuda(
+            labels, Q._squash_grad(labels, table, BIT_SCALE, grad * alpha[:, None]), k),
+            flush=flush),
+        "unfused_glue_plus_index_add_ms": time_ms(lambda: torch.zeros(k, C, device="cuda")
+                                                  .index_add_(0, labels, Q._squash_grad(
+                                                      labels, table, BIT_SCALE,
+                                                      grad * alpha[:, None])), flush=flush),
+        "dtable_alone_ms": time_ms(lambda: Q.dtable_cuda(labels, demb, k), flush=flush),
+    }
+    for case in ("random", "region"):
+        for g_dtype in (torch.float32, torch.bfloat16):
+            lab, gr, al, tab = inputs(case, g_dtype)
+            times[f"fused_{case}_g{str(g_dtype)[6:]}_ms"] = time_ms(
+                lambda: Q.squash_dtable_cuda(lab, gr, al, tab, BIT_SCALE), flush=flush)
+    sweep = sweep_ms(Q, "DTABLE_BLOCKS_PER_SM", (1, 2, 3, 4), flush,
+                     lambda: Q.squash_dtable_cuda(labels, grad, alpha, table, BIT_SCALE))
+    geo = Q.dtable_geometry(N, C, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    emit({"phase": "kernels", "kernel": "dtable", "max_abs_err": {"dtable": errs,
+                                                                  "squash_dtable": fused_errs},
           "tolerance": "|d| <= 1e-5 |want| + 1e-5 max|want| (atomic order)",
-          "library_ms": "torch.zeros(K, C).index_add_(0, labels, demb), zeros preallocated",
+          "row_is": "squash_dtable, f32 g and table, alpha, random labels",
+          "library_ms": "torch.zeros(K, C).index_add_(0, labels, demb), demb and zeros "
+                        "preallocated",
+          "times": times, "ms_by_blocks_per_sm": sweep, "geometry": geo._asdict(),
           "row": row, "card": smi})
     return row
 
@@ -438,6 +558,11 @@ def check_upsample_ce(card, smi, flush):
 
 
 def phase_kernels(card: str, smi: str):
+    from ddp_tpu_torch.ops import _build
+
+    # registers, spills and static shared bytes of every kernel, as ptxas
+    # reported them when the library was built
+    emit({"phase": "kernels", "ptxas": _build.resource_usage()})
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = [check_encode_map(card, smi, flush), check_q_sample(card, smi, flush),
             check_dtable(card, smi, flush)]
@@ -533,23 +658,33 @@ def phase_main(smi: str, profile: str = None):
     return model, cfg, launches
 
 
-def profile_device(fn, path: str, header: str):
-    """Profile one call of ``fn``: (device kernel ms, top kernel families),
-    and the per-kernel table written to ``path``."""
+def profiled(fn):
+    """A profile (CPU and CUDA activity) of one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         fn()
         torch.cuda.synchronize()
-    events = p.key_averages()
-    # kernel rows only (the aten rows repeat their kernels' time)
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
+    return p
+
+
+def device_kernels(p):
+    """The kernel rows of a profile's averages (the aten rows repeat their
+    kernels' time)."""
+    return [e for e in p.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def profile_device(fn, path: str, header: str):
+    """Profile one call of ``fn``: (device kernel ms, top kernel families),
+    and the per-kernel table written to ``path``."""
+    p = profiled(fn)
+    kernels = device_kernels(p)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     with open(path, "w") as f:
         f.write(header)
-        f.write(events.table(sort_by="cuda_time_total", row_limit=60))
+        f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
     return busy_ms, [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top]
 
 
@@ -770,7 +905,70 @@ def phase_train(smi: str, profile: str = None):
     return launches
 
 
-PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train")
+def backward_node(p, node: str):
+    """(device ms, kernel launches) under the autograd node ``node`` of a
+    profile: its evaluate_function events and every op below them."""
+    def launches(e):
+        return len(e.kernels) + sum(launches(ch) for ch in e.cpu_children)
+
+    events = [e for e in p.events()
+              if e.name == f"autograd::engine::evaluate_function: {node}"]
+    if not events:
+        raise AssertionError(f"no {node} in the profile")
+    return sum(e.device_time_total for e in events) / 1e3, sum(launches(e) for e in events)
+
+
+def phase_table_grad(smi: str):
+    """The table gradient of the corruption, as the training path takes it:
+    autograd.grad of q_sample w.r.t. the table at the path's shape (region-
+    map labels, f32), timed and profiled alone, and its autograd node
+    (_QSampleBackward) in one profiled f32 train step of ade20k_swin_t. Only
+    the package's public functions are called, so the phase also measures an
+    earlier checkout's package when run from that checkout's root."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.ops import q_sample as Q
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("ade20k_swin_t")
+    labels = region_labels(cfg)
+    g = _gen(4)
+    table = torch.randn(K + 1, C, generator=g).cuda().requires_grad_(True)
+    alpha = torch.rand(N, generator=g).cuda()
+    sigma = (1.0 - alpha ** 2).sqrt()
+    noise, cot = torch.randn(N, C, generator=g).cuda(), torch.randn(N, C, generator=g).cuda()
+    out = Q.q_sample(labels, table, BIT_SCALE, alpha, sigma, noise)
+
+    def backward():
+        torch.autograd.grad(out, table, cot, retain_graph=True)
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    event_ms = time_ms(backward, flush=flush)
+    alone = device_kernels(profiled(backward))
+    del flush
+
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batch(cfg, 2)
+    step = make_train_step(mixed_precision=False)
+    for _ in range(2):
+        step(state, batch)
+    step_ms, step_launches = backward_node(profiled(lambda: step(state, batch)),
+                                           "_QSampleBackward")
+    emit({"phase": "table_grad", "shape": [N, C, K + 1], "labels": "region map",
+          "alone": {"event_ms": event_ms,
+                    "device_ms": sum(e.self_device_time_total for e in alone) / 1e3,
+                    "launches": sum(e.count for e in alone),
+                    "kernels": [(e.key[:80], e.count, e.self_device_time_total / 1e3)
+                                for e in alone]},
+          "in_train_step": {"node": "_QSampleBackward", "device_ms": step_ms,
+                            "launches": step_launches},
+          "card": smi})
+
+
+PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
+          "table_grad")
 
 
 def main(argv=None) -> int:
@@ -800,6 +998,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if "train" in phases:
         launches["train"] = phase_train(smi, args.profile)
+    if "table_grad" in phases:
+        phase_table_grad(smi)
     for row in kernels:
         path = "serve" if row["name"] == "encode_map" else "train"
         row["launches"] = launches[path][row["name"]] if path in launches else None

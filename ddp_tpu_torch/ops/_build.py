@@ -4,8 +4,10 @@ Each ``ddp_tpu_torch/csrc/*.cu`` source is compiled by its own ``nvcc``
 process, all started together, and the objects are linked into one shared
 library with a plain C interface, written to ``ddp_tpu_torch/_build/`` under
 a name keyed by a hash of the sources and flags, and loaded with ``ctypes``.
-Nothing here includes PyTorch's headers, so a build takes seconds. Importing
-this module builds nothing.
+ptxas's resource report of every kernel (registers, spills, static shared
+memory) is kept beside the library (``resource_usage``). Nothing here
+includes PyTorch's headers, so a build takes seconds. Importing this module
+builds nothing.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -31,12 +34,15 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # every exported kernel entry and its C signature (pointers and the stream
 # are c_void_p; ctypes would otherwise pass them as 32-bit ints)
 _ENTRIES = {
-    # labels, table, out, n, c, k, bit_scale, dtype, stream
-    "ddp_encode_map": [_P, _P, _P, _I64, _I, _I, _F, _I, _P],
+    # labels, table, out, n, c, k, bit_scale, dtype, max_blocks, stream
+    "ddp_encode_map": [_P, _P, _P, _I64, _I, _I, _F, _I, _I, _P],
     # labels, table, alpha, sigma, noise, out, n, c, k, bit_scale, dtype, stream
     "ddp_q_sample": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _I, _P],
-    # labels, demb, out, n, c, k, stream
-    "ddp_dtable": [_P, _P, _P, _I64, _I, _I, _P],
+    # labels, demb, out, n, c, k, row_blocks, rows_per_block, stream
+    "ddp_dtable": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # labels, g, ld, alpha, table, out, n, c, k, bit_scale, g_dtype,
+    # table_dtype, row_blocks, rows_per_block, stream
+    "ddp_squash_dtable": [_P, _P, _I64, _P, _P, _P, _I64, _I, _I, _F, _I, _I, _I, _I, _P],
     # logits, labels, sums, lse, nb, h, w, k, scale, ignore_index, dtype,
     # tile_h, tile_w, grid_x, grid_y, threads, smem_bytes, stream
     "ddp_upsample_ce_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I,
@@ -88,13 +94,16 @@ def _compile(out_path: str) -> None:
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in cmds]
-        failed = []
+        failed, reports = [], []
         for cmd, proc in zip(cmds, procs):
             out, _ = proc.communicate()
+            reports.append(out)
             if proc.returncode != 0:
                 failed.append(f"{' '.join(cmd)}\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        with open(out_path + ".ptxas.txt", "w") as f:
+            f.write("".join(reports))
         lib = os.path.join(tmp, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -119,6 +128,36 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int  # cudaError_t of the launch
             _lib = lib
         return _lib
+
+
+def resource_usage() -> dict:
+    """ptxas's report for each kernel of the built library, by its demangled
+    name: registers, spill store and load bytes, static shared bytes."""
+    with open(library_path() + ".ptxas.txt") as f:
+        text = f.read()
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage[name].update(registers=int(m.group(1)),
+                               static_smem=int(smem.group(1)) if smem else 0)
+    names = list(usage)
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            return {d.replace("(anonymous namespace)::", "").split("(")[0]: usage[m]
+                    for m, d in zip(names, out)}
+    return usage
 
 
 def launch(entry: str, device, *args) -> None:

@@ -5,18 +5,22 @@ Port of ``ddp_tpu/ops/pallas/q_sample.py`` (the ``_encode_kernel``,
 ``_qsample_kernel`` and ``_dtable_kernel`` Pallas kernels, their XLA oracles
 and the closed-form VJPs ``_encode_bwd`` and ``_qs_bwd``)::
 
-    encode_map: x0[n, :]  = (sigmoid(table[labels[n], :]) * 2 - 1) * bit_scale
-    q_sample:   out[n, :] = alpha[n] * x0[n, :] + sigma[n] * noise[n, :]
-    dtable:     dtable[k, :] = sum over n with labels[n] == k of demb[n, :]
+    encode_map:    x0[n, :]  = (sigmoid(table[labels[n], :]) * 2 - 1) * bit_scale
+    q_sample:      out[n, :] = alpha[n] * x0[n, :] + sigma[n] * noise[n, :]
+    dtable:        dtable[k, :] = sum over n with labels[n] == k of demb[n, :]
+    squash_dtable: dtable of demb = g · alpha · 2·bit_scale·σ(1−σ),
+                   σ = sigmoid(table[labels[n], :])
 
 Each kernel has a wrapper that launches the hand-written CUDA kernel
 (``ddp_tpu_torch/csrc/encode_map.cu``, ``csrc/q_sample.cu``) for CUDA tensors
 and raises on anything it does not take, and a plain PyTorch version that
 runs for CPU tensors. There is no fallback from one to the other.
 ``encode_map`` and ``q_sample`` are differentiable (``torch.autograd.Function``)
-with the JAX package's closed-form backward, whose table gradient is the
-``dtable`` kernel; the squash's derivative comes from the table
-(``2·bit_scale·σ(1−σ)``) rather than from the saved output.
+with the JAX package's closed-form backward. Their table gradient is one
+``squash_dtable`` launch, which reads the cotangent in its own type and takes
+the squash's derivative from the table (``2·bit_scale·σ(1−σ)``) rather than
+from the saved output; ``dtable`` is the same kernel without the derivative,
+the counterpart of ``_dtable_kernel`` alone.
 
 Out-of-range labels: the JAX oracle (``jnp.take``) fills NaN, the Pallas
 kernel's one-hot gives 0. The plain versions here raise on them (they can
@@ -25,7 +29,7 @@ table gradient), like the Pallas kernel, and never read outside the table.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +38,19 @@ import torch.nn.functional as F
 launches: Dict[str, int] = {"encode_map": 0, "q_sample": 0, "dtable": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# resident blocks of 256 threads per SM: the encode_map grid's size
+ENCODE_BLOCKS_PER_SM = 8
+# columns a (squash_)dtable block owns (kChunk of csrc/q_sample.cu), its
+# threads (kThreads), the blocks per SM its grid is sized for, and the fewest
+# and most rows a block takes (it sorts them in shared memory, 8 bytes each,
+# beside 4 bytes per label, within the 48 KB a block has without opting in)
+DTABLE_CHUNK = 64
+DTABLE_THREADS = 512
+DTABLE_BLOCKS_PER_SM = 2
+DTABLE_MIN_ROWS = 256
+DTABLE_MAX_ROWS = 4096
+DTABLE_SMEM = 48 * 1024
 
 
 def reset_launches() -> None:
@@ -67,6 +84,10 @@ def _check_table(table: torch.Tensor) -> None:
     if table.dtype not in _DTYPE_CODES or table.ndim != 2:
         raise ValueError(f"table must be 2-D float32 or bfloat16, got "
                          f"{table.dtype} {tuple(table.shape)}")
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
@@ -107,7 +128,7 @@ def encode_map_cuda(labels: torch.Tensor, table: torch.Tensor,
     if n:
         _launch("encode_map", "ddp_encode_map", table.device, labels.data_ptr(),
                 table.data_ptr(), out.data_ptr(), n, c, k, float(bit_scale),
-                _DTYPE_CODES[table.dtype])
+                _DTYPE_CODES[table.dtype], _sm_count(table.device) * ENCODE_BLOCKS_PER_SM)
     return out
 
 
@@ -147,7 +168,28 @@ def q_sample_cuda(labels: torch.Tensor, table: torch.Tensor, bit_scale: float,
     return out
 
 
-# --- dtable ---------------------------------------------------------------
+# --- dtable and squash_dtable ----------------------------------------------
+
+class DtableGeometry(NamedTuple):
+    row_blocks: int      # grid x: blocks over the rows
+    rows_per_block: int
+    col_chunks: int      # grid y: blocks over the columns, DTABLE_CHUNK each
+    smem_bytes: int      # the label counts and the block's rows sorted by label
+
+
+def dtable_geometry(n: int, c: int, k: int, sms: int) -> DtableGeometry:
+    """The (squash_)dtable launch: ``sms · DTABLE_BLOCKS_PER_SM`` blocks split
+    over the column chunks, each over DTABLE_MIN_ROWS to DTABLE_MAX_ROWS
+    rows, fewer where K leaves less of DTABLE_SMEM."""
+    col_chunks = -(-c // DTABLE_CHUNK)
+    row_blocks = -(-sms * DTABLE_BLOCKS_PER_SM // col_chunks)
+    counts = (k + 2) // 2 * 2 * 4
+    most = min(DTABLE_MAX_ROWS, (DTABLE_SMEM - counts) // 8)
+    if most < 1:
+        raise ValueError(f"dtable: K = {k} labels leave no shared memory for rows")
+    rows = min(most, max(DTABLE_MIN_ROWS, -(-n // row_blocks)))
+    return DtableGeometry(-(-n // rows), rows, col_chunks, counts + rows * 8)
+
 
 def dtable_plain(labels: torch.Tensor, demb: torch.Tensor, k: int) -> torch.Tensor:
     """Plain PyTorch version: [K, C] row sums of demb by label, in float32
@@ -158,24 +200,6 @@ def dtable_plain(labels: torch.Tensor, demb: torch.Tensor, k: int) -> torch.Tens
     return out.index_add_(0, labels, demb)
 
 
-def dtable_cuda(labels: torch.Tensor, demb: torch.Tensor, k: int) -> torch.Tensor:
-    """Launch the CUDA kernel: labels [N] int64, demb [N, C] float32, both
-    contiguous on one CUDA device. Returns [K, C] float32."""
-    _check_cuda("dtable", labels, demb)
-    n = labels.shape[0]
-    if demb.dtype != torch.float32 or demb.ndim != 2 or demb.shape[0] != n:
-        raise ValueError(f"demb must be float32 ({n}, C), got {demb.dtype} "
-                         f"{tuple(demb.shape)}")
-    c = demb.shape[1]
-    out = torch.zeros((k, c), dtype=torch.float32, device=demb.device)
-    if n:
-        _launch("dtable", "ddp_dtable", demb.device, labels.data_ptr(), demb.data_ptr(),
-                out.data_ptr(), n, c, k)
-    return out
-
-
-# --- differentiable API ---------------------------------------------------
-
 def _squash_grad(labels: torch.Tensor, table: torch.Tensor, bit_scale: float,
                  g: torch.Tensor) -> torch.Tensor:
     """g · d x0 / d emb = g · 2·bit_scale·σ(1−σ), σ of the rows' table entries
@@ -185,9 +209,71 @@ def _squash_grad(labels: torch.Tensor, table: torch.Tensor, bit_scale: float,
     return g * (2.0 * bit_scale) * sig * (1.0 - sig)
 
 
-def _dtable(labels: torch.Tensor, demb: torch.Tensor, k: int) -> torch.Tensor:
-    return _dispatch("dtable", dtable_cuda, dtable_plain, demb.device,
-                     labels, demb.contiguous(), k)
+def squash_dtable_plain(labels: torch.Tensor, g: torch.Tensor, alpha: Optional[torch.Tensor],
+                        table: torch.Tensor, bit_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the fused table gradient: ``dtable_plain`` of
+    ``g · alpha · 2·bit_scale·σ(1−σ)`` (alpha None: 1), [K, C] float32
+    (float64 for float64 inputs)."""
+    g = _acc(g) if alpha is None else _acc(g) * _acc(alpha)[:, None]
+    return dtable_plain(labels, _squash_grad(labels, table, bit_scale, g), table.shape[0])
+
+
+def dtable_cuda(labels: torch.Tensor, demb: torch.Tensor, k: int) -> torch.Tensor:
+    """Launch the CUDA kernel without the squash's derivative: labels [N]
+    int64, demb [N, C] float32, both contiguous on one CUDA device. Returns
+    [K, C] float32."""
+    _check_cuda("dtable", labels, demb)
+    n = labels.shape[0]
+    if demb.dtype != torch.float32 or demb.ndim != 2 or demb.shape[0] != n:
+        raise ValueError(f"demb must be float32 ({n}, C), got {demb.dtype} "
+                         f"{tuple(demb.shape)}")
+    c = demb.shape[1]
+    out = torch.zeros((k, c), dtype=torch.float32, device=demb.device)
+    if n:
+        geo = dtable_geometry(n, c, k, _sm_count(demb.device))
+        _launch("dtable", "ddp_dtable", demb.device, labels.data_ptr(), demb.data_ptr(),
+                out.data_ptr(), n, c, k, geo.row_blocks, geo.rows_per_block)
+    return out
+
+
+def squash_dtable_cuda(labels: torch.Tensor, g: torch.Tensor, alpha: Optional[torch.Tensor],
+                       table: torch.Tensor, bit_scale: float) -> torch.Tensor:
+    """Launch the fused CUDA kernel: labels [N] int64; g [N, C] (columns
+    contiguous, rows at a stride of at least C) and table [K, C], each
+    float32 or bfloat16; alpha [N] float32 or None (1); the rest contiguous;
+    all on one CUDA device. Returns [K, C] float32."""
+    rest = (table,) if alpha is None else (table, alpha)
+    _check_cuda("squash_dtable", labels, *rest)
+    _check_table(table)
+    n, (k, c) = labels.shape[0], table.shape
+    if (g.device != labels.device or g.dtype not in _DTYPE_CODES or tuple(g.shape) != (n, c)
+            or (n and (g.stride(1) != 1 or g.stride(0) < c))):
+        raise ValueError(f"g must be float32 or bfloat16 {(n, c)} with contiguous columns "
+                         f"on {labels.device}, got {g.dtype} {tuple(g.shape)} "
+                         f"stride {g.stride()} on {g.device}")
+    if alpha is not None and (alpha.dtype != torch.float32 or tuple(alpha.shape) != (n,)):
+        raise ValueError(f"alpha must be float32 ({n},), got {alpha.dtype} "
+                         f"{tuple(alpha.shape)}")
+    out = torch.zeros((k, c), dtype=torch.float32, device=g.device)
+    if n:
+        geo = dtable_geometry(n, c, k, _sm_count(g.device))
+        _launch("dtable", "ddp_squash_dtable", g.device, labels.data_ptr(), g.data_ptr(),
+                g.stride(0), None if alpha is None else alpha.data_ptr(),
+                table.data_ptr(), out.data_ptr(), n, c, k, float(bit_scale), _DTYPE_CODES[g.dtype],
+                _DTYPE_CODES[table.dtype], geo.row_blocks, geo.rows_per_block)
+    return out
+
+
+# --- differentiable API ---------------------------------------------------
+
+def _squash_dtable(labels: torch.Tensor, g: torch.Tensor, alpha: Optional[torch.Tensor],
+                   table: torch.Tensor, bit_scale: float) -> torch.Tensor:
+    """The table's gradient, in the table's type."""
+    if g.stride(-1) != 1 or g.stride(0) < g.shape[-1]:  # e.g. an expanded cotangent
+        g = g.contiguous()
+    dtable = _dispatch("squash_dtable", squash_dtable_cuda, squash_dtable_plain, g.device,
+                       labels, g, alpha, table, bit_scale)
+    return dtable.to(table.dtype)
 
 
 class _EncodeMap(torch.autograd.Function):
@@ -201,8 +287,7 @@ class _EncodeMap(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         labels, table = ctx.saved_tensors
-        demb = _squash_grad(labels, table, ctx.bit_scale, _acc(g))
-        return None, _dtable(labels, demb, table.shape[0]).to(table.dtype), None
+        return None, _squash_dtable(labels, g, None, table, ctx.bit_scale), None
 
 
 class _QSample(torch.autograd.Function):
@@ -217,11 +302,10 @@ class _QSample(torch.autograd.Function):
     def backward(ctx, g):
         labels, table, alpha, sigma, noise = ctx.saved_tensors
         _, need_table, _, need_alpha, need_sigma, need_noise = ctx.needs_input_grad
-        gf = _acc(g)
         dtable = dalpha = dsigma = dnoise = None
         if need_table:
-            demb = _squash_grad(labels, table, ctx.bit_scale, gf * _acc(alpha)[:, None])
-            dtable = _dtable(labels, demb, table.shape[0]).to(table.dtype)
+            dtable = _squash_dtable(labels, g, alpha, table, ctx.bit_scale)
+        gf = _acc(g) if need_alpha or need_sigma or need_noise else None
         if need_alpha:
             x0 = _acc(encode_map(labels, table, ctx.bit_scale))
             dalpha = (gf * x0).sum(-1).to(alpha.dtype)

@@ -64,6 +64,26 @@ def test_plain_bf16_matches_pallas(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=0, atol=6.2e-5)
 
 
+def test_bf16_oracle_differs_from_kernel_reference_discrepancy(monkeypatch):
+    """Reference fault (ROADMAP.md queue 3): with a bf16 table,
+    encode_map_xla computes σ·2−1 in bf16 while _encode_kernel computes it in
+    f32 and rounds once. The port equals the kernel; the oracle is up to
+    1.2e-4 (1.2 % of bit_scale) away, on about three quarters of the
+    elements, and cancels to exact zeros where the kernel has none."""
+    labels, table = _data(151, n=4096, c=256)
+    tb = torch.from_numpy(table).to(torch.bfloat16)
+    jl, jt = jnp.asarray(labels, jnp.int32), jnp.asarray(tb.float().numpy(), jnp.bfloat16)
+    port = TQ.encode_map(torch.from_numpy(labels), tb, 0.01).float().numpy()
+    oracle = np.asarray(Q.encode_map_xla(jl, jt, 0.01).astype(jnp.float32))
+    _interp_pallas(monkeypatch)
+    kernel = np.asarray(Q._encode_pallas(jl, jt, 0.01).astype(jnp.float32))
+    np.testing.assert_array_equal(port, kernel)
+    d = np.abs(oracle - kernel)
+    assert 1.1e-4 < d.max() < 1.3e-4
+    assert (d > 0).mean() > 0.7
+    assert (oracle == 0).sum() > 7000 and (kernel == 0).sum() == 0
+
+
 def test_plain_rejects_out_of_range_labels():
     """The JAX oracle gives NaN here and the Pallas kernel 0 (a reference
     fault, ROADMAP.md queue 3); the port refuses such labels on the host."""
