@@ -7,6 +7,7 @@
                                            # train step to OUT (and OUT.train)
     python3 chip_smoke.py --phases build,kernels   # a subset (device and
                                            # build always run)
+    python3 chip_smoke.py --phases converge        # the end check alone
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -47,6 +48,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                only public functions, so run from an earlier checkout's root
                (the script given by path, e.g. through runpy) it measures
                that checkout's package.
+  9. graph   - the train step as one CUDA-graph dispatch
+               (make_chunked_train_step) at ade20k_swin_t, 2 x 512^2, f32
+               and bf16, from the end of the lr warm-up: the eager step and
+               graphed chunks of 1 and 10 steps from one state and batch,
+               each replay held to the eager steps from the same generator
+               state, tensor by tensor, with PyTorch's deterministic
+               algorithms on; wall ms per step, img/s, the device
+               busy share and the kernels' launches per replayed step (both
+               from a profile of one replay), peak memory and capture time;
+               after the other phases, a capture that must raise.
+ 10. loop    - train() on converge_seg_window for 100 iterations, 10 steps
+               per dispatch, batches from make_train_iter: the loss halves,
+               logs and checkpoints land at the JAX loop's steps, the card
+               runs the kernels in the replays of steps 31-50 (profiled),
+               and a resume from the step-90 checkpoint continues the run.
+ 11. converge - (only when named) the end check: converge_seg_window's 1500
+               iterations through train() and eval_seg's mIoU at 1, 3 and 10
+               DDIM steps beside the JAX package's
+               work_dirs/converge_seg_window/result.json.
+ 12. graph_grads - (only when named) where the graphed and the eager step
+               part: one ade20k_swin_t step's gradients (fixed draws)
+               twice eagerly and once as a CUDA-graph replay, f32 and bf16,
+               with PyTorch's deterministic algorithms off and on.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +80,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -318,12 +344,11 @@ def region_labels(cfg):
     return torch.where(down == 255, cfg.model.num_classes, down).reshape(-1).contiguous()
 
 
-def _dtable_inputs(case, n, c, g_dtype, table_dtype, region, seed=1):
+def _dtable_inputs(case, n, c, g_dtype, table_dtype, region, seed=1, k=K + 1):
     """labels (random, or 70 % of the rows in one class, or the region map),
     g (for "strided" the second half of the columns of a [n, 2c] tensor, as
     the training path's g is a slice of the fusion conv's input gradient),
-    alpha and the table, on the card."""
-    k = K + 1
+    alpha and the table of k rows, on the card."""
     g = _gen(seed)
     labels = torch.randint(0, k, (n,), generator=g)
     if case == "contended":
@@ -359,19 +384,23 @@ def check_dtable(card, smi, flush):
     region = region_labels(get_config("ade20k_swin_t"))
     if region.numel() != N:
         raise AssertionError(f"region labels: {region.numel()} rows, want {N}")
-    shapes = {"random": (N, C), "ragged": (N + 3, 250), "contended": (N, C), "region": (N, C),
-              "strided": (N, C)}
+    # (rows, columns, table rows); "converge": converge_seg_window's step
+    # (16 images of 16 x 16 latents, C = 64, K = 7 classes + the ignore row)
+    shapes = {"random": (N, C, k), "ragged": (N + 3, 250, k), "contended": (N, C, k),
+              "region": (N, C, k), "strided": (N, C, k), "converge": (16 * 16 * 16, 64, 8)}
     errs, fused_errs = {}, {}
-    for case, (n, c) in shapes.items():
-        labels, grad, _, _ = _dtable_inputs(case, n, c, torch.float32, torch.float32, region)
+    for case, (n, c, kk) in shapes.items():
+        labels, grad, _, _ = _dtable_inputs(case, n, c, torch.float32, torch.float32, region,
+                                            k=kk)
         grad = grad.contiguous()  # dtable takes a contiguous demb
-        got, want = Q.dtable_cuda(labels, grad, k), Q.dtable_plain(labels, grad, k)
+        got, want = Q.dtable_cuda(labels, grad, kk), Q.dtable_plain(labels, grad, kk)
         errs[f"{case}_n{n}_c{c}"] = (got - want).abs().max().item()
         if not _dtable_close(got, want):
             raise AssertionError(f"dtable {case}: max abs err {errs[f'{case}_n{n}_c{c}']}")
         for g_dtype in (torch.float32, torch.bfloat16):
             for t_dtype in (torch.float32, torch.bfloat16):
-                labels, grad, alpha, table = _dtable_inputs(case, n, c, g_dtype, t_dtype, region)
+                labels, grad, alpha, table = _dtable_inputs(case, n, c, g_dtype, t_dtype, region,
+                                                            k=kk)
                 for a in (alpha, None):
                     got = Q.squash_dtable_cuda(labels, grad, a, table, BIT_SCALE)
                     want = Q.squash_dtable_plain(labels, grad, a, table, BIT_SCALE)
@@ -462,6 +491,9 @@ def _ce_cases():
     and valid labels outside [0, K)."""
     cases = [("path", CE_SHAPE, SCALE, torch.float32, "random"),
              ("path_bf16", CE_SHAPE, SCALE, torch.bfloat16, "random"),
+             # converge_seg_window's step: 16 images of 16 x 16 latents, K = 7
+             ("converge_b16_h16_s4_k7", (16, 16, 16, 7), 4, torch.float32, "random"),
+             ("converge_b16_h16_s4_k7_bf16", (16, 16, 16, 7), 4, torch.bfloat16, "random"),
              ("h10_s2_k7", (2, 10, 16, 7), 2, torch.float32, "random"),
              ("h10_s4_k19", (2, 10, 16, 19), 4, torch.float32, "random"),
              ("h12_s4_k19_bf16", (2, 12, 16, 19), 4, torch.bfloat16, "random")]
@@ -476,6 +508,20 @@ def _ce_cases():
         cases.append((name, shape, scale, torch.float32, labels))
         cases.append((name + "_bf16", shape, scale, torch.bfloat16, labels))
     return cases
+
+
+def _ties(logits, labels, scale, ignore_index=255):
+    """Valid pixels whose label's upsampled logit ties the maximum though
+    the label is not the first argmax (ROADMAP.md queue 3, the accuracy tie
+    rule)."""
+    from ddp_tpu_torch.ops import upsample_ce as U
+
+    n = 0
+    for _, _, _, z, lab in U._phases(logits, labels, scale):
+        valid, in_range, _, z_lab = U._label_terms(z, lab, ignore_index)
+        n += (valid & in_range & (z_lab >= z.max(-1).values)
+              & (z.argmax(-1) != lab)).sum().item()
+    return n
 
 
 def check_upsample_ce(card, smi, flush):
@@ -494,13 +540,17 @@ def check_upsample_ce(card, smi, flush):
         fwd_errs[case] = {"sums": (sums - want).abs().tolist(), "lse": lse_err.max().item()}
         bwd_errs[case] = (d - d_want).abs().max().item()
         # NLL sum: float atomics add in no fixed order (rtol 1e-5); the counts
-        # are exact (integers below 2^24; random logits have no ties)
+        # are exact (integers below 2^24), but for ties: the kernel counts a
+        # pixel whose label's logit ties the maximum (the Pallas rule), the
+        # plain version only the first argmax (bf16 logits at K = 7 tie)
         if not abs(sums[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item()):
             raise AssertionError(f"upsample_ce fwd {case}: nll {sums[0].item()} vs "
                                  f"{want[0].item()}")
-        if sums[1:].tolist() != want[1:].tolist():
+        ties = _ties(logits, labels, scale)
+        if sums[1:].tolist() != [want[1].item(), want[2].item() + ties]:
             raise AssertionError(f"upsample_ce fwd {case}: counts {sums[1:].tolist()} vs "
-                                 f"{want[1:].tolist()}")
+                                 f"{want[1:].tolist()} with {ties} ties")
+        fwd_errs[case]["ties"] = ties
         # lse: ex2.approx (~2 ulp) per term against expf, and m log2 e rounded
         if not (lse_err <= 4e-6 * want_lse.abs().clamp(min=1.0)).all():
             raise AssertionError(f"upsample_ce fwd {case}: lse max abs err {lse_err.max().item()}")
@@ -673,6 +723,35 @@ def device_kernels(p):
     kernels' time)."""
     return [e for e in p.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation]
+
+
+# the CUDA function behind each launch counter (ops/q_sample.py, ops/upsample_ce.py)
+KERNEL_FUNCS = {"encode_map": "encode_map_kernel", "q_sample": "q_sample_kernel",
+                "dtable": "dtable_kernel", "upsample_ce_fwd": "upsample_ce_fwd_kernel",
+                "upsample_ce_bwd": "upsample_ce_bwd_kernel"}
+
+
+def kernel_launches(p) -> dict:
+    """Launches of each of the port's kernels that the card ran in a
+    profile, counted by the kernel's name (the profiler also sees the
+    kernels of a CUDA-graph replay, which no Python wrapper counts)."""
+    counts = dict.fromkeys(KERNEL_FUNCS, 0)
+    for e in device_kernels(p):
+        for key, func in KERNEL_FUNCS.items():
+            if re.search(rf"\b{func}\b", e.key):
+                counts[key] += e.count
+    return counts
+
+
+def profile_call(fn, path=None, header=""):
+    """(device kernel ms, launches of the port's kernels) of one call of
+    ``fn``; the per-kernel table is written to ``path`` when given."""
+    p = profiled(fn)
+    if path:
+        with open(path, "w") as f:
+            f.write(header)
+            f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+    return sum(e.self_device_time_total for e in device_kernels(p)) / 1e3, kernel_launches(p)
 
 
 def profile_device(fn, path: str, header: str):
@@ -967,16 +1046,476 @@ def phase_table_grad(smi: str):
           "card": smi})
 
 
+# --- the train step as one dispatch (CUDA graphs) and the training loop -----
+
+PER_STEP = {"q_sample": 1, "dtable": 1, "upsample_ce_fwd": 2, "upsample_ce_bwd": 2,
+            "encode_map": 0}
+
+
+def snapshot(state):
+    """What a step changes: parameters and buffers, the optimizer's moments
+    and count, the step and the generator's state."""
+    return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            [m.clone() for m in state.optimizer.mu], [m.clone() for m in state.optimizer.nu],
+            state.optimizer.count, state.step, state.generator.get_state())
+
+
+def restore(state, snap):
+    """Write a snapshot back in place (a captured graph keeps its addresses)."""
+    sd, mu, nu, count, step, gen = snap
+    with torch.no_grad():
+        for k, v in state.model.state_dict().items():
+            v.copy_(sd[k])
+        for dst, src in zip(state.optimizer.mu + state.optimizer.nu, mu + nu):
+            dst.copy_(src)
+    state.optimizer.count, state.step = count, step
+    state.generator.set_state(gen)
+
+
+def stacked(batch, n):
+    return {k: torch.stack([v] * n) for k, v in batch.items()}
+
+
+# a graphed step's or a resumed run's parameters against the reference's:
+# each tensor within this share of its update (L2) + 3 x the reference's own
+# run-to-run distance
+TOL_UPDATE = 1e-3
+
+
+def l2_by_tensor(a: dict, b: dict) -> dict:
+    return {n: (a[n] - b[n]).double().norm().item() for n in a}
+
+
+def check_by_tensor(ref: dict, other: dict, before: dict, noise: dict):
+    """Each parameter tensor t of ``other`` within TOL_UPDATE x ||ref_t -
+    before_t|| (the reference's update) + 3 x noise[t] (the L2 distance
+    between two runs of the reference: float atomics make the card's runs
+    differ) of ``ref``, in L2. Returns (ok, summary)."""
+    d, upd = l2_by_tensor(other, ref), l2_by_tensor(ref, before)
+    limit = {n: TOL_UPDATE * upd[n] + 3.0 * noise[n] for n in d}
+    ratio = {n: d[n] / limit[n] if limit[n] else (0.0 if d[n] == 0 else float("inf"))
+             for n in d}
+    worst = max(ratio, key=ratio.get)
+
+    def share(x):  # L2 over all tensors, as a share of the update's
+        return (sum(v * v for v in x.values()) / sum(v * v for v in upd.values())) ** 0.5
+
+    return ratio[worst] <= 1.0, {
+        "tensors_over_limit": sum(r > 1.0 for r in ratio.values()),
+        "worst_tensor": worst, "worst_over_limit": ratio[worst], "worst_l2": d[worst],
+        "worst_update_l2": upd[worst], "worst_noise_l2": noise[worst],
+        "bitwise_equal": f"{sum(v == 0 for v in d.values())} of {len(d)}",
+        "noise_bitwise_equal": f"{sum(v == 0 for v in noise.values())} of {len(d)}",
+        "l2_over_update": share(d), "noise_l2_over_update": share(noise),
+        "limit": f"per tensor: L2 <= {TOL_UPDATE} x L2 of the update + 3 x L2 between two "
+                 "runs of the reference"}
+
+
+def params_of(state) -> dict:
+    return {k: p.detach().clone() for k, p in state.model.named_parameters()}
+
+
+def graph_vs_eager(state, chunk_fn, eager, batch, n):
+    """n graphed steps (one replay) and n eager steps from one snapshot of
+    the state, and n eager steps once more from it: the first step's loss
+    (one state, one batch, the same draws) within 1e-5 relative, each later
+    step's within 1e-5 relative plus 3x the largest difference between the
+    two eager runs' losses (their states drift apart step by step), the same
+    generator state after all three (the replay drew what the eager steps
+    drew), and every parameter tensor within ``check_by_tensor``'s limit."""
+    before = snapshot(state)
+    params_0 = {k: before[0][k] for k, _ in state.model.named_parameters()}
+    logs_g = chunk_fn(state, stacked(batch, n))
+    params_g = params_of(state)
+    gen_g = state.generator.get_state()
+    restore(state, before)
+    logs_e2 = [eager(state, batch) for _ in range(n)]
+    params_e2 = params_of(state)
+    restore(state, before)
+    logs_e = [eager(state, batch) for _ in range(n)]
+    params_e = params_of(state)
+    loss_g = logs_g["loss"].tolist()
+    loss_e = [logs["loss"].item() for logs in logs_e]
+    loss_e2 = [logs["loss"].item() for logs in logs_e2]
+    loss_rel = abs(loss_g[0] - loss_e[0]) / abs(loss_e[0])
+    spread = max(abs(e2 - e) for e, e2 in zip(loss_e, loss_e2))
+    losses_ok = loss_rel <= 1e-5 and all(
+        abs(g - e) <= 1e-5 * abs(e) + 3.0 * spread for g, e in zip(loss_g, loss_e))
+    same_draws = torch.equal(gen_g, state.generator.get_state())
+    params_ok, params = check_by_tensor(params_e, params_g, params_0,
+                                        l2_by_tensor(params_e2, params_e))
+    out = {"n": n, "loss_graph": loss_g, "loss_eager": loss_e, "loss_eager_again": loss_e2,
+           "loss_rel_diff_first_step": loss_rel, "losses_within_eager_spread": losses_ok,
+           "same_generator_state": same_draws, "params": params}
+    if not (losses_ok and same_draws and params_ok):
+        emit({"phase": "graph", "failed_check": out})
+        raise AssertionError(f"graph vs eager, n={n}: loss rel {loss_rel}, same draws "
+                             f"{same_draws}, {params}")
+    return out
+
+
+def check_capture_failure():
+    """A capture that fails raises, and leaves a card that still works: a
+    chunked step whose forward reads a value on the host (not allowed in a
+    stream capture) on tiny_seg."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step
+
+    cfg = get_config("tiny_seg")
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    chunk = make_chunked_train_step(2)
+    grads = chunk.step.grads
+
+    def syncing_grads(state, batch):
+        out = grads(state, batch)
+        out[1]["loss"].item()
+        return out
+
+    chunk.step.grads = syncing_grads
+    try:
+        chunk(state, stacked(train_batch(cfg, 2), 2))
+    except RuntimeError as e:
+        err = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    else:
+        raise AssertionError("a capture with a host read in it did not raise")
+    torch.cuda.synchronize()
+    if torch.ones(8, device="cuda").sum().item() != 8.0:
+        raise AssertionError("the card misbehaves after a failed capture")
+    return err
+
+
+def graph_case(cfg, mixed: bool, smi: str, profile: str = None):
+    """ade20k_swin_t at 2 x 512^2: the eager step and the graphed chunk
+    (n = 1 and n = 10) from one state and one batch. The optimizer starts
+    at the end of the lr warm-up (lr 6e-5, as a run resumed there): at the
+    first steps' lr (below 1e-7) an update is a few ulps of a parameter near
+    1 (the norms' weights), so one rounding of p - u.lr is a third of it and
+    no share of the update can be resolved."""
+    from ddp_tpu_torch.config import build_model
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
+
+    b = 2
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    state.optimizer.count = cfg.optim.warmup_steps
+    batch = train_batch(cfg, b)
+    tag = "bf16" if mixed else "f32"
+    eager = make_train_step(mixed_precision=mixed)
+    for _ in range(2):
+        eager(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_s = wall_s(lambda: eager(state, batch), reps=5, warmup=0)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_busy, eager_launches = profile_call(
+        lambda: eager(state, batch), profile and f"{profile}.graph_{tag}_eager",
+        f"# one eager ade20k_swin_t {tag} train step, {smi}\n")
+    if eager_launches != PER_STEP:
+        raise AssertionError(f"graph {tag}: the card ran {eager_launches} in an eager step")
+
+    out = {"phase": "graph", "preset": cfg.name, "img": [b, 512, 512, 3],
+           "dtype": "bf16 forward/backward, f32 master weights" if mixed
+           else "float32, tf32 off", "lr": state.optimizer.lr_schedule(state.optimizer.count),
+           "eager": {"wall_ms_per_step": eager_s * 1e3, "img_per_s": b / eager_s,
+                     "device_busy_ms": eager_busy, "busy_share": eager_busy / (eager_s * 1e3),
+                     "launches_profiled": eager_launches, "peak_mem_gb": eager_peak}}
+    for n, reps in ((1, 5), (10, 3)):
+        chunk_batch = stacked(batch, n)
+        # held with PyTorch's deterministic algorithms on (graph and eager
+        # alike): without them its index_add_/index_put_ sum by atomics in an
+        # order that follows the card's timing, which differs between eager
+        # launches and a replay (phase graph_grads); what remains is the
+        # port's own atomics (squash_dtable into the table, the CE sums)
+        with deterministic_algorithms(True):
+            held = make_chunked_train_step(n, mixed_precision=mixed)
+            held(state, chunk_batch)  # the first chunk: eager on the capture stream, then capture
+            check = graph_vs_eager(state, held, eager, batch, n)
+        del held
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        chunk = make_chunked_train_step(n, mixed_precision=mixed)
+        chunk(state, chunk_batch)
+        sec = wall_s(lambda: chunk(state, chunk_batch), reps=reps, warmup=0) / n
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # one replay under the profiler: its kernel time and the launches the
+        # card ran, by kernel name
+        busy, launched = profile_call(
+            lambda: chunk(state, chunk_batch), profile and f"{profile}.graph_{tag}_n{n}",
+            f"# one replay of {n} graphed ade20k_swin_t {tag} train steps, {smi}\n")
+        per_step = {k: v / n for k, v in launched.items()}
+        if per_step != PER_STEP:
+            raise AssertionError(f"graph {tag} n={n}: the card ran {launched} in one replay")
+        out[f"graph_n{n}"] = {
+            "wall_ms_per_step": sec * 1e3, "img_per_s": b / sec,
+            "device_busy_ms_per_step": busy / n, "busy_share": busy / n / (sec * 1e3),
+            "launches_per_replayed_step": per_step, "capture_s": chunk.capture_s[n],
+            "peak_mem_gb": peak, "vs_eager_deterministic_algorithms": check}
+        del chunk
+    emit(dict(out, card=smi))
+    return per_step
+
+
+def phase_graph(smi: str, profile: str = None):
+    """The train step as one CUDA-graph dispatch at ade20k_swin_t, f32 and
+    bf16."""
+    from ddp_tpu_torch.config import get_config
+
+    cfg = get_config("ade20k_swin_t")
+    launches = graph_case(cfg, False, smi, profile)
+    torch.cuda.empty_cache()
+    graph_case(cfg, True, smi, profile)
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """PyTorch's deterministic algorithms on or off (warn-only); yields a
+    list that receives the first line of each warning raised inside."""
+    import warnings
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    hits = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield hits
+            hits.extend(sorted({str(w.message).splitlines()[0][:200] for w in caught}))
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def graphed_grads(step, state, batch):
+    """``step.grads`` as one CUDA-graph replay (a warm-up call on the capture
+    stream, the capture, one replay): the replay's gradients."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step.grads(state, batch)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(state.generator)
+    with torch.cuda.graph(graph, stream=stream):
+        grads, _ = step.grads(state, batch)
+    graph.replay()
+    torch.cuda.synchronize()
+    return [g.clone() for g in grads]
+
+
+def grad_diffs(names, ref, other) -> dict:
+    """Per gradient tensor: bitwise equal or not (counted by the name's
+    first component), and the largest max|d| / max|g|."""
+    by_module, worst = {}, []
+    for name, a, b in zip(names, ref, other):
+        top = name.split(".")[0]
+        same = torch.equal(a, b)
+        eq, total = by_module.get(top, (0, 0))
+        by_module[top] = (eq + same, total + 1)
+        if not same:
+            worst.append(((a - b).abs().max().item() / max(a.abs().max().item(), 1e-30), name))
+    return {"bitwise_equal": {k: f"{eq} of {total}" for k, (eq, total) in by_module.items()},
+            "worst_max_diff_over_max_grad": sorted(worst, reverse=True)[:4]}
+
+
+def phase_graph_grads(smi: str):
+    """Where the graphed and the eager step part: one ade20k_swin_t step's
+    gradients at 2 x 512^2 (fixed t and noise, dropout and drop path off)
+    twice eagerly and once as a CUDA-graph replay of ``TrainStep.grads``,
+    f32 and bf16, with PyTorch's deterministic algorithms off and on."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("ade20k_swin_t")
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    names = state.optimizer.names
+    fixed = fixed_draws(train_batch(cfg, 2), cfg, seed=5)
+    out = {"phase": "graph_grads", "preset": cfg.name, "img": [2, 512, 512, 3]}
+    with stochastic_layers_off(model):
+        for mixed in (False, True):
+            step = make_train_step(mixed_precision=mixed)
+            for det in (False, True):
+                case = {}
+                with deterministic_algorithms(det) as warned:
+                    ref = step.grads(state, fixed)[0]
+                    case["eager_vs_eager"] = grad_diffs(names, ref, step.grads(state, fixed)[0])
+                    try:
+                        case["graph_vs_eager"] = grad_diffs(
+                            names, ref, graphed_grads(step, state, fixed))
+                    except RuntimeError as e:
+                        case["graph_vs_eager"] = f"{type(e).__name__}: {str(e)[:200]}"
+                        torch.cuda.synchronize()
+                case["warnings"] = warned
+                out[f"{'bf16' if mixed else 'f32'}_deterministic_{'on' if det else 'off'}"] = case
+                torch.cuda.empty_cache()
+    emit(dict(out, card=smi))
+
+
+def _log_steps(workdir):
+    with open(os.path.join(workdir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def profiled_window(batches, start: int, stop: int, out: list):
+    """Yield ``batches``; the card's kernels are profiled from the request
+    of batch ``start`` to that of batch ``stop``, each after a synchronise,
+    and the profile is appended to ``out``. train() takes a chunk's batches
+    before it dispatches the chunk, so with start and stop multiples of the
+    chunk the window holds whole chunks."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    p = prof(activities=[ProfilerActivity.CUDA])
+    for i, batch in enumerate(batches):
+        if i == start:
+            torch.cuda.synchronize()
+            p.start()
+        elif i == stop:
+            torch.cuda.synchronize()
+            p.stop()
+            out.append(p)
+        yield batch
+
+
+def phase_loop(smi: str):
+    """train() on converge_seg_window for 100 iterations, 10 per dispatch,
+    batches from make_train_iter: it learns, logs and checkpoints at the JAX
+    loop's steps, and a resume from the step-90 checkpoint continues the run."""
+    import dataclasses
+    import shutil
+
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data import make_train_iter
+    from ddp_tpu_torch.train.loop import train
+
+    base = get_config("converge_seg_window")
+    root = os.path.join("work_dirs", "chip_smoke_loop")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def cfg_at(workdir):
+        # log every 25 steps (crossings inside chunks), checkpoint every 45
+        # (misaligned: the hook lands at the chunk end)
+        return dataclasses.replace(base, runtime=dataclasses.replace(
+            base.runtime, total_iters=100, log_interval=25, ckpt_interval=45,
+            max_keep_ckpts=-1, tensorboard=False, workdir=workdir))
+
+    cfg = cfg_at(os.path.join(root, "run"))
+    window = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    state = train(cfg, profiled_window(make_train_iter(cfg), 30, 50, window))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the wrappers launch in the first chunk (eager) and in the capture; a
+    # replay runs no Python, so what the card ran in replays is read from
+    # the profile of steps 31-50 (two replays)
+    host, device = all_launches(), kernel_launches(window[0])
+    if host != {k: 20 * v for k, v in PER_STEP.items()} or \
+            device != {k: 20 * v for k, v in PER_STEP.items()}:
+        raise AssertionError(f"loop: wrapper launches {host} over 100 steps, "
+                             f"{device} run by the card in steps 31-50")
+    logs = _log_steps(cfg.runtime.workdir)
+    ckpt_dir = os.path.join(cfg.runtime.workdir, "ckpts")
+    ckpts = sorted(int(f[5:-3]) for f in os.listdir(ckpt_dir) if f.endswith(".pt"))
+    # ddp_tpu/train/loop.py:143-214 with 10 steps per dispatch: a log at
+    # every crossing of 25 and at the first step; a checkpoint at the chunk
+    # end after each crossing of 45, and at the last step
+    if [r["step"] for r in logs] != [1, 25, 50, 75, 100] or ckpts != [50, 90, 100]:
+        raise AssertionError(f"loop: logs at {[r['step'] for r in logs]}, "
+                             f"checkpoints at {ckpts}")
+    loss1, loss100 = logs[0]["loss"], logs[-1]["loss"]
+    if not loss100 < 0.5 * loss1:
+        raise AssertionError(f"loop: loss {loss1} at step 1, {loss100} at step 100")
+
+    def resume(name):
+        rdir = os.path.join(root, name)
+        os.makedirs(os.path.join(rdir, "ckpts"))
+        shutil.copy(os.path.join(ckpt_dir, "step_90.pt"), os.path.join(rdir, "ckpts"))
+        rcfg = cfg_at(rdir)
+        data = make_train_iter(rcfg)
+        for _ in range(90):
+            next(data)
+        return train(rcfg, data, resume=True), _log_steps(rdir)
+
+    # twice: the two resumed runs' distance is the card's run-to-run noise
+    (resumed, rlogs), (again, _) = resume("resumed"), resume("resumed_again")
+    p90 = torch.load(os.path.join(ckpt_dir, "step_90.pt"), map_location="cuda",
+                     weights_only=True)["model"]
+
+    def params(s):
+        return {k: p.detach() for k, p in s.model.named_parameters()}
+
+    # the uninterrupted run is the reference; two resumed runs give the noise
+    params_ok, diffs = check_by_tensor(params(state), params(resumed), p90,
+                                       l2_by_tensor(params(again), params(resumed)))
+    same_draws = torch.equal(state.generator.get_state(), resumed.generator.get_state())
+    counters = (resumed.step, resumed.optimizer.count) == (state.step, state.optimizer.count)
+    if not (same_draws and counters and params_ok and [r["step"] for r in rlogs] == [91, 100]):
+        raise AssertionError(f"loop resume: generator {same_draws}, counters {counters}, "
+                             f"{diffs}, logs {[r['step'] for r in rlogs]}")
+    emit({"phase": "loop", "preset": cfg.name, "iters": 100, "steps_per_dispatch": 10,
+          "batch": [cfg.data.batch_size, *cfg.data.crop_size],
+          "wall_s": wall, "steps_per_s": 100 / wall,
+          "wall_note": "steps 31-50 ran under the profiler (kernel activity only)",
+          "wrapper_launches_100_steps": host, "launches_run_by_card_steps_31_50": device,
+          "log_steps": [r["step"] for r in logs], "ckpt_steps": ckpts,
+          "loss_step1": loss1, "loss_step100": loss100,
+          "resume_from_90": {"same_generator_state": same_draws, "same_step_and_count": counters,
+                             "params_vs_uninterrupted": diffs,
+                             "loss_step100": rlogs[-1]["loss"],
+                             "log_steps": [r["step"] for r in rlogs]},
+          "card": smi})
+    shutil.rmtree(root, ignore_errors=True)
+    return host, device
+
+
+def phase_converge(smi: str):
+    """The end check: converge_seg_window trained for its 1500 iterations
+    through train() and scored by eval_seg, beside the JAX package's result
+    (work_dirs/converge_seg_window)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.evaluation.convergence import run_seg
+
+    ref_dir = os.path.join("work_dirs", "converge_seg_window")
+    with open(os.path.join(ref_dir, "result.json")) as f:
+        ref = json.load(f)
+    ref_loss = _log_steps(ref_dir)[-1]
+    t0 = time.perf_counter()
+    result = run_seg("converge_seg_window")
+    wall = time.perf_counter() - t0
+    own = _log_steps(get_config("converge_seg_window").runtime.workdir)
+    miou = {f"{t}step": {"port": result[f"mIoU@{t}step"], "jax": ref[f"mIoU@{t}step"],
+                         "diff": result[f"mIoU@{t}step"] - ref[f"mIoU@{t}step"],
+                         "port_std": result[f"mIoU@{t}step_std"],
+                         "jax_std": ref[f"mIoU@{t}step_std"]} for t in (1, 3, 10)}
+    emit({"phase": "converge", "preset": "converge_seg_window", "iters": result["total_iters"],
+          "mIoU": miou, "within_0.01_of_jax": all(abs(v["diff"]) <= 0.01 for v in miou.values()),
+          "loss_at_1500": {"port": own[-1]["loss"], "jax": ref_loss["loss"],
+                           "steps": [own[-1]["step"], ref_loss["step"]]},
+          "steps_per_s_logged": [r["steps_per_s"] for r in own], "wall_s": wall, "card": smi})
+    if own[-1]["step"] != 1500 or not result["mIoU@3step"] >= 0.5:
+        raise AssertionError(f"converge: did not learn ({result})")
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
-          "table_grad")
+          "table_grad", "graph", "loop", "converge", "graph_grads")
+DEFAULT_PHASES = PHASES[:-2]  # converge (about two minutes) and graph_grads on request
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of the phases after device (default: all; "
-                         "serve needs main)")
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                    help="comma-separated subset of the phases after device (default: all "
+                         "but converge and graph_grads; serve needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -1000,10 +1539,30 @@ def main(argv=None) -> int:
         launches["train"] = phase_train(smi, args.profile)
     if "table_grad" in phases:
         phase_table_grad(smi)
+    if "graph" in phases:
+        launches["graph"] = phase_graph(smi, args.profile)
+    if "loop" in phases:
+        launches["loop_wrappers"], launches["loop"] = phase_loop(smi)
+    if "converge" in phases:
+        phase_converge(smi)
+    if "graph_grads" in phases:
+        phase_graph_grads(smi)
+    if "graph" in phases:  # last: it leaves a failed capture behind
+        emit({"phase": "graph", "failed_capture_raises": check_capture_failure(), "card": smi})
     for row in kernels:
         path = "serve" if row["name"] == "encode_map" else "train"
         row["launches"] = launches[path][row["name"]] if path in launches else None
         row["launches_per"] = "sample() call" if path == "serve" else "train step"
+        # the wrappers' counts, read just after the path ran with the counts
+        # at 0, and what the card ran in replays, counted in a profile
+        row["launches_by_path"] = {
+            label: launches[key][row["name"]] for key, label in (
+                ("serve", "sample() call"), ("train", "eager train step"),
+                ("graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t), profiled"),
+                ("loop", "train() on converge_seg_window, steps 31-50 (2 replays), profiled"),
+                ("loop_wrappers", "train() on converge_seg_window, 100 steps: wrapper counts "
+                                  "(the eager first chunk and the capture)"))
+            if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-"""Configuration of the port (from ``ddp_tpu/config.py:19-142,206-252,640-673``).
+"""Configuration of the port (from ``ddp_tpu/config.py:19-142,206-252,334-347,640-673``).
 
 Holds the segmentation fields of ``ModelConfig``, the data fields, the
 ``OptimConfig`` and the ``RuntimeConfig`` fields the training loop reads, the
-``ade20k_swin_t`` preset, one tiny test preset, and ``build_model``.
+``ade20k_swin_t`` and ``converge_seg_window`` presets, one tiny test preset,
+and ``build_model``.
 """
 from __future__ import annotations
 
@@ -42,6 +43,10 @@ class DataConfig:
     dataset: str = "ade20k"
     crop_size: Tuple[int, int] = (512, 512)
     batch_size: int = 16  # global training batch
+    # train-pipeline knobs (mmseg transforms.py semantics)
+    ratio_range: Tuple[float, float] = (0.5, 2.0)
+    cat_max_ratio: float = 0.75
+    flip_prob: float = 0.5
     ignore_index: int = 255
     mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
@@ -57,7 +62,9 @@ class RuntimeConfig:
     save_best: str = ""  # metric key, e.g. 'mIoU'; '' disables
     save_best_mode: str = "max"  # 'max' | 'min'
     tensorboard: bool = True
-    steps_per_dispatch: int = 1  # > 1 is not ported (train() raises)
+    # train steps per dispatch: on the card one CUDA-graph replay of that many
+    # steps (train/step.py: ChunkedTrainStep); hooks fire at chunk ends
+    steps_per_dispatch: int = 1
     seed: int = 0
     workdir: str = "work_dirs/default"
     mixed_precision: bool = True  # bf16 forward/backward, f32 masters
@@ -83,6 +90,25 @@ PRESETS: Dict[str, Callable[[], Config]] = {
         data=DataConfig(dataset="ade20k", crop_size=(512, 512), batch_size=16),
         optim=OptimConfig(lr=6e-5, grad_clip=0.1, total_steps=160_000),
         runtime=RuntimeConfig(total_iters=160_000),
+    ),
+    # the end check of training (ddp_tpu/config.py:334-347): flagship-shaped
+    # but tiny (nano Swin, 64-d window decoder of 6 layers, window 8, 8 heads),
+    # trained on synthetic 64x64 crops through train() and scored by
+    # evaluation/convergence.py; its own workdir, so that a run never
+    # overwrites the JAX package's committed result under
+    # work_dirs/converge_seg_window
+    "converge_seg_window": lambda: Config(
+        name="converge_seg_window",
+        model=ModelConfig(backbone_variant="nano", num_classes=7, embed_dims=64,
+                          decoder_layers=6, decoder_heads=8, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.01, decoder_attn="window",
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=3e-4, grad_clip=1.0, total_steps=1500, warmup_steps=100,
+                          schedule="poly"),
+        runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_seg_window"),
     ),
     # test-only scale: swin 'nano', 64-d decoder of 2 layers, window 4, K=7,
     # two randsteps hypotheses so that the r-major folding is exercised

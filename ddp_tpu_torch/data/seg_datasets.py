@@ -1,10 +1,21 @@
-"""Procedural segmentation data (copy of ``SyntheticSegDataset`` from
-``ddp_tpu/data/seg_datasets.py:84-112``; numpy only)."""
+"""Segmentation data: the procedural dataset and the train batch iterator
+(copies of ``SyntheticSegDataset`` and ``seg_batch_iterator`` from
+``ddp_tpu/data/seg_datasets.py:84-178``; numpy only).
+
+The iterator is deterministic and seeded: the epoch's order is a
+permutation seeded by ``seed + epoch`` and each sample's augmentation draws
+from ``default_rng((seed, epoch, index))``, so any batch is reproducible
+from (seed, step) alone, on every process of a multi-process run.
+"""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import queue as queue_mod
+import threading
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from .pipelines import seg_train_pipeline
 
 
 class SyntheticSegDataset:
@@ -36,3 +47,61 @@ class SyntheticSegDataset:
         ], axis=-1).astype(np.float32) * 64.0 + 128.0
         img += rng.normal(0, 4.0, img.shape)
         return {"image": img.astype(np.float32), "label": label}
+
+
+def seg_batch_iterator(
+    ds, batch_size: int, crop: Tuple[int, int], seed: int = 0,
+    mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375),
+    ratio_range=(0.5, 2.0), cat_max_ratio=0.75, flip_prob=0.5,
+    rank: int = 0, world: int = 1,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite train batch iterator (the seg train pipeline at img_scale
+    (2048, crop[0])) with a background thread that keeps two batches ready.
+
+    ``batch_size`` is global. With world > 1 each process yields only its
+    rank's contiguous slice of every global batch (the same seed-folded order
+    and per-sample augmentation streams on every process, so the global batch
+    is consistent, as a DistributedSampler's)."""
+    img_scale = (2048, crop[0])
+    if batch_size % world:
+        raise ValueError(f"global batch {batch_size} does not split over {world} processes")
+    local = batch_size // world
+
+    def make_batch(epoch: int, start: int) -> Dict[str, np.ndarray]:
+        order = np.random.default_rng(seed + epoch).permutation(len(ds))
+        imgs, labels = [], []
+        for i in range(rank * local, (rank + 1) * local):
+            idx = int(order[(start + i) % len(ds)])
+            rng = np.random.default_rng((seed, epoch, idx))
+            sample = seg_train_pipeline(
+                ds.load(idx), rng, crop, img_scale, ratio_range, cat_max_ratio,
+                flip_prob, mean, std)
+            imgs.append(sample["image"][: crop[0], : crop[1]])
+            labels.append(sample["label"][: crop[0], : crop[1]])
+        return {"image": np.stack(imgs), "label": np.stack(labels)}
+
+    def gen():
+        epoch, cursor = 0, 0
+        while True:
+            yield make_batch(epoch, cursor)
+            cursor += batch_size
+            if cursor >= len(ds):
+                cursor = 0
+                epoch += 1
+
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def worker():
+        for b in gen():
+            if stop.is_set():
+                return
+            q.put(b)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            yield q.get()
+    finally:
+        stop.set()

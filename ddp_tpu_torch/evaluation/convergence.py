@@ -1,0 +1,140 @@
+"""The end check of training: the segmentation part of the JAX package's
+convergence harness (``tools/run_convergence.py:43-46,102-145,589-720``).
+
+A preset is trained from scratch through the real ``train()`` on its
+synthetic data, then scored by ``eval_seg``: the mIoU of the T-step DDIM
+rollout at T = 1, 3 and 10 on 32 held-out ``SyntheticSegDataset`` images
+(indices from 100,000; training draws from [0, 256)), in batches of 8,
+averaged over 3 seeds of the rollout noise. The result is written to
+``<workdir>/result.json`` in the JAX harness's format::
+
+    python -m ddp_tpu_torch.evaluation.convergence converge_seg_window
+
+The JAX package's result for the same preset is
+``work_dirs/converge_seg_window/result.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import build_model, get_config
+from ..data import make_train_iter
+from ..data.pipelines import normalize
+from ..data.seg_datasets import SyntheticSegDataset
+from ..train.loop import train
+from .metrics import SegMetricAccumulator
+
+N_EVAL = 32
+EVAL_BATCH = 8
+SEEDS = (0, 1, 2)
+HELDOUT_BASE = 100_000  # synthetic datasets are seeded by index; training uses [0, length)
+MEAN = (123.675, 116.28, 103.53)
+STD = (58.395, 57.12, 57.375)
+
+
+def heldout_batches(num_classes: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The held-out (images [8, 64, 64, 3] normalised, labels [8, 64, 64])
+    batches, in order."""
+    ds = SyntheticSegDataset(num_classes, (64, 64))
+    out = []
+    for s0 in range(0, N_EVAL, EVAL_BATCH):
+        samples = [normalize(ds.load(HELDOUT_BASE + i), MEAN, STD)
+                   for i in range(s0, s0 + EVAL_BATCH)]
+        out.append((np.stack([s["image"] for s in samples]),
+                    np.stack([s["label"] for s in samples])))
+    return out
+
+
+def rollout_generator(seed: int, start: int, device: torch.device) -> torch.Generator:
+    """The rollout noise's generator of one (seed, batch start), as the JAX
+    harness folds the batch start into the seed's key."""
+    mixed = int(np.random.SeedSequence([seed, start]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def seg_miou(preds: Sequence[np.ndarray], labels: Sequence[np.ndarray],
+             num_classes: int) -> float:
+    """mIoU of predicted maps against label maps, accumulated image by image."""
+    acc = SegMetricAccumulator(num_classes)
+    for p, label in zip(preds, labels):
+        acc.update(p, label)
+    return acc.compute()["mIoU"]
+
+
+@torch.no_grad()
+def eval_seg(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, float]:
+    """Seed-averaged mIoU of the T-step DDIM rollout on the held-out
+    synthetic images (the JAX harness's ``eval_seg``): ``mIoU@{T}step`` and
+    its standard deviation over the seeds, rounded to 4 places."""
+    device = next(model.parameters()).device
+    batches = heldout_batches(mc.num_classes)
+    out = {}
+    for steps in timesteps_list:
+        m_t = build_model(dataclasses.replace(
+            mc, diffusion=dataclasses.replace(mc.diffusion, timesteps=steps)), device=device)
+        m_t.load_state_dict(model.state_dict())
+        mious = []
+        for seed in seeds:
+            preds, labels = [], []
+            for i, (img, label) in enumerate(batches):
+                probs = m_t.sample(torch.from_numpy(img).to(device),
+                                   generator=rollout_generator(seed, i * EVAL_BATCH, device))
+                preds.extend(probs.argmax(-1).cpu().numpy())
+                labels.extend(label)
+            mious.append(seg_miou(preds, labels, mc.num_classes))
+        out[f"mIoU@{steps}step"] = round(float(np.mean(mious)), 4)
+        out[f"mIoU@{steps}step_std"] = round(float(np.std(mious)), 4)
+        print(f"  seg {steps}-step: mIoU {out[f'mIoU@{steps}step']:.4f} "
+              f"± {out[f'mIoU@{steps}step_std']:.4f}", flush=True)
+    return out
+
+
+def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
+            device=None) -> Dict:
+    """Train ``preset`` from scratch through ``train()`` (stale checkpoints
+    cleared, an old train log kept as ``.prev``), score it with
+    ``eval_seg`` and write ``<workdir>/result.json``. ``iters`` cuts the run
+    (and its lr schedule) to that many steps."""
+    cfg = get_config(preset)
+    if iters:
+        cfg = dataclasses.replace(
+            cfg, runtime=dataclasses.replace(cfg.runtime, total_iters=iters),
+            optim=dataclasses.replace(cfg.optim, total_steps=iters))
+    workdir = cfg.runtime.workdir
+    # a fresh run re-saving a step number would otherwise keep the old weights
+    shutil.rmtree(os.path.join(workdir, "ckpts"), ignore_errors=True)
+    log = os.path.join(workdir, "train_log.jsonl")
+    if os.path.exists(log):
+        os.replace(log, log + ".prev")
+    os.makedirs(workdir, exist_ok=True)
+    print(f"=== {preset} ===", flush=True)
+    state = train(cfg, make_train_iter(cfg), device=device)
+    result = eval_seg(state.model, cfg.model)
+    result["preset"] = preset
+    result["total_iters"] = cfg.runtime.total_iters
+    path = os.path.join(workdir, "result.json")
+    with open(path, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {path}", flush=True)
+    return result
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Train a preset and score it (end check).")
+    ap.add_argument("preset", nargs="?", default="converge_seg_window")
+    ap.add_argument("--iters", type=int, help="cut the run to this many steps")
+    ap.add_argument("--device", help="default: cuda")
+    args = ap.parse_args(argv)
+    run_seg(args.preset, args.iters, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -38,11 +38,26 @@ def _linear_weights(in_size: int, out_size: int, align_corners: bool):
     return lo, hi, w
 
 
+# the index and weight tensors on the device, copied there once per shape: a
+# copy from the host cannot be captured into a CUDA graph, and the train step
+# (train/step.py) is one
+@functools.lru_cache(maxsize=128)
+def _nearest_index_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_nearest_index(in_size, out_size), device=device)
+
+
+@functools.lru_cache(maxsize=128)
+def _linear_weights_on(in_size: int, out_size: int, align_corners: bool,
+                       device: torch.device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in _linear_weights(in_size, out_size, align_corners))
+
+
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """[..., H, W, C] -> [..., size[0], size[1], C], torch floor convention."""
     h, w = x.shape[-3], x.shape[-2]
-    ih = torch.as_tensor(_nearest_index(h, size[0]), device=x.device)
-    iw = torch.as_tensor(_nearest_index(w, size[1]), device=x.device)
+    ih = _nearest_index_on(h, size[0], x.device)
+    iw = _nearest_index_on(w, size[1], x.device)
     return x.index_select(-3, ih).index_select(-2, iw)
 
 
@@ -55,16 +70,12 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
         return x
     dev = x.device
     xf = x.float()
-    lo_h, hi_h, wh = _linear_weights(h, oh, align_corners)
-    lo_w, hi_w, ww = _linear_weights(w, ow, align_corners)
-    wh_ = torch.as_tensor(wh, device=dev)[:, None, None]
-    top = xf.index_select(-3, torch.as_tensor(lo_h, device=dev))
-    bot = xf.index_select(-3, torch.as_tensor(hi_h, device=dev))
-    xf = top * (1.0 - wh_) + bot * wh_
-    ww_ = torch.as_tensor(ww, device=dev)[:, None]
-    left = xf.index_select(-2, torch.as_tensor(lo_w, device=dev))
-    right = xf.index_select(-2, torch.as_tensor(hi_w, device=dev))
-    xf = left * (1.0 - ww_) + right * ww_
+    lo_h, hi_h, wh = _linear_weights_on(h, oh, align_corners, dev)
+    lo_w, hi_w, ww = _linear_weights_on(w, ow, align_corners, dev)
+    wh_ = wh[:, None, None]
+    xf = xf.index_select(-3, lo_h) * (1.0 - wh_) + xf.index_select(-3, hi_h) * wh_
+    ww_ = ww[:, None]
+    xf = xf.index_select(-2, lo_w) * (1.0 - ww_) + xf.index_select(-2, hi_w) * ww_
     return xf.to(x.dtype)
 
 

@@ -1,13 +1,18 @@
 """The training loop (port of ``ddp_tpu/train/loop.py:28-239``).
 
-A flat loop around one train step: the lr schedule and the clip live in the
-optimizer, checkpoints on ``torch.save``, logging and evaluation on an
-interval. Every random draw of the run comes from one ``torch.Generator`` on
-the device, seeded from ``runtime.seed`` and saved in each checkpoint, so a
-resumed run continues the uninterrupted one.
+A flat loop around one dispatch of ``runtime.steps_per_dispatch`` train
+steps (``train/step.py: ChunkedTrainStep``; on the card one CUDA-graph
+replay, as the reference's step or ``lax.scan`` of steps is one jitted
+program): the lr schedule and the clip live in the optimizer, checkpoints on
+``torch.save``, logging and evaluation on an interval. Checkpoint and eval
+hooks fire at chunk-end resolution (a crossing inside a chunk lands on the
+chunk's last step), every log-interval crossing inside a chunk is logged
+from the chunk's stacked logs, and so is the first step of a run. Every
+random draw of the run comes from one ``torch.Generator`` on the device,
+seeded from ``runtime.seed`` and saved in each checkpoint, so a resumed run
+continues the uninterrupted one.
 
-Not in this slice: ``runtime.steps_per_dispatch > 1`` and multi-device
-training (both raise ``NotImplementedError``).
+Not in this slice: multi-device training.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from ..config import Config, build_model
 from ..device import resolve_device
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
-from .step import TrainState, make_train_step
+from .step import TrainState, make_chunked_train_step
 
 
 class MetricLogger:
@@ -60,20 +65,15 @@ class MetricLogger:
                                        if isinstance(v, (int, float))})
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
-
-
 def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
           eval_fn: Optional[Callable[[TrainState, int], Dict[str, float]]] = None,
           resume: bool = False, device=None) -> TrainState:
     """Run ``cfg.runtime.total_iters`` steps on ``device`` (default "cuda";
-    raises without a GPU unless ``device="cpu"``). ``data_iter`` yields host
-    batches {'image': [B, H, W, 3], 'label': [B, H, W]}; with ``resume`` it
-    must yield the batches from the restored step on."""
+    raises without a GPU unless ``device="cpu"``), ``runtime.steps_per_dispatch``
+    per dispatch. ``data_iter`` yields host batches {'image': [B, H, W, 3],
+    'label': [B, H, W]}; with ``resume`` it must yield the batches from the
+    restored step on."""
     rt = cfg.runtime
-    if rt.steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported (ROADMAP)")
     dev = resolve_device(device)
     model = build_model(cfg.model, device=dev, seed=rt.seed)
     optimizer = make_optimizer(cfg.optim, model)
@@ -90,21 +90,43 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
         print(f"resumed from step {start_step}", flush=True)
 
     logger = MetricLogger(rt.workdir, rt.log_interval, tensorboard=rt.tensorboard)
-    step_fn = make_train_step(mixed_precision=rt.mixed_precision)
-    for step in range(start_step, rt.total_iters):
-        logs = step_fn(state, _to_device(next(data_iter), dev))
-        if (step + 1) % rt.log_interval == 0 or step == start_step:
-            logger.log(step + 1, {k: v.item() for k, v in logs.items()},
-                       optimizer.lr_schedule(step))
-        if (step + 1) % rt.ckpt_interval == 0 or (step + 1) == rt.total_iters:
-            ckpt.save(step + 1, state, meta=ckpt_meta)
-        if eval_fn is not None and ((step + 1) % rt.eval_interval == 0
-                                    or (step + 1) == rt.total_iters):
-            metrics = eval_fn(state, step + 1)
-            logger.log_eval(step + 1, metrics)
-            if ckpt.save_best_if(step + 1, state, metrics, meta=ckpt_meta):
-                print(f"[best @ {step + 1}] {rt.save_best}={metrics.get(rt.save_best)}",
-                      flush=True)
-            print(f"[eval @ {step + 1}] " + " ".join(
+
+    def crossed(prev: int, now: int, interval: int) -> bool:
+        return now // interval > prev // interval or now == rt.total_iters
+
+    def eval_ckpt_hooks(prev: int, now: int) -> None:
+        if crossed(prev, now, rt.ckpt_interval):
+            ckpt.save(now, state, meta=ckpt_meta)
+        if eval_fn is not None and crossed(prev, now, rt.eval_interval):
+            metrics = eval_fn(state, now)
+            logger.log_eval(now, metrics)
+            if ckpt.save_best_if(now, state, metrics, meta=ckpt_meta):
+                print(f"[best @ {now}] {rt.save_best}={metrics.get(rt.save_best)}", flush=True)
+            print(f"[eval @ {now}] " + " ".join(
                 f"{k}={v:.4f}" for k, v in metrics.items() if isinstance(v, float)), flush=True)
+
+    spd = max(1, rt.steps_per_dispatch)
+    for name, interval in (("ckpt_interval", rt.ckpt_interval),
+                           ("eval_interval", rt.eval_interval)):
+        if interval % spd:
+            print(f"[warn] runtime.{name}={interval} is not a multiple of "
+                  f"steps_per_dispatch={spd}; the hook fires at the chunk-end step after "
+                  "each crossing", flush=True)
+    chunk_fn = make_chunked_train_step(spd, mixed_precision=rt.mixed_precision)
+    step = start_step
+    while step < rt.total_iters:
+        n = min(spd, rt.total_iters - step)
+        chunk = [next(data_iter) for _ in range(n)]
+        logs = chunk_fn(state, {k: torch.from_numpy(np.stack([c[k] for c in chunk]))
+                                for k in ("image", "label")})
+        prev, step = step, step + n
+        crossings = [s for s in range(prev + 1, step + 1) if s % rt.log_interval == 0]
+        if prev == start_step and prev + 1 not in crossings:
+            crossings.insert(0, prev + 1)
+        if crossings:
+            logs_host = {k: v.cpu().numpy() for k, v in logs.items()}
+            for at in crossings:
+                logger.log(at, {k: float(v[at - prev - 1]) for k, v in logs_host.items()},
+                           optimizer.lr_schedule(at - 1))
+        eval_ckpt_hooks(prev, step)
     return state

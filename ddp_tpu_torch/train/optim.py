@@ -161,7 +161,13 @@ def make_momentum_schedule(cfg: OptimConfig) -> Callable[[int], float]:
 class AdamW:
     """The JAX package's optax chain on a list of named parameters (updated
     in place). ``step(grads)`` returns the global norm of the unclipped
-    gradients as a 0-d device tensor (no host synchronisation)."""
+    gradients as a 0-d device tensor (no host synchronisation).
+
+    The values that change from step to step (the lr, b1, 1 − b1 and the
+    bias corrections) are read from a float32 row on the device
+    (``schedule``), never from host floats, so that a CUDA graph of the step
+    (``train/step.py: ChunkedTrainStep``) reads each replay's values; every
+    host value the step does read is a constant of the config."""
 
     def __init__(self, cfg: OptimConfig, named: List[Tuple[str, nn.Parameter]]):
         self.cfg = cfg
@@ -175,9 +181,32 @@ class AdamW:
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
 
+    def schedule(self, n: int) -> torch.Tensor:
+        """[n, 5] float32 rows (lr, b1, 1 − b1, bc1, bc2), on the host, of the
+        next n steps (counts ``count`` to ``count + n − 1``). The bias
+        corrections are ``1 − f32(decay) ** (count + 1)`` in float32, as optax
+        computes them; every value is the float32 rounding of what the step
+        once read as a host float."""
+        rows = []
+        b2 = self.cfg.betas[1]
+        for step in range(self.count, self.count + n):
+            b1 = self.b1_schedule(step) if self.b1_schedule else self.cfg.betas[0]
+            bc1 = 1.0 - float(torch.tensor(b1, dtype=torch.float32) ** (step + 1))
+            bc2 = 1.0 - float(torch.tensor(b2, dtype=torch.float32) ** (step + 1))
+            rows.append((self.lr_schedule(step), b1, 1.0 - b1, bc1, bc2))
+        return torch.tensor(rows, dtype=torch.float32)
+
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def step(self, grads: List[torch.Tensor], sched: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
+        """One update. ``sched``: this step's [5] schedule row on the
+        parameters' device; the caller then advances ``count``. None: the row
+        of ``count`` is filled from the host and ``count`` advances by one."""
         cfg = self.cfg
+        if sched is None:
+            sched = self.schedule(1)[0].to(self.params[0].device, non_blocking=True)
+            self.count += 1
+        lr, b1, one_minus_b1, bc1, bc2 = sched.unbind(0)
         # dense like the moments, so that every _foreach op takes its fused
         # multi-tensor route (a stride mismatch drops it to one launch per tensor)
         g = [x.float().contiguous() for x in grads]
@@ -188,17 +217,11 @@ class AdamW:
         g = torch._foreach_div(g, torch.where(keep, one, g_norm))
         torch._foreach_mul_(g, torch.where(keep, one, one * cfg.grad_clip))
 
-        step = self.count
-        self.count += 1
-        b1 = self.b1_schedule(step) if self.b1_schedule else cfg.betas[0]
         b2 = cfg.betas[1]
         torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1.0 - b1))
+        torch._foreach_add_(self.mu, torch._foreach_mul(g, one_minus_b1))
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
-        # bias corrections in float32, as optax computes decay ** count
-        bc1 = 1.0 - float(torch.tensor(b1, dtype=torch.float32) ** self.count)
-        bc2 = 1.0 - float(torch.tensor(b2, dtype=torch.float32) ** self.count)
         den = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(den, 1e-8)
         upd = torch._foreach_div(torch._foreach_div(self.mu, bc1), den)
@@ -207,10 +230,11 @@ class AdamW:
             torch._foreach_add_([upd[i] for i in decayed],
                                 torch._foreach_mul([self.params[i] for i in decayed],
                                                    cfg.weight_decay))
-        torch._foreach_mul_(upd, -self.lr_schedule(step))
+        # p − (u·lr)·mult: bit for bit p + (u·(−lr))·mult, negation being exact
+        torch._foreach_mul_(upd, lr)
         if any(m != 1.0 for m in self.lr_mults):
             torch._foreach_mul_(upd, self.lr_mults)
-        torch._foreach_add_(self.params, upd)
+        torch._foreach_sub_(self.params, upd)
         return g_norm
 
     def state_dict(self) -> Dict:

@@ -16,11 +16,15 @@ No ``torch.autocast``: it chooses per-op types of its own.
 The step's random draws (t, the noise, dropout and drop-path masks) come
 from ``state.generator``; a batch may carry ``t`` [B] and ``noise``
 ([B, h, w, C] or [B·h·w, C]) to fix them.
+
+``make_chunked_train_step`` (``ddp_tpu/train/state.py:177-205``) runs n such
+steps per call; on CUDA they are one CUDA-graph replay.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,10 +105,11 @@ class TrainStep:
         logs = {k: torch.stack([c[k] for c in chunk_logs]).mean() for k in chunk_logs[0]}
         return total, logs
 
-    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 sched: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One step; ``sched`` as ``AdamW.step`` takes it."""
         grads, logs = self.grads(state, batch)
-        logs["grad_norm"] = state.optimizer.step(grads)
+        logs["grad_norm"] = state.optimizer.step(grads, sched)
         state.step += 1
         return logs
 
@@ -114,3 +119,127 @@ def make_train_step(microbatch: int = 1, mixed_precision: bool = False) -> Train
     dicts of tensors on the model's device, 'image' [B, H, W, 3] float and
     'label' [B, H, W] int (255 = ignore)."""
     return TrainStep(microbatch, mixed_precision)
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Dict[str, torch.Tensor]  # static [n, B, ...] batch buffers
+    sched: torch.Tensor              # static [n, 5] schedule rows
+    logs: Dict[str, torch.Tensor]    # static [n] log outputs
+
+
+class ChunkedTrainStep:
+    """n train steps per call (``ddp_tpu.train.state.make_chunked_train_step``):
+    ``step(state, batches) -> logs``, batches stacked [n, B, ...] (tensors on
+    the host or the device), logs stacked [n]. ``state.step`` and
+    ``optimizer.count`` advance by n.
+
+    On CUDA the n steps are one ``torch.cuda.CUDAGraph``, captured once per n
+    as JAX compiles one program per chunk length (the tail chunk gets its
+    own): static input buffers that each call's batches are copied into, the
+    [n, 5] rows of ``AdamW.schedule`` that the host writes before each
+    replay, static log outputs, and ``state.generator`` registered with the
+    graph so that every replay draws new t, noise, dropout and drop-path masks
+    from where the last one left the generator. A capture needs warm-up steps
+    on its stream, and as the step updates in place they must be real steps:
+    the first call runs its n steps eagerly on the capture stream and
+    captures after them; a later new n is captured, then replayed. A
+    replay runs no Python, so the kernels' launch counters count the eager
+    chunk and the capture, not the replays. A capture or replay that fails
+    raises: there is no eager fallback. On the CPU (the tests) the same n steps run eagerly."""
+
+    def __init__(self, chunk: int, microbatch: int = 1, mixed_precision: bool = False):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.chunk = chunk
+        self.step = TrainStep(microbatch, mixed_precision)
+        self.capture_s: Dict[int, float] = {}  # host seconds of each capture
+        self._graphs: Dict[int, _Captured] = {}
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def _steps(self, state: TrainState, batches: Dict[str, torch.Tensor],
+               sched: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Step i on batches[:, i] with schedule row i; logs stacked."""
+        logs = [self.step(state, {k: v[i] for k, v in batches.items()}, sched[i])
+                for i in range(sched.shape[0])]
+        return {k: torch.stack([step_logs[k] for step_logs in logs]) for k in logs[0]}
+
+    def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        opt = state.optimizer
+        n = batches["image"].shape[0]
+        if not 1 <= n <= self.chunk:
+            raise ValueError(f"a chunk of {n} steps; this step takes 1 to {self.chunk}")
+        sched = opt.schedule(n)
+        device = opt.params[0].device
+        if device.type != "cuda":
+            logs = self._steps(state, batches, sched.to(device))
+        elif n in self._graphs:
+            logs = self._replay(state, self._graphs[n], batches, sched)
+        elif self._stream is None:
+            logs = self._warm_up_and_capture(state, batches, sched, device)
+        else:
+            logs = self._replay(state, self._capture(state, batches, sched), batches, sched)
+        opt.count += n
+        return logs
+
+    def _warm_up_and_capture(self, state: TrainState, batches: Dict[str, torch.Tensor],
+                             sched: torch.Tensor, device: torch.device
+                             ) -> Dict[str, torch.Tensor]:
+        """The first chunk: its steps, eagerly on the capture stream, then
+        the capture of their graph for the chunks to come."""
+        self._stream = torch.cuda.Stream(device)
+        inputs = {k: v.to(device, copy=True) for k, v in batches.items()}
+        rows = sched.to(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(self._stream):
+            logs = self._steps(state, inputs, rows)
+        torch.cuda.current_stream(device).wait_stream(self._stream)
+        self._capture(state, inputs, rows)
+        return logs
+
+    def _capture(self, state: TrainState, batches: Dict[str, torch.Tensor],
+                 sched: torch.Tensor) -> _Captured:
+        """Capture the n steps on ``batches`` (kept as the static inputs when
+        they are on the device) and schedule rows; runs no step."""
+        device = state.optimizer.params[0].device
+        inputs = {k: v if v.device == device else v.to(device) for k, v in batches.items()}
+        rows = sched if sched.device == device else sched.to(device)
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError("torch.cuda.CUDAGraph.register_generator_state is missing "
+                               f"(PyTorch {torch.__version__}); without it every replay "
+                               "would repeat the captured random draws")
+        graph.register_generator_state(state.generator)
+        step = state.step
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=self._stream):
+            logs = self._steps(state, inputs, rows)
+        torch.cuda.synchronize(device)
+        self.capture_s[rows.shape[0]] = time.perf_counter() - t0
+        state.step = step  # the capture ran no step
+        cap = _Captured(graph, inputs, rows, logs)
+        self._graphs[rows.shape[0]] = cap
+        return cap
+
+    def _replay(self, state: TrainState, cap: _Captured, batches: Dict[str, torch.Tensor],
+                sched: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if set(batches) != set(cap.inputs):
+            raise ValueError(f"batch keys {sorted(batches)} != captured {sorted(cap.inputs)}")
+        for k, v in batches.items():
+            if v.shape != cap.inputs[k].shape or v.dtype != cap.inputs[k].dtype:
+                raise ValueError(f"batch {k!r} {v.dtype} {tuple(v.shape)} != captured "
+                                 f"{cap.inputs[k].dtype} {tuple(cap.inputs[k].shape)}")
+            if v.data_ptr() != cap.inputs[k].data_ptr():
+                cap.inputs[k].copy_(v, non_blocking=True)
+        cap.sched.copy_(sched, non_blocking=True)
+        cap.graph.replay()
+        state.step += cap.sched.shape[0]
+        return {k: v.clone() for k, v in cap.logs.items()}
+
+
+def make_chunked_train_step(chunk: int, microbatch: int = 1,
+                            mixed_precision: bool = False) -> ChunkedTrainStep:
+    """``chunk`` train steps per dispatch (``ddp_tpu.train.state.
+    make_chunked_train_step``); see ``ChunkedTrainStep``."""
+    return ChunkedTrainStep(chunk, microbatch, mixed_precision)

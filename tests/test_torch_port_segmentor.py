@@ -112,7 +112,8 @@ def test_port_imports_no_jax():
             "ddp_tpu_torch.ops.q_sample, ddp_tpu_torch.ops.upsample_ce, ddp_tpu_torch.nn.losses, "
             "ddp_tpu_torch.nn.common, ddp_tpu_torch.train.optim, ddp_tpu_torch.train.step, "
             "ddp_tpu_torch.train.checkpoint, ddp_tpu_torch.train.events, "
-            "ddp_tpu_torch.train.loop, ddp_tpu_torch.data.seg_datasets; "
+            "ddp_tpu_torch.train.loop, ddp_tpu_torch.data, ddp_tpu_torch.data.seg_datasets, "
+            "ddp_tpu_torch.data.pipelines, ddp_tpu_torch.evaluation.convergence; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu')); print(bad); "
             # importing loads no CUDA library
