@@ -7,7 +7,8 @@
                                            # train step to OUT (and OUT.train)
     python3 chip_smoke.py --phases build,kernels   # a subset (device and
                                            # build always run)
-    python3 chip_smoke.py --phases converge        # the end check alone
+    python3 chip_smoke.py --phases build,converge          # the window end check
+    python3 chip_smoke.py --phases build,converge_msda     # the msda end checks
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
@@ -63,14 +64,33 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                logs and checkpoints land at the JAX loop's steps, the card
                runs the kernels in the replays of steps 31-50 (profiled),
                and a resume from the step-90 checkpoint continues the run.
- 11. converge - (only when named) the end check: converge_seg_window's 1500
+ 11. msda_main - serving with the msda decoder: ade20k_swin_t_msda at full
+               width and depth, its weights seeded random tensors under
+               mmseg's names, torch.save'd and loaded onto the card by
+               load_mmseg_checkpoint (the report must be empty);
+               DDPSegmentor.sample on 2x512x512 against the plain path (the
+               main phase's limits), encode_map launches, wall ms, img/s,
+               busy share, denoise_step_s; the MSDA op alone at the
+               decoder's shape (value [2, 16384, 8, 32], loc [2, 16384, 8, 1,
+               4, 2]): forward and forward+backward ms beside grid_sample's,
+               and which backward PyTorch's deterministic algorithms accept.
+ 12. msda_train - training with the msda decoder at 2 x 512^2: one step with
+               fixed draws through the kernels and through the plain
+               versions, one eager step in f32 and in bf16 (launch counts,
+               loss, peak memory), and a graphed chunk of 10 steps held to
+               the eager steps as in graph (f32 and bf16).
+ 13. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 12. graph_grads - (only when named) where the graphed and the eager step
+ 14. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
+ 15. converge_msda - (only when named) the msda end checks:
+               converge_seg_msda's 1500 iterations, then
+               converge_seg_aligned_msda's 300 from its checkpoint, each
+               beside work_dirs/<preset>/result.json of the JAX package.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1187,9 +1207,9 @@ def check_capture_failure():
     return err
 
 
-def graph_case(cfg, mixed: bool, smi: str, profile: str = None):
-    """ade20k_swin_t at 2 x 512^2: the eager step and the graphed chunk
-    (n = 1 and n = 10) from one state and one batch. The optimizer starts
+def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
+    """``cfg`` (ade20k_swin_t or ade20k_swin_t_msda) at 2 x 512^2: the eager
+    step and the graphed chunks of ``ns`` steps from one state and one batch. The optimizer starts
     at the end of the lr warm-up (lr 6e-5, as a run resumed there): at the
     first steps' lr (below 1e-7) an update is a few ulps of a parameter near
     1 (the norms' weights), so one rounding of p - u.lr is a third of it and
@@ -1213,8 +1233,8 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None):
     eager_s = wall_s(lambda: eager(state, batch), reps=5, warmup=0)
     eager_peak = torch.cuda.max_memory_allocated() / 1e9
     eager_busy, eager_launches = profile_call(
-        lambda: eager(state, batch), profile and f"{profile}.graph_{tag}_eager",
-        f"# one eager ade20k_swin_t {tag} train step, {smi}\n")
+        lambda: eager(state, batch), profile and f"{profile}.{cfg.name}_{tag}_eager",
+        f"# one eager {cfg.name} {tag} train step, {smi}\n")
     if eager_launches != PER_STEP:
         raise AssertionError(f"graph {tag}: the card ran {eager_launches} in an eager step")
 
@@ -1224,7 +1244,8 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None):
            "eager": {"wall_ms_per_step": eager_s * 1e3, "img_per_s": b / eager_s,
                      "device_busy_ms": eager_busy, "busy_share": eager_busy / (eager_s * 1e3),
                      "launches_profiled": eager_launches, "peak_mem_gb": eager_peak}}
-    for n, reps in ((1, 5), (10, 3)):
+    for n in ns:
+        reps = 5 if n == 1 else 3
         chunk_batch = stacked(batch, n)
         # held with PyTorch's deterministic algorithms on (graph and eager
         # alike): without them its index_add_/index_put_ sum by atomics in an
@@ -1245,8 +1266,8 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None):
         # one replay under the profiler: its kernel time and the launches the
         # card ran, by kernel name
         busy, launched = profile_call(
-            lambda: chunk(state, chunk_batch), profile and f"{profile}.graph_{tag}_n{n}",
-            f"# one replay of {n} graphed ade20k_swin_t {tag} train steps, {smi}\n")
+            lambda: chunk(state, chunk_batch), profile and f"{profile}.{cfg.name}_{tag}_n{n}",
+            f"# one replay of {n} graphed {cfg.name} {tag} train steps, {smi}\n")
         per_step = {k: v / n for k, v in launched.items()}
         if per_step != PER_STEP:
             raise AssertionError(f"graph {tag} n={n}: the card ran {launched} in one replay")
@@ -1477,37 +1498,264 @@ def phase_loop(smi: str):
     return host, device
 
 
-def phase_converge(smi: str):
-    """The end check: converge_seg_window trained for its 1500 iterations
-    through train() and scored by eval_seg, beside the JAX package's result
-    (work_dirs/converge_seg_window)."""
+# --- the msda decoder -----------------------------------------------------------
+
+MSDA_DIR = os.path.join("work_dirs", "chip_smoke_msda")
+
+
+def msda_inputs(b=2, h=128, w=128, heads=8, points=4, dim=32, seed=21):
+    """The decoder's MSDA call at ade20k_swin_t_msda, 2 x 512^2: value [b,
+    h·w, heads, dim], locations [b, h·w, heads, 1, points, 2] (each token's
+    cell centre plus offsets of a few pixels, some beyond the border) and
+    softmaxed weights [b, h·w, heads, 1, points], on the card."""
+    from ddp_tpu_torch.nn.transformer import reference_points
+
+    g = _gen(seed)
+    value = torch.randn(b, h * w, heads, dim, generator=g)
+    ref = torch.from_numpy(reference_points(((h, w),)))[None, :, None, :, None, :]
+    offsets = 3.0 * torch.randn(b, h * w, heads, 1, points, 2, generator=g)
+    loc = ref + offsets / torch.tensor([w, h], dtype=torch.float32)
+    weights = torch.softmax(torch.randn(b, h * w, heads, points, generator=g), dim=-1)
+    return (value.cuda(), loc.cuda(), weights.reshape(b, h * w, heads, 1, points).cuda(),
+            (h, w))
+
+
+def grid_sample_msda(value, hw, loc, weights):
+    """The same sampling through ``F.grid_sample`` (bilinear, zeros,
+    align_corners=False), one level: the library yardstick."""
+    import torch.nn.functional as F
+
+    b, s, nh, d = value.shape
+    q, p = loc.shape[1], loc.shape[4]
+    v = value.permute(0, 2, 3, 1).reshape(b * nh, d, *hw)
+    grid = (2.0 * loc[:, :, :, 0] - 1.0).permute(0, 2, 1, 3, 4).reshape(b * nh, q, p, 2)
+    out = F.grid_sample(v, grid, mode="bilinear", padding_mode="zeros", align_corners=False)
+    wts = weights[:, :, :, 0].permute(0, 2, 1, 3).reshape(b * nh, 1, q, p)
+    return (out * wts).sum(-1).reshape(b, nh, d, q).permute(0, 3, 1, 2).reshape(b, q, nh * d)
+
+
+def msda_op(smi: str):
+    """The MSDA op alone at the decoder's shape: forward and forward+backward
+    ms (CUDA events, cold L2) of ms_deform_attn (the "gather" form: one
+    embedding_bag on a flat index), beside grid_sample's at the same
+    sampling; their agreement; and which of the two backwards PyTorch's
+    deterministic algorithms accept."""
+    from ddp_tpu_torch.ops.deform_attn import ms_deform_attn
+
+    value, loc, weights, hw = msda_inputs()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = ms_deform_attn(value, (hw,), loc, weights)
+    ref = grid_sample_msda(value, hw, loc, weights)
+    err = (out - ref).abs().max().item()
+    if not err <= 1e-5 * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"msda: gather form vs grid_sample max |d| {err}")
+    cot = torch.randn(out.shape, generator=_gen(22)).cuda()
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, weights)]
+
+    def fwd_bwd(fn):
+        v, lc, w = leaves
+        torch.autograd.grad((fn(v, lc, w) * cot).sum(), leaves)
+
+    def gather(v, lc, w):
+        return ms_deform_attn(v, (hw,), lc, w)
+
+    def library(v, lc, w):
+        return grid_sample_msda(v, hw, lc, w)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: gather(value, loc, weights), flush=flush)
+        grid_fwd_ms = time_ms(lambda: library(value, loc, weights), flush=flush)
+    fwd_bwd_ms = time_ms(lambda: fwd_bwd(gather), flush=flush)
+    grid_fwd_bwd_ms = time_ms(lambda: fwd_bwd(library), flush=flush)
+    det = {}
+    for name, fn in (("gather", gather), ("grid_sample", library)):
+        with deterministic_algorithms(True) as warned:
+            runs = []
+            for _ in range(2):
+                v, lc, w = leaves
+                runs.append(torch.autograd.grad((fn(v, lc, w) * cot).sum(), leaves))
+            torch.cuda.synchronize()
+        det[name] = {"warnings": warned, "grads_bitwise_equal_twice": all(
+            torch.equal(a, b) for a, b in zip(*runs))}
+        if name == "gather":
+            with deterministic_algorithms(True):
+                det[name]["fwd_bwd_ms"] = time_ms(lambda: fwd_bwd(gather), flush=flush)
+    # cuBLAS warns under deterministic algorithms unless CUBLAS_WORKSPACE_CONFIG
+    # is set (its GEMMs here are deterministic all the same); any other
+    # warning names an op of the gather form without a deterministic kernel
+    others = [w for w in det["gather"]["warnings"] if "CuBLAS" not in w]
+    if others or not det["gather"]["grads_bitwise_equal_twice"]:
+        raise AssertionError(f"msda: the gather form is not deterministic: {det['gather']}")
+    return {"value": list(value.shape), "loc": list(loc.shape), "weights": list(weights.shape),
+            "max_abs_diff_vs_grid_sample": err, "fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+            "grid_sample_fwd_ms": grid_fwd_ms, "grid_sample_fwd_bwd_ms": grid_fwd_bwd_ms,
+            "deterministic_algorithms": det,
+            "timing": "median of 30 CUDA-event timings after a 256 MiB rewrite (cold L2), f32"}
+
+
+def phase_msda_main(smi: str):
+    """Serving with the msda decoder: ade20k_swin_t_msda at full width and
+    depth, its weights seeded random tensors under mmseg's names written to a
+    .pth and loaded onto the card by load_mmseg_checkpoint; sample() on
+    2 x 512^2 through the kernels and through the plain versions; then the
+    MSDA op alone."""
+    import shutil
+
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.train.torch_import import load_mmseg_checkpoint, synthetic_mmseg_state
+
+    cfg = get_config("ade20k_swin_t_msda")
+    m = cfg.model
+    b, (h, w) = 2, cfg.data.crop_size
+    os.makedirs(MSDA_DIR, exist_ok=True)
+    path = os.path.join(MSDA_DIR, "mmseg_random.pth")
+    torch.save({"state_dict": {k: torch.from_numpy(v)
+                               for k, v in synthetic_mmseg_state(m, seed=0, gn="gn").items()}},
+               path)
+    t0 = time.perf_counter()
+    model, report = load_mmseg_checkpoint(path, cfg, device="cuda")
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(MSDA_DIR, ignore_errors=True)
+    if report["missing"] or report["unused"]:
+        raise AssertionError(f"msda import report not empty: {report}")
+    g = _gen(31)
+    img = torch.randn(b, h, w, 3, generator=g).cuda()
+    noise = torch.randn(m.diffusion.randsteps * b, h // 4, w // 4, m.embed_dims,
+                        generator=g).cuda()
+
+    reset_all_launches()
+    probs = model.sample(img, init_noise=noise)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches["encode_map"] != m.diffusion.timesteps:
+        raise AssertionError(f"msda serve: encode_map launched {launches['encode_map']} "
+                             f"times, want {m.diffusion.timesteps}")
+    check_probs(probs, (b, h, w, m.num_classes))
+    with plain_kernels():
+        plain = model.sample(img, init_noise=noise)
+    diff, agree = compare_probs(probs, plain)
+    del plain
+    if not (diff <= 1e-4 and agree >= 0.999):
+        raise AssertionError(f"msda: kernel vs plain path: prob diff {diff}, agreement {agree}")
+    sec = wall_s(lambda: model.sample(img, init_noise=noise))
+    busy_ms, card_launches = profile_call(lambda: model.sample(img, init_noise=noise))
+    with torch.no_grad():
+        feat = model.extract_feat(img)
+        log_snr = torch.zeros(noise.shape[0], device="cuda")
+        step_s = wall_s(lambda: model.denoise_logits(
+            feat.repeat(m.diffusion.randsteps, 1, 1, 1), noise, log_snr))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, feat
+    torch.cuda.empty_cache()
+    emit({"phase": "msda_main", "preset": cfg.name, "img": [b, h, w, 3],
+          "weights": "seeded random tensors under mmseg names, torch.save'd, "
+                     "load_mmseg_checkpoint", "import_report": report, "load_s": load_s,
+          "launches": launches, "launches_run_by_card": card_launches,
+          "max_abs_prob_diff_vs_plain": diff, "argmax_agreement_vs_plain": agree,
+          "sample_s": sec, "img_per_s": b / sec, "device_busy_ms": busy_ms,
+          "busy_share": busy_ms / (sec * 1e3), "denoise_step_s": step_s,
+          "dtype": "float32, tf32 off", "peak_mem_gb": peak,
+          "msda_op": msda_op(smi), "card": smi})
+    return launches
+
+
+def phase_msda_train(smi: str):
+    """Training with the msda decoder: ade20k_swin_t_msda at full width and
+    depth, 2 x 512^2: one eager step in f32 and in bf16 (the kernels' launch
+    counts), one step with fixed draws through the kernels and through the
+    plain versions, and a graphed chunk of 10 steps held to the eager steps
+    (graph_case, f32 and bf16)."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("ade20k_swin_t_msda")
+    b = 2
+    model = build_model(cfg.model, device="cuda", seed=0)
+    opt = make_optimizer(cfg.optim, model)
+    state = TrainState(model, opt, torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batch(cfg, b)
+    grads_check = compare_grads(cfg, model, opt, batch)
+    out = {"phase": "msda_train", "preset": cfg.name, "img": [b, 512, 512, 3],
+           "kernel_vs_plain": grads_check}
+    launches = None
+    for mixed in (False, True):
+        step = make_train_step(mixed_precision=mixed)
+        step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        logs = step(state, batch)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counted = all_launches()
+        if counted != PER_STEP:
+            raise AssertionError(f"msda train: launches per step {counted}, want {PER_STEP}")
+        loss = logs["loss"].item()
+        if not (loss == loss and abs(loss) < float("inf")):
+            raise AssertionError(f"msda train: non-finite loss {loss}")
+        launches = launches or counted
+        out["bf16" if mixed else "f32"] = {
+            "eager_step_s": sec, "img_per_s": b / sec, "loss": loss,
+            "launches_per_step": counted,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, opt, state
+    torch.cuda.empty_cache()
+    emit(dict(out, card=smi))
+    graphed = graph_case(cfg, False, smi, ns=(10,))
+    torch.cuda.empty_cache()
+    graph_case(cfg, True, smi, ns=(10,))
+    torch.cuda.empty_cache()
+    return launches, graphed
+
+
+def converge_case(preset: str, smi: str):
+    """``preset`` through run_seg (train() and eval_seg) beside the JAX
+    package's result for it (work_dirs/<preset>/result.json)."""
     from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.evaluation.convergence import run_seg
 
-    ref_dir = os.path.join("work_dirs", "converge_seg_window")
+    ref_dir = os.path.join("work_dirs", preset)
     with open(os.path.join(ref_dir, "result.json")) as f:
         ref = json.load(f)
     ref_loss = _log_steps(ref_dir)[-1]
     t0 = time.perf_counter()
-    result = run_seg("converge_seg_window")
+    result = run_seg(preset)
     wall = time.perf_counter() - t0
-    own = _log_steps(get_config("converge_seg_window").runtime.workdir)
+    own = _log_steps(get_config(preset).runtime.workdir)
     miou = {f"{t}step": {"port": result[f"mIoU@{t}step"], "jax": ref[f"mIoU@{t}step"],
                          "diff": result[f"mIoU@{t}step"] - ref[f"mIoU@{t}step"],
                          "port_std": result[f"mIoU@{t}step_std"],
                          "jax_std": ref[f"mIoU@{t}step_std"]} for t in (1, 3, 10)}
-    emit({"phase": "converge", "preset": "converge_seg_window", "iters": result["total_iters"],
+    emit({"phase": "converge", "preset": preset, "iters": result["total_iters"],
           "mIoU": miou, "within_0.01_of_jax": all(abs(v["diff"]) <= 0.01 for v in miou.values()),
-          "loss_at_1500": {"port": own[-1]["loss"], "jax": ref_loss["loss"],
-                           "steps": [own[-1]["step"], ref_loss["step"]]},
+          "loss_last_logged": {"port": own[-1]["loss"], "jax": ref_loss["loss"],
+                               "steps": [own[-1]["step"], ref_loss["step"]]},
           "steps_per_s_logged": [r["steps_per_s"] for r in own], "wall_s": wall, "card": smi})
-    if own[-1]["step"] != 1500 or not result["mIoU@3step"] >= 0.5:
-        raise AssertionError(f"converge: did not learn ({result})")
+    if own[-1]["step"] != result["total_iters"] or not result["mIoU@3step"] >= 0.5:
+        raise AssertionError(f"converge {preset}: did not learn ({result})")
+
+
+def phase_converge_msda(smi: str):
+    """The msda end checks: converge_seg_msda's 1500 iterations, then
+    converge_seg_aligned_msda's 300 from its checkpoint."""
+    converge_case("converge_seg_msda", smi)
+    converge_case("converge_seg_aligned_msda", smi)
+
+
+def phase_converge(smi: str):
+    """The end check: converge_seg_window trained for its 1500 iterations
+    through train() and scored by eval_seg, beside the JAX package's result
+    (work_dirs/converge_seg_window)."""
+    converge_case("converge_seg_window", smi)
 
 
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
-          "table_grad", "graph", "loop", "converge", "graph_grads")
-DEFAULT_PHASES = PHASES[:-2]  # converge (about two minutes) and graph_grads on request
+          "table_grad", "graph", "loop", "msda_main", "msda_train", "converge", "graph_grads",
+          "converge_msda")
+ON_REQUEST = ("converge", "graph_grads", "converge_msda")
+DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
 def main(argv=None) -> int:
@@ -1515,7 +1763,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but converge and graph_grads; serve needs main)")
+                         "but converge, graph_grads and converge_msda; serve needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -1543,8 +1791,14 @@ def main(argv=None) -> int:
         launches["graph"] = phase_graph(smi, args.profile)
     if "loop" in phases:
         launches["loop_wrappers"], launches["loop"] = phase_loop(smi)
+    if "msda_main" in phases:
+        launches["msda_serve"] = phase_msda_main(smi)
+    if "msda_train" in phases:
+        launches["msda_train"], launches["msda_graph"] = phase_msda_train(smi)
     if "converge" in phases:
         phase_converge(smi)
+    if "converge_msda" in phases:
+        phase_converge_msda(smi)
     if "graph_grads" in phases:
         phase_graph_grads(smi)
     if "graph" in phases:  # last: it leaves a failed capture behind
@@ -1561,7 +1815,11 @@ def main(argv=None) -> int:
                 ("graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t), profiled"),
                 ("loop", "train() on converge_seg_window, steps 31-50 (2 replays), profiled"),
                 ("loop_wrappers", "train() on converge_seg_window, 100 steps: wrapper counts "
-                                  "(the eager first chunk and the capture)"))
+                                  "(the eager first chunk and the capture)"),
+                ("msda_serve", "sample() call of ade20k_swin_t_msda"),
+                ("msda_train", "eager train step of ade20k_swin_t_msda"),
+                ("msda_graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t_msda), "
+                               "profiled"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

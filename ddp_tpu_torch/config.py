@@ -2,8 +2,10 @@
 
 Holds the segmentation fields of ``ModelConfig``, the data fields, the
 ``OptimConfig`` and the ``RuntimeConfig`` fields the training loop reads, the
-``ade20k_swin_t`` and ``converge_seg_window`` presets, one tiny test preset,
-and ``build_model``.
+``ade20k_swin_t`` (window decoder) and ``ade20k_swin_t_msda`` (the
+reference's msda decoder) presets, the end checks ``converge_seg_window``,
+``converge_seg_msda`` and ``converge_seg_aligned_msda``, one tiny test
+preset, and ``build_model``.
 """
 from __future__ import annotations
 
@@ -27,11 +29,15 @@ class ModelConfig:
     drop_path_rate: float = 0.3
     self_aligned: bool = False
     loss_at: str = "full"  # 'full' (reference parity) | 'quarter'
-    # decoder: 'window' = dense shifted-window attention (the presets'
-    # shape: 16x16 windows, 4 heads); 'msda' is not ported yet
+    # decoder: 'msda' = the reference's deformable attention (8 heads, 1
+    # level, 4 points: the shape of every released checkpoint); 'window' =
+    # the JAX package's dense shifted-window attention (16x16 windows, 4
+    # heads in its presets)
     decoder_attn: str = "window"
     decoder_window: int = 8
-    decoder_film: str = "v1"
+    decoder_film: str = "v1"  # 'v1' | 'v2' | 'v3'
+    # 'sine' | 'learned' (tables of 50 rows and columns, mmseg's default and
+    # the JAX package's max(50, h) for grids up to 50)
     decoder_pos: str = "sine"
     decoder_layers: int = 6
     decoder_heads: int = 8
@@ -91,6 +97,20 @@ PRESETS: Dict[str, Callable[[], Config]] = {
         optim=OptimConfig(lr=6e-5, grad_clip=0.1, total_steps=160_000),
         runtime=RuntimeConfig(total_iters=160_000),
     ),
+    # the reference config itself, with its msda decoder: the JAX package's
+    # _seg("ade20k_swin_t", ..., decoder_attn="msda") (ddp_tpu/config.py:
+    # 206-252), which keeps the 8-head shape of the released checkpoints
+    # (ddp_tpu's get_config("ade20k_swin_t", {"model.decoder_attn": "msda"})
+    # keeps the window preset's 4 heads instead: ROADMAP.md queue 3)
+    "ade20k_swin_t_msda": lambda: Config(
+        name="ade20k_swin_t_msda",
+        model=ModelConfig(backbone_variant="tiny", num_classes=150, bit_scale=0.01,
+                          decoder_attn="msda", decoder_heads=8,
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
+        data=DataConfig(dataset="ade20k", crop_size=(512, 512), batch_size=16),
+        optim=OptimConfig(lr=6e-5, grad_clip=0.1, total_steps=160_000),
+        runtime=RuntimeConfig(total_iters=160_000),
+    ),
     # the end check of training (ddp_tpu/config.py:334-347): flagship-shaped
     # but tiny (nano Swin, 64-d window decoder of 6 layers, window 8, 8 heads),
     # trained on synthetic 64x64 crops through train() and scored by
@@ -109,6 +129,39 @@ PRESETS: Dict[str, Callable[[], Config]] = {
         runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
                               eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
                               workdir="work_dirs/torch_converge_seg_window"),
+    ),
+    # the msda twin of converge_seg_window (ddp_tpu/config.py:394-411); the
+    # JAX package's converge_seg is the same model (its decoder_attn
+    # defaults to 'msda'), so it is not added a second time
+    "converge_seg_msda": lambda: Config(
+        name="converge_seg_msda",
+        model=ModelConfig(backbone_variant="nano", num_classes=7, embed_dims=64,
+                          decoder_layers=6, decoder_heads=8, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.01, decoder_attn="msda",
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=3e-4, grad_clip=1.0, total_steps=1500, warmup_steps=100,
+                          schedule="poly"),
+        runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_seg_msda"),
+    ),
+    # the self-aligned fine-tune of converge_seg_msda's checkpoint
+    # (ddp_tpu/config.py:414-428; the reference's SelfAlignedDDP recipe:
+    # 10 DDIM steps, a tenth of the lr, a short schedule)
+    "converge_seg_aligned_msda": lambda: Config(
+        name="converge_seg_aligned_msda",
+        model=ModelConfig(backbone_variant="nano", num_classes=7, embed_dims=64,
+                          decoder_layers=6, decoder_heads=8, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.01, decoder_attn="msda",
+                          self_aligned=True,
+                          diffusion=DiffusionConfig(timesteps=10, accumulation=True)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=3e-5, grad_clip=1.0, total_steps=300, warmup_steps=0,
+                          schedule="poly"),
+        runtime=RuntimeConfig(total_iters=300, log_interval=50, ckpt_interval=300,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_seg_aligned_msda"),
     ),
     # test-only scale: swin 'nano', 64-d decoder of 2 layers, window 4, K=7,
     # two randsteps hypotheses so that the r-major folding is exercised

@@ -12,7 +12,11 @@ leaf names, plus a layout change of the kernels:
     ``running_mean`` / ``running_var`` (and ``num_batches_tracked`` = 0)
 
 Swin's PatchMerging uses the same (ky, kx, C) channel order in both packages,
-so its reduction needs only the Dense transpose. Leaves are numpy arrays (or
+so its reduction needs only the Dense transpose. The msda decoder's leaves
+need no rule of their own: its modules carry the flax names
+(``attn/{sampling_offsets,attention_weights,value_proj,output_proj}``,
+``pos_enc/{row_embed,col_embed}/embedding``, FiLM v2/v3's 4C ``time_mlp``),
+so the renames above map them. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """

@@ -1,17 +1,20 @@
 """The end check of training: the segmentation part of the JAX package's
 convergence harness (``tools/run_convergence.py:43-46,102-145,589-720``).
 
-A preset is trained from scratch through the real ``train()`` on its
-synthetic data, then scored by ``eval_seg``: the mIoU of the T-step DDIM
-rollout at T = 1, 3 and 10 on 32 held-out ``SyntheticSegDataset`` images
-(indices from 100,000; training draws from [0, 256)), in batches of 8,
-averaged over 3 seeds of the rollout noise. The result is written to
+A preset is trained through the real ``train()`` on its synthetic data
+(from scratch, or for ``converge_seg_aligned_msda`` fine-tuned from
+``converge_seg_msda``'s latest checkpoint, as
+``tools/run_convergence.py:651-657`` does), then scored by ``eval_seg``: the
+mIoU of the T-step DDIM rollout at T = 1, 3 and 10 on 32 held-out
+``SyntheticSegDataset`` images (indices from 100,000; training draws from
+[0, 256)), in batches of 8, averaged over 3 seeds of the rollout noise. The result is written to
 ``<workdir>/result.json`` in the JAX harness's format::
 
     python -m ddp_tpu_torch.evaluation.convergence converge_seg_window
 
-The JAX package's result for the same preset is
-``work_dirs/converge_seg_window/result.json``.
+The JAX package's results are ``work_dirs/converge_seg_window``,
+``work_dirs/converge_seg_msda`` and ``work_dirs/converge_seg_aligned_msda``
+(``result.json``); the port's presets write under ``work_dirs/torch_*``.
 """
 from __future__ import annotations
 
@@ -29,12 +32,15 @@ from ..config import build_model, get_config
 from ..data import make_train_iter
 from ..data.pipelines import normalize
 from ..data.seg_datasets import SyntheticSegDataset
+from ..train.checkpoint import read_latest_model
 from ..train.loop import train
 from .metrics import SegMetricAccumulator
 
 N_EVAL = 32
 EVAL_BATCH = 8
 SEEDS = (0, 1, 2)
+# a fine-tune's preset -> the preset whose latest checkpoint it starts from
+FINE_TUNE_FROM = {"converge_seg_aligned_msda": "converge_seg_msda"}
 HELDOUT_BASE = 100_000  # synthetic datasets are seeded by index; training uses [0, length)
 MEAN = (123.675, 116.28, 103.53)
 STD = (58.395, 57.12, 57.375)
@@ -99,11 +105,21 @@ def eval_seg(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, flo
 
 def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
             device=None) -> Dict:
-    """Train ``preset`` from scratch through ``train()`` (stale checkpoints
-    cleared, an old train log kept as ``.prev``), score it with
-    ``eval_seg`` and write ``<workdir>/result.json``. ``iters`` cuts the run
-    (and its lr schedule) to that many steps."""
+    """Train ``preset`` through ``train()`` (stale checkpoints cleared, an old
+    train log kept as ``.prev``), from scratch or, for a preset of
+    ``FINE_TUNE_FROM``, from its base's latest checkpoint (refused when there
+    is none), score it with ``eval_seg`` and write ``<workdir>/result.json``.
+    ``iters`` cuts the run (and its lr schedule) to that many steps."""
     cfg = get_config(preset)
+    init_params = None
+    if preset in FINE_TUNE_FROM:
+        base = FINE_TUNE_FROM[preset]
+        try:
+            step, init_params = read_latest_model(get_config(base).runtime.workdir)
+        except FileNotFoundError as e:
+            raise FileNotFoundError(f"{preset} fine-tunes {base}'s checkpoint: run {base} "
+                                    f"first ({e})") from None
+        print(f"fine-tuning from {base} step {step}", flush=True)
     if iters:
         cfg = dataclasses.replace(
             cfg, runtime=dataclasses.replace(cfg.runtime, total_iters=iters),
@@ -116,7 +132,7 @@ def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
         os.replace(log, log + ".prev")
     os.makedirs(workdir, exist_ok=True)
     print(f"=== {preset} ===", flush=True)
-    state = train(cfg, make_train_iter(cfg), device=device)
+    state = train(cfg, make_train_iter(cfg), device=device, init_params=init_params)
     result = eval_seg(state.model, cfg.model)
     result["preset"] = preset
     result["total_iters"] = cfg.runtime.total_iters

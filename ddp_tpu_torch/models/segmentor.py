@@ -6,13 +6,14 @@ Training (``forward``, the JAX module's ``__call__``): the ground truth,
 nearest-downsampled to the feature grid with 255 mapped to K, is embedded,
 squashed and corrupted at t ~ U(sample_range) in one q_sample CUDA kernel
 (``ops/q_sample.py``; its backward is the dtable kernel); the fusion conv and
-the time-FiLM window decoder give logits, the FCN aux head runs on the clean
-features, and both losses are the fused x4 upsample + cross-entropy CUDA
-kernels (``ops/upsample_ce.py``). ``loss_at="quarter"``, ``self_aligned`` and
-the resize + CE branch for a non-integer scale follow the JAX module.
+the time-FiLM decoder (msda or window attention) give logits, the FCN aux
+head runs on the clean features, and both losses are the fused x4 upsample +
+cross-entropy CUDA kernels (``ops/upsample_ce.py``). ``loss_at="quarter"``,
+``self_aligned`` and the resize + CE branch for a non-integer scale follow
+the JAX module.
 
 Serving: ``diffusion.timesteps`` DDIM steps, each: 1x1 fusion conv over
-[features, latent] plus the time MLP of the log-SNR, the time-FiLM window
+[features, latent] plus the time MLP of the log-SNR, the time-FiLM
 decoder, argmax, and the argmax re-embedded through the encode-map CUDA
 kernel. Softmax is averaged over the steps, over the randsteps hypotheses
 (folded r-major into the batch), then bilinearly upsampled. Images are NHWC,

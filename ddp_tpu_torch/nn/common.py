@@ -136,17 +136,30 @@ def init_params_(module: nn.Module, seed: int) -> None:
     """Fill every parameter from ``torch.Generator().manual_seed(seed)``, drawn
     on the CPU so that the weights do not depend on the device:
     matrices and conv kernels N(0, 1/fan_in), norm scales 1, biases 0,
-    Swin relative-position biases N(0, 0.02^2), sinusoid frequencies N(0, 1)."""
+    Swin relative-position biases N(0, 0.02^2), sinusoid frequencies N(0, 1).
+    The msda layers get the reference's init (``ddp_tpu/nn/transformer.py:
+    86-103``): ``sampling_offsets`` and ``attention_weights`` kernels 0, the
+    offsets' bias mmcv's ring (``DeformableAttention.offset_bias``),
+    ``value_proj`` and ``output_proj`` kernels xavier-uniform; the learned
+    position tables U(0, 1)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            owner, _, leaf = name.rpartition(".")
+            parent, _, kind = owner.rpartition(".")
             if leaf == "relative_position_bias_table":
                 val = torch.randn(p.shape, generator=gen) * 0.02
             elif leaf == "weights":
                 val = torch.randn(p.shape, generator=gen)
-            elif leaf == "bias":
+            elif kind == "sampling_offsets" and leaf == "bias":
+                val = module.get_submodule(parent).offset_bias()
+            elif kind in ("sampling_offsets", "attention_weights") or leaf == "bias":
                 val = torch.zeros(p.shape)
+            elif kind in ("value_proj", "output_proj"):
+                limit = (6.0 / (p.shape[0] + p.shape[1])) ** 0.5
+                val = (torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * limit
+            elif kind in ("row_embed", "col_embed"):
+                val = torch.rand(p.shape, generator=gen)
             elif p.ndim == 1:
                 val = torch.ones(p.shape)
             else:

@@ -1,8 +1,8 @@
 """Decode heads (port of ``ddp_tpu/nn/heads.py:23-67,150-166``).
 
-  - DeformableHeadWithTime: flatten HW -> sine pos-enc -> time-FiLM encoder
-    -> reshape -> 1x1 conv_seg (deformable_head_with_time.py:21-189). Only
-    the window-attention decoder with sine positions is ported so far.
+  - DeformableHeadWithTime: flatten HW -> sine or learned pos-enc ->
+    time-FiLM encoder (msda over the one level, or window attention; FiLM
+    v1/v2/v3) -> reshape -> 1x1 conv_seg (deformable_head_with_time.py:21-189).
   - FCNHead: the training-time auxiliary head (3x3 conv+BN+ReLU, dropout
     0.1 in training, 1x1 conv_seg) on the clean encoder features.
 """
@@ -15,8 +15,8 @@ import torch
 from torch import nn
 
 from .common import ConvModule, dropout
-from .pos_embed import sine_pos_embed
-from .transformer import TimeFiLMEncoder
+from .pos_embed import LearnedPositionalEncoding, sine_pos_embed
+from .transformer import TimeFiLMEncoder, reference_points
 
 
 @functools.lru_cache(maxsize=64)
@@ -24,24 +24,42 @@ def _sine_pos(h: int, w: int, num_feats: int, device: torch.device) -> torch.Ten
     return torch.as_tensor(sine_pos_embed(h, w, num_feats=num_feats), device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _reference_points(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(reference_points(((h, w),)), device=device)
+
+
 class DeformableHeadWithTime(nn.Module):
+    """The learned position tables (``pos_type="learned"``) have mmseg's 50
+    rows and columns, which is the JAX package's max(50, h) for grids up to
+    50; a larger grid raises."""
+
     def __init__(self, num_classes: int, embed_dims: int = 256, num_layers: int = 6,
                  num_heads: int = 8, ffn_dim: int = 1024, attn_type: str = "window",
                  film: str = "v1", pos_type: str = "sine", window: int = 8):
         super().__init__()
-        if pos_type != "sine":
-            raise NotImplementedError(f"decoder pos_type={pos_type!r} is not ported yet")
+        if pos_type not in ("sine", "learned"):
+            raise ValueError(f"pos_type must be 'sine' or 'learned', got {pos_type!r}")
         self.embed_dims = embed_dims
-        self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim,
-                                       use_time=True, attn_type=attn_type,
-                                       window=window, film=film)
+        self.attn_type = attn_type
+        self.pos_type = pos_type
+        if pos_type == "learned":
+            self.pos_enc = LearnedPositionalEncoding(embed_dims // 2)
+        self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim=ffn_dim,
+                                       use_time=True, attn_type=attn_type, window=window,
+                                       film=film)
         self.conv_seg = nn.Conv2d(embed_dims, num_classes, 1)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor]) -> torch.Tensor:
         """x: [B, H, W, C]; time: [B, 4C]. Returns logits [B, H, W, K]."""
         b, h, w, c = x.shape
-        pos = _sine_pos(h, w, self.embed_dims // 2, x.device).to(x.dtype)
-        q = self.encoder(x.reshape(b, h * w, c), time, pos, (h, w))
+        if self.pos_type == "learned":
+            pos = self.pos_enc(h, w).to(x.dtype)
+        else:
+            pos = _sine_pos(h, w, self.embed_dims // 2, x.device).to(x.dtype)
+        refs = (_reference_points(h, w, x.device).to(x.dtype)
+                if self.attn_type == "msda" else None)
+        q = self.encoder(x.reshape(b, h * w, c), time, pos, refs, ((h, w),))
         q = q.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.conv_seg(q).permute(0, 2, 3, 1)
 

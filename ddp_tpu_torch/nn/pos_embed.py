@@ -1,8 +1,9 @@
-"""2-D sine positional encoding (port of ``ddp_tpu/nn/pos_embed.py:18-39``).
+"""2-D positional encodings (port of ``ddp_tpu/nn/pos_embed.py``).
 
-mmcv ``SinePositionalEncoding`` with normalize=True, offset=-0.5,
-temperature=10000, always called with an all-zeros mask, so the table is a
-static function of (h, w) computed once in numpy.
+  - ``sine_pos_embed``: mmcv ``SinePositionalEncoding`` with normalize=True,
+    offset=-0.5, temperature=10000, always called with an all-zeros mask,
+    so the table is a static function of (h, w) computed once in numpy.
+  - ``LearnedPositionalEncoding``: mmseg's learned row/col tables.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ import functools
 import math
 
 import numpy as np
+import torch
+from torch import nn
 
 
 @functools.lru_cache(maxsize=64)
@@ -34,3 +37,26 @@ def sine_pos_embed(h: int, w: int, num_feats: int = 128, temperature: float = 10
                      ).reshape(h, w, num_feats)
     pos = np.concatenate([pos_y, pos_x], axis=2)  # [h, w, 2*num_feats]
     return pos.reshape(h * w, 2 * num_feats)
+
+
+class LearnedPositionalEncoding(nn.Module):
+    """Learned row/col position tables (mmseg LearnedPositionalEncoding):
+    position (y, x) gets concat(col_embed[x], row_embed[y]), x first. The
+    JAX package sizes the tables max(50, h) and max(50, w) from the grid it
+    is initialised on; here they are sized when built. Returns
+    [h·w, 2·num_feats]."""
+
+    def __init__(self, num_feats: int = 128, row_num_embed: int = 50,
+                 col_num_embed: int = 50):
+        super().__init__()
+        self.row_embed = nn.Embedding(row_num_embed, num_feats)
+        self.col_embed = nn.Embedding(col_num_embed, num_feats)
+
+    def forward(self, h: int, w: int) -> torch.Tensor:
+        rows, cols = self.row_embed.weight, self.col_embed.weight
+        if h > rows.shape[0] or w > cols.shape[0]:
+            raise ValueError(f"a {h}x{w} grid needs more than the {rows.shape[0]} rows and "
+                             f"{cols.shape[0]} columns of the position tables")
+        c = rows.shape[1]
+        return torch.cat([cols[None, :w].expand(h, w, c), rows[:h, None].expand(h, w, c)],
+                         dim=-1).reshape(h * w, 2 * c)

@@ -15,7 +15,7 @@ import dataclasses
 import json
 import os
 import re
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -61,6 +61,18 @@ def _read(d: str, step: int, state):
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state
+
+
+def read_latest_model(workdir: str) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """(step, model state_dict) of the latest checkpoint under
+    ``<workdir>/ckpts``, on the CPU; FileNotFoundError when there is none."""
+    d = os.path.join(workdir, "ckpts")
+    steps = _steps(d)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {os.path.abspath(d)}")
+    payload = torch.load(os.path.join(d, f"step_{steps[-1]}.pt"), map_location="cpu",
+                         weights_only=True)
+    return steps[-1], payload["model"]
 
 
 class CheckpointManager:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
@@ -67,15 +67,20 @@ class MetricLogger:
 
 def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
           eval_fn: Optional[Callable[[TrainState, int], Dict[str, float]]] = None,
-          resume: bool = False, device=None) -> TrainState:
+          resume: bool = False, device=None,
+          init_params: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
     """Run ``cfg.runtime.total_iters`` steps on ``device`` (default "cuda";
     raises without a GPU unless ``device="cpu"``), ``runtime.steps_per_dispatch``
     per dispatch. ``data_iter`` yields host batches {'image': [B, H, W, 3],
     'label': [B, H, W]}; with ``resume`` it must yield the batches from the
-    restored step on."""
+    restored step on. ``init_params``: a state_dict (parameters and BN
+    statistics) loaded strictly into the fresh model before the optimizer is
+    built, as the JAX loop's ``init_params`` replaces its init."""
     rt = cfg.runtime
     dev = resolve_device(device)
     model = build_model(cfg.model, device=dev, seed=rt.seed)
+    if init_params is not None:
+        model.load_state_dict(init_params)
     optimizer = make_optimizer(cfg.optim, model)
     generator = torch.Generator(device=dev).manual_seed(rt.seed)
     state = TrainState(model, optimizer, generator)

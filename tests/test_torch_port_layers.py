@@ -188,7 +188,7 @@ def test_time_film_encoder_layer_v1():
     tm = _port(ttr.TimeFiLMEncoderLayer(64, 4, ffn_dim=128, attn_type="window", window=4,
                                         shift=2), v)
     with torch.no_grad():
-        _close(tm(_t(q), _t(time), _t(pos), (8, 12)), jm.apply(v, *args))
+        _close(tm(_t(q), _t(time), _t(pos), None, ((8, 12),)), jm.apply(v, *args))
 
 
 def test_deformable_head_with_time_window():
