@@ -10,7 +10,9 @@
     python3 chip_smoke.py --phases build,converge          # the window end check
     python3 chip_smoke.py --phases build,converge_msda     # the msda end checks
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing one JSON line; any failure raises and exits non-zero.
+A busy share is the union of the intervals of the kernels and copies that
+the card ran in one profiled call over that call's wall time.
 
   0. device  - needs torch.cuda; prints the card's name and power limit
                (nvidia-smi) on a line of its own. TF32 is switched off for
@@ -79,15 +81,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                versions, one eager step in f32 and in bf16 (launch counts,
                loss, peak memory), and a graphed chunk of 10 steps held to
                the eager steps as in graph (f32 and bf16).
- 13. converge - (only when named) the end check: converge_seg_window's 1500
+ 13. city_main - serving the Cityscapes ConvNeXt segmentor on one 1024 x
+               2048 image: cityscapes_convnext_t with the msda overrides
+               (decoder_attn=msda, 8 heads: the released checkpoints' shape),
+               its weights seeded random tensors under mmseg's and mmcls's
+               names written to a .pth and loaded by load_mmseg_checkpoint
+               (the report must be empty), and the preset's own window model;
+               each through sample() whole and slide_inference (1024^2 crops,
+               stride 768: 3 crops), against the plain path (the main phase's
+               limits), with encode_map launches (3 per crop), wall ms,
+               img/s, busy share and peak memory. The kernels phase also
+               holds every kernel to its plain version at the Cityscapes
+               shapes (K = 19) and times it there.
+ 14. city_train - cityscapes_convnext_t at 4 x 512 x 1024 (the reference's
+               per-GPU batch) as msda_train does it: fixed draws through the
+               kernels and the plain versions, eager f32 and bf16 steps
+               (launches 1/1/2/2), a graphed chunk of 10 steps held to the
+               eager steps (f32 and bf16, deterministic algorithms on).
+ 15. city_data - the entry points on the card: python -m
+               ddp_tpu_torch.tools.train smoke on tests/data/cityscapes
+               (files through data/image_io.py: read_image), 20 iterations,
+               then python -m ddp_tpu_torch.tools.test on its workdir, whole
+               and slide; an ADE20K JPEG raises the named ImportError
+               without Pillow (its import blocked for the check); then the
+               host's times at the Cityscapes size: one 1024 x 2048 RGB
+               image and label map decoded by read_png and by Pillow (held
+               bitwise to each other), and make_train_iter batches of
+               cityscapes_convnext_t (16 crops of 512 x 1024) with and
+               without Pillow.
+ 16. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 14. graph_grads - (only when named) where the graphed and the eager step
+ 17. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 15. converge_msda - (only when named) the msda end checks:
+ 18. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
@@ -266,99 +296,137 @@ def sweep_ms(module, name, values, flush, fn):
     return times
 
 
-def check_encode_map(card, smi, flush):
+# the Cityscapes paths' shapes (cityscapes_convnext_t): K = 19 classes (20
+# table rows), C = 256; serving one 1024 x 2048 image, whole (a 256 x 512
+# latent grid) or in 1024^2 slide crops (256 x 256 each); training 4 crops
+# of 512 x 1024 (4 x 128 x 256 latents), x4
+CITY_K = 19
+CITY_SERVE_N = {"slide_crop": 256 * 256, "whole": 256 * 512}
+CITY_CE_SHAPE = (4, 128, 256, CITY_K)
+
+
+def check_encode_map(card, smi, flush, k=K + 1, path_rows=None,
+                     edges=((N + 3, C), (1001, C - 6)), sweeps=True, config="ade20k_swin_t"):
+    """encode_map against its plain version (f32 and bf16 tables, random
+    labels of k table rows) at each path shape {name: rows} and at the edge
+    shapes (rows, columns), and timed at each path shape. Returns {name:
+    row}."""
     from ddp_tpu_torch.ops import q_sample as Q
 
-    k = K + 1
+    path_rows = path_rows or {"path": N}
+
+    def inputs(rows, cols, dtype):
+        g = _gen(0)
+        labels = torch.randint(0, k, (rows,), generator=g).cuda()
+        return labels, torch.randn(k, cols, generator=g).to(dtype).cuda()
+
     errs = {}
     for dtype, tol in ((torch.float32, 1e-6 * BIT_SCALE),
                        # one bf16 ulp of |out| < 2^-6: 2^-7 * 2^-7
                        (torch.bfloat16, 2.0 ** -14)):
-        # the main path's shape, a ragged N, and a C that is no multiple of
-        # the 16-byte vector (the kernel's scalar path)
-        for rows, cols in ((N, C), (N + 3, C), (1001, C - 6)):
-            g = _gen(0)
-            labels = torch.randint(0, k, (rows,), generator=g).cuda()
-            table = torch.randn(k, cols, generator=g).to(dtype).cuda()
+        # the path shapes, then e.g. a ragged N and a C that is no multiple
+        # of the 16-byte vector (the kernel's scalar path)
+        for rows, cols in [(n, C) for n in path_rows.values()] + list(edges):
+            labels, table = inputs(rows, cols, dtype)
             err = (Q.encode_map_cuda(labels, table, BIT_SCALE).float()
                    - Q.encode_map_plain(labels, table, BIT_SCALE).float()).abs().max().item()
             errs[f"{str(dtype)[6:]}_n{rows}_c{cols}"] = err
             if not err <= tol:
-                raise AssertionError(f"encode_map {dtype} N={rows} C={cols}: err {err} > {tol}")
-    g = _gen(0)
-    labels = torch.randint(0, k, (N,), generator=g).cuda()
-    table = torch.randn(k, C, generator=g).cuda()
-    row = kernel_row(
-        card, "encode_map", "ddp_tpu_torch/csrc/encode_map.cu",
-        "ddp_tpu/ops/pallas/q_sample.py:75",
-        lambda: Q.encode_map_cuda(labels, table, BIT_SCALE),
-        lambda: Q.encode_map_plain(labels, table, BIT_SCALE),
-        nbytes=N * 8 + k * C * 4 + N * C * 4,  # labels, table read once, out written once
-        flops=N * C * 6, exps=N * C, err=errs[f"float32_n{N}_c{C}"], flush=flush)
-    tb = table.to(torch.bfloat16)
-    emit({"phase": "kernels", "kernel": "encode_map", "max_abs_err": errs,
-          "bf16_ms": time_ms(lambda: Q.encode_map_cuda(labels, tb, BIT_SCALE), flush=flush),
-          # a plain write of the same bytes: what this card's stores reach
-          "fill_same_bytes_ms": time_ms(lambda: torch.empty(N, C, device="cuda").fill_(1.0),
-                                        flush=flush),
-          "ms_by_blocks_per_sm": sweep_ms(Q, "ENCODE_BLOCKS_PER_SM", (2, 4, 8, 16), flush,
-                                          lambda: Q.encode_map_cuda(labels, table, BIT_SCALE)),
-          "tolerance": "f32 1e-6 x bit_scale; bf16 one ulp of |out| (2^-14)",
+                raise AssertionError(f"encode_map {config} {dtype} N={rows} C={cols}: "
+                                     f"err {err} > {tol}")
+    rows, line = {}, {"phase": "kernels", "kernel": "encode_map", "config": config,
+                      "max_abs_err": errs}
+    for name, n in path_rows.items():
+        labels, table = inputs(n, C, torch.float32)
+        tb = table.to(torch.bfloat16)
+        rows[name] = kernel_row(
+            card, "encode_map", "ddp_tpu_torch/csrc/encode_map.cu",
+            "ddp_tpu/ops/pallas/q_sample.py:75",
+            lambda: Q.encode_map_cuda(labels, table, BIT_SCALE),
+            lambda: Q.encode_map_plain(labels, table, BIT_SCALE),
+            nbytes=n * 8 + k * C * 4 + n * C * 4,  # labels, table read once, out written once
+            flops=n * C * 6, exps=n * C, err=errs[f"float32_n{n}_c{C}"], flush=flush)
+        rows[name]["shape"] = [n, k, C]
+        rows[name]["bf16_ms"] = time_ms(lambda: Q.encode_map_cuda(labels, tb, BIT_SCALE),
+                                        flush=flush)
+    if sweeps:
+        labels, table = inputs(N, C, torch.float32)
+        line.update({
+            # a plain write of the same bytes: what this card's stores reach
+            "fill_same_bytes_ms": time_ms(lambda: torch.empty(N, C, device="cuda").fill_(1.0),
+                                          flush=flush),
+            "ms_by_blocks_per_sm": sweep_ms(Q, "ENCODE_BLOCKS_PER_SM", (2, 4, 8, 16), flush,
+                                            lambda: Q.encode_map_cuda(labels, table,
+                                                                      BIT_SCALE))})
+    emit({**line, "tolerance": "f32 1e-6 x bit_scale; bf16 one ulp of |out| (2^-14)",
           "library_ms": "null: no single PyTorch call computes gather+squash",
-          "row": row, "card": smi})
-    return row
+          "rows": rows, "card": smi})
+    return rows
 
 
-def _qs_inputs(n, c, dtype, seed=0):
+def _qs_inputs(n, c, dtype, seed=0, k=K + 1, labels=None):
+    """q_sample's inputs on the card: random labels of k table rows unless
+    ``labels`` (n of them) are given."""
     g = _gen(seed)
-    labels = torch.randint(0, K + 1, (n,), generator=g).cuda()
-    table = torch.randn(K + 1, c, generator=g).to(dtype).cuda()
+    rand = torch.randint(0, k, (n,), generator=g)
+    labels = rand.cuda() if labels is None else labels
+    table = torch.randn(k, c, generator=g).to(dtype).cuda()
     alpha, sigma = torch.rand(n, generator=g).cuda(), torch.rand(n, generator=g).cuda()
     noise = torch.randn(n, c, generator=g).to(dtype).cuda()
     return labels, table, alpha, sigma, noise
 
 
-def check_q_sample(card, smi, flush):
+def check_q_sample(card, smi, flush, n=N, k=K + 1, labels=None,
+                   edges=((N + 3, C), (N + 3, 250)), config="ade20k_swin_t"):
+    """q_sample against its plain version (f32 and bf16) at the path shape
+    (n rows of C, k table rows, ``labels`` or random ones) and the edge
+    shapes, timed at the path shape."""
     from ddp_tpu_torch.ops import q_sample as Q
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for n, c in ((N, C), (N + 3, C), (N + 3, 250)):
-            args = _qs_inputs(n, c, dtype)
+        for rows, c in ((n, C), *edges):
+            args = _qs_inputs(rows, c, dtype, k=k, labels=labels if rows == n else None)
             got = Q.q_sample_cuda(args[0], args[1], BIT_SCALE, *args[2:]).float()
             want = Q.q_sample_plain(args[0], args[1], BIT_SCALE, *args[2:]).float()
             err = (got - want).abs().max().item()
-            errs[f"{str(dtype)[6:]}_n{n}_c{c}"] = err
+            errs[f"{str(dtype)[6:]}_n{rows}_c{c}"] = err
             # f32: the same roundings in both (no FMA contraction), so only
             # expf's last ulp differs, times bit_scale; bf16: one ulp of the
             # rounded result
             tol = 1e-6 if dtype == torch.float32 else \
                 (2.0 ** -8 * want.abs().max()).item()
             if not err <= tol:
-                raise AssertionError(f"q_sample {dtype} N={n} C={c}: err {err} > {tol}")
-    labels, table, alpha, sigma, noise = _qs_inputs(N, C, torch.float32)
+                raise AssertionError(f"q_sample {config} {dtype} N={rows} C={c}: "
+                                     f"err {err} > {tol}")
+    lab, table, alpha, sigma, noise = _qs_inputs(n, C, torch.float32, k=k, labels=labels)
     row = kernel_row(
         card, "q_sample", "ddp_tpu_torch/csrc/q_sample.cu",
         "ddp_tpu/ops/pallas/q_sample.py:83",
-        lambda: Q.q_sample_cuda(labels, table, BIT_SCALE, alpha, sigma, noise),
-        lambda: Q.q_sample_plain(labels, table, BIT_SCALE, alpha, sigma, noise),
+        lambda: Q.q_sample_cuda(lab, table, BIT_SCALE, alpha, sigma, noise),
+        lambda: Q.q_sample_plain(lab, table, BIT_SCALE, alpha, sigma, noise),
         # labels, alpha, sigma, table and noise read once; out written once
-        nbytes=N * (8 + 4 + 4) + (K + 1) * C * 4 + 2 * N * C * 4,
-        flops=N * C * 9, exps=N * C, err=errs[f"float32_n{N}_c{C}"], flush=flush)
-    emit({"phase": "kernels", "kernel": "q_sample", "max_abs_err": errs,
+        nbytes=n * (8 + 4 + 4) + k * C * 4 + 2 * n * C * 4,
+        flops=n * C * 9, exps=n * C, err=errs[f"float32_n{n}_c{C}"], flush=flush)
+    tb, nb = table.to(torch.bfloat16), noise.to(torch.bfloat16)
+    row["shape"] = [n, k, C]
+    row["bf16_ms"] = time_ms(lambda: Q.q_sample_cuda(lab, tb, BIT_SCALE, alpha, sigma, nb),
+                             flush=flush)
+    emit({"phase": "kernels", "kernel": "q_sample", "config": config, "max_abs_err": errs,
+          "labels": "random" if labels is None else "region map of the train batch",
           "tolerance": "f32 1e-6 absolute; bf16 2^-8 x max|out| (one bf16 ulp)",
           "library_ms": "null: no single PyTorch call computes gather+squash+corrupt",
           "row": row, "card": smi})
     return row
 
 
-def region_labels(cfg):
+def region_labels(cfg, b: int = 2):
     """The training path's labels: train_batch's ground truth, nearest-
     downsampled to the 1/4-scale grid with 255 mapped to K, flattened, as
     corrupt_fused sees them."""
     from ddp_tpu_torch.ops.resize import resize_nearest
 
-    gt = train_batch(cfg, 2)["label"]
+    gt = train_batch(cfg, b)["label"]
     h, w = gt.shape[1] // 4, gt.shape[2] // 4
     down = resize_nearest(gt[..., None], (h, w))[..., 0]
     return torch.where(down == 255, cfg.model.num_classes, down).reshape(-1).contiguous()
@@ -390,51 +458,53 @@ def _dtable_close(got, want):
     return bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-5 * want.abs().max()).all())
 
 
-def check_dtable(card, smi, flush):
+def check_dtable(card, smi, flush, config="ade20k_swin_t", b=2, cases=None, row_case="random",
+                 extras=True):
     """The table gradient: squash_dtable (the main path's fused kernel) and
     dtable (the same kernel without the squash's derivative, the Pallas
-    _dtable_kernel's counterpart) against their plain versions; times of the
-    fused kernel, of the unfused path it replaced (the plain glue that forms
-    demb, then dtable), of index_add_, and of the fused kernel's grid sized
-    for 1 to 4 blocks per SM."""
+    _dtable_kernel's counterpart) against their plain versions at each case
+    {name: (rows, columns, table rows)} (the path's n rows of C, its region
+    map from ``config``'s train batch of b images, K + 1 table rows), timed
+    at ``row_case`` with index_add_ beside it. With ``extras``, also the
+    unfused path it replaced (the plain glue that forms demb, then dtable),
+    the fused kernel on region labels and bf16 g, and its grid sized for 1
+    to 4 blocks per SM."""
     from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.ops import q_sample as Q
 
-    k = K + 1
-    region = region_labels(get_config("ade20k_swin_t"))
-    if region.numel() != N:
-        raise AssertionError(f"region labels: {region.numel()} rows, want {N}")
-    # (rows, columns, table rows); "converge": converge_seg_window's step
-    # (16 images of 16 x 16 latents, C = 64, K = 7 classes + the ignore row)
-    shapes = {"random": (N, C, k), "ragged": (N + 3, 250, k), "contended": (N, C, k),
-              "region": (N, C, k), "strided": (N, C, k), "converge": (16 * 16 * 16, 64, 8)}
+    cfg = get_config(config)
+    k = cfg.model.num_classes + 1
+    region = region_labels(cfg, b)
+    n = region.numel()
+    cases = cases or {"random": (n, C, k), "region": (n, C, k)}
     errs, fused_errs = {}, {}
-    for case, (n, c, kk) in shapes.items():
-        labels, grad, _, _ = _dtable_inputs(case, n, c, torch.float32, torch.float32, region,
+    for case, (rows, c, kk) in cases.items():
+        labels, grad, _, _ = _dtable_inputs(case, rows, c, torch.float32, torch.float32, region,
                                             k=kk)
         grad = grad.contiguous()  # dtable takes a contiguous demb
         got, want = Q.dtable_cuda(labels, grad, kk), Q.dtable_plain(labels, grad, kk)
-        errs[f"{case}_n{n}_c{c}"] = (got - want).abs().max().item()
+        errs[f"{case}_n{rows}_c{c}"] = (got - want).abs().max().item()
         if not _dtable_close(got, want):
-            raise AssertionError(f"dtable {case}: max abs err {errs[f'{case}_n{n}_c{c}']}")
+            raise AssertionError(f"dtable {config} {case}: max abs err "
+                                 f"{errs[f'{case}_n{rows}_c{c}']}")
         for g_dtype in (torch.float32, torch.bfloat16):
             for t_dtype in (torch.float32, torch.bfloat16):
-                labels, grad, alpha, table = _dtable_inputs(case, n, c, g_dtype, t_dtype, region,
-                                                            k=kk)
+                labels, grad, alpha, table = _dtable_inputs(case, rows, c, g_dtype, t_dtype,
+                                                            region, k=kk)
                 for a in (alpha, None):
                     got = Q.squash_dtable_cuda(labels, grad, a, table, BIT_SCALE)
                     want = Q.squash_dtable_plain(labels, grad, a, table, BIT_SCALE)
-                    name = (f"{case}_n{n}_c{c}_g{str(g_dtype)[6:]}_table{str(t_dtype)[6:]}"
+                    name = (f"{case}_n{rows}_c{c}_g{str(g_dtype)[6:]}_table{str(t_dtype)[6:]}"
                             f"_{'alpha' if a is not None else 'noalpha'}")
                     fused_errs[name] = (got - want).abs().max().item()
                     if not _dtable_close(got, want):
-                        raise AssertionError(f"squash_dtable {name}: max abs err "
+                        raise AssertionError(f"squash_dtable {config} {name}: max abs err "
                                              f"{fused_errs[name]}")
 
     def inputs(case, g_dtype):
-        return _dtable_inputs(case, N, C, g_dtype, torch.float32, region)
+        return _dtable_inputs(case, n, C, g_dtype, torch.float32, region, k=k)
 
-    labels, grad, alpha, table = inputs("random", torch.float32)
+    labels, grad, alpha, table = inputs(row_case, torch.float32)
     demb = Q._squash_grad(labels, table, BIT_SCALE, grad * alpha[:, None])
     zeros = torch.zeros(k, C, device="cuda")
     row = kernel_row(
@@ -445,53 +515,61 @@ def check_dtable(card, smi, flush):
         # labels, g, alpha and the table read once, the table's gradient
         # written once; per element of g a multiply-add, per table entry the
         # derivative (an exponential and ~5 FLOPs)
-        nbytes=N * 8 + N * C * 4 + N * 4 + 2 * k * C * 4, flops=N * C * 2 + k * C * 5,
-        exps=k * C, err=fused_errs[f"random_n{N}_c{C}_gfloat32_tablefloat32_alpha"],
+        nbytes=n * 8 + n * C * 4 + n * 4 + 2 * k * C * 4, flops=n * C * 2 + k * C * 5,
+        exps=k * C, err=fused_errs[f"{row_case}_n{n}_c{C}_gfloat32_tablefloat32_alpha"],
         flush=flush, library_fn=lambda: zeros.index_add_(0, labels, demb))
-    times = {
-        # the parent's path: the plain glue (sigmoid of the table, gather by
-        # label, the elementwise products) then the dtable kernel; and the
-        # same glue with index_add_
-        "unfused_glue_plus_dtable_ms": time_ms(lambda: Q.dtable_cuda(
-            labels, Q._squash_grad(labels, table, BIT_SCALE, grad * alpha[:, None]), k),
-            flush=flush),
-        "unfused_glue_plus_index_add_ms": time_ms(lambda: torch.zeros(k, C, device="cuda")
-                                                  .index_add_(0, labels, Q._squash_grad(
-                                                      labels, table, BIT_SCALE,
-                                                      grad * alpha[:, None])), flush=flush),
-        "dtable_alone_ms": time_ms(lambda: Q.dtable_cuda(labels, demb, k), flush=flush),
-    }
-    for case in ("random", "region"):
-        for g_dtype in (torch.float32, torch.bfloat16):
-            lab, gr, al, tab = inputs(case, g_dtype)
-            times[f"fused_{case}_g{str(g_dtype)[6:]}_ms"] = time_ms(
-                lambda: Q.squash_dtable_cuda(lab, gr, al, tab, BIT_SCALE), flush=flush)
-    sweep = sweep_ms(Q, "DTABLE_BLOCKS_PER_SM", (1, 2, 3, 4), flush,
-                     lambda: Q.squash_dtable_cuda(labels, grad, alpha, table, BIT_SCALE))
-    geo = Q.dtable_geometry(N, C, k, torch.cuda.get_device_properties(0).multi_processor_count)
-    emit({"phase": "kernels", "kernel": "dtable", "max_abs_err": {"dtable": errs,
-                                                                  "squash_dtable": fused_errs},
-          "tolerance": "|d| <= 1e-5 |want| + 1e-5 max|want| (atomic order)",
-          "row_is": "squash_dtable, f32 g and table, alpha, random labels",
-          "library_ms": "torch.zeros(K, C).index_add_(0, labels, demb), demb and zeros "
-                        "preallocated",
-          "times": times, "ms_by_blocks_per_sm": sweep, "geometry": geo._asdict(),
-          "row": row, "card": smi})
+    lb, gb, ab, tb = inputs(row_case, torch.bfloat16)
+    row["shape"] = [n, k, C]
+    row["bf16_ms"] = time_ms(lambda: Q.squash_dtable_cuda(lb, gb, ab, tb, BIT_SCALE),
+                             flush=flush)
+    line = {"phase": "kernels", "kernel": "dtable", "config": config,
+            "max_abs_err": {"dtable": errs, "squash_dtable": fused_errs},
+            "tolerance": "|d| <= 1e-5 |want| + 1e-5 max|want| (atomic order)",
+            "row_is": f"squash_dtable, f32 g and table, alpha, {row_case} labels; bf16_ms: "
+                      "bf16 g, f32 table",
+            "library_ms": "torch.zeros(K, C).index_add_(0, labels, demb), demb and zeros "
+                          "preallocated"}
+    if extras:
+        line["times"] = {
+            # the parent's path: the plain glue (sigmoid of the table, gather
+            # by label, the elementwise products) then the dtable kernel; and
+            # the same glue with index_add_
+            "unfused_glue_plus_dtable_ms": time_ms(lambda: Q.dtable_cuda(
+                labels, Q._squash_grad(labels, table, BIT_SCALE, grad * alpha[:, None]), k),
+                flush=flush),
+            "unfused_glue_plus_index_add_ms": time_ms(
+                lambda: torch.zeros(k, C, device="cuda").index_add_(0, labels, Q._squash_grad(
+                    labels, table, BIT_SCALE, grad * alpha[:, None])), flush=flush),
+            "dtable_alone_ms": time_ms(lambda: Q.dtable_cuda(labels, demb, k), flush=flush),
+        }
+        for case in ("random", "region"):
+            for g_dtype in (torch.float32, torch.bfloat16):
+                lab, gr, al, tab = inputs(case, g_dtype)
+                line["times"][f"fused_{case}_g{str(g_dtype)[6:]}_ms"] = time_ms(
+                    lambda: Q.squash_dtable_cuda(lab, gr, al, tab, BIT_SCALE), flush=flush)
+        line["ms_by_blocks_per_sm"] = sweep_ms(
+            Q, "DTABLE_BLOCKS_PER_SM", (1, 2, 3, 4), flush,
+            lambda: Q.squash_dtable_cuda(labels, grad, alpha, table, BIT_SCALE))
+        line["geometry"] = Q.dtable_geometry(
+            n, C, k, torch.cuda.get_device_properties(0).multi_processor_count)._asdict()
+    emit(dict(line, row=row, card=smi))
     return row
 
 
 def _ce_inputs(b, h, w, k, scale, dtype, seed=2, labels="random"):
     """labels: "random" with a block of ignored pixels, "ignored" (every
-    pixel 255), "one" (every pixel class k // 2) or "outside" (random, with
+    pixel 255), "one" (every pixel class k // 2), "outside" (random, with
     rows of valid labels k + 3 and columns of -4, and the logits shifted by
     +3 so that every pixel's max z is positive: then the kernel's correct
     rule for such a label, 0 >= max z, and the plain version's argmax rule
-    both count none)."""
+    both count none), or a [b, scale h, scale w] tensor of given labels."""
     g = _gen(seed)
     logits = torch.randn(b, h, w, k, generator=g)
     lab = torch.randint(0, k, (b, scale * h, scale * w), generator=g)
     lab[0, :scale * 3, :scale * 5] = 255  # a block of ignored pixels
-    if labels == "ignored":
+    if isinstance(labels, torch.Tensor):
+        lab = labels
+    elif labels == "ignored":
         lab.fill_(255)
     elif labels == "one":
         lab.fill_(k // 2)
@@ -500,8 +578,6 @@ def _ce_inputs(b, h, w, k, scale, dtype, seed=2, labels="random"):
         lab[:, 1::5, :] = k + 3
         lab[:, :, 2::7] = -4
     return logits.to(dtype).cuda(), lab.cuda()
-
-
 def _ce_cases():
     """(name, logits shape, scale, dtype, labels). The backward's tiles are
     8 x 8 for scales 2..5 and 4 x 4 above, the forward's 8 wide and 16, 8 or
@@ -544,11 +620,18 @@ def _ties(logits, labels, scale, ignore_index=255):
     return n
 
 
-def check_upsample_ce(card, smi, flush):
+
+
+def check_upsample_ce(card, smi, flush, cases=None, path_shape=CE_SHAPE, path_labels="random",
+                      config="ade20k_swin_t"):
+    """The upsample+CE forward and backward against their plain versions on
+    each case (name, logits shape, scale, dtype, labels; by default
+    _ce_cases), and timed at ``path_shape`` (f32, and bf16 logits) on
+    ``path_labels``. Returns the forward's and the backward's rows."""
     from ddp_tpu_torch.ops import upsample_ce as U
 
     fwd_errs, bwd_errs = {}, {}
-    for case, shape, scale, dtype, lab_mode in _ce_cases():
+    for case, shape, scale, dtype, lab_mode in cases or _ce_cases():
         logits, labels = _ce_inputs(*shape, scale, dtype, labels=lab_mode)
         sums, lse = U.upsample_ce_fwd_cuda(logits, labels, scale)
         want, want_lse = U.upsample_ce_fwd_plain(logits, labels, scale)
@@ -564,20 +647,22 @@ def check_upsample_ce(card, smi, flush):
         # pixel whose label's logit ties the maximum (the Pallas rule), the
         # plain version only the first argmax (bf16 logits at K = 7 tie)
         if not abs(sums[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item()):
-            raise AssertionError(f"upsample_ce fwd {case}: nll {sums[0].item()} vs "
+            raise AssertionError(f"upsample_ce fwd {config} {case}: nll {sums[0].item()} vs "
                                  f"{want[0].item()}")
         ties = _ties(logits, labels, scale)
         if sums[1:].tolist() != [want[1].item(), want[2].item() + ties]:
-            raise AssertionError(f"upsample_ce fwd {case}: counts {sums[1:].tolist()} vs "
-                                 f"{want[1:].tolist()} with {ties} ties")
+            raise AssertionError(f"upsample_ce fwd {config} {case}: counts "
+                                 f"{sums[1:].tolist()} vs {want[1:].tolist()} with {ties} ties")
         fwd_errs[case]["ties"] = ties
         # lse: ex2.approx (~2 ulp) per term against expf, and m log2 e rounded
         if not (lse_err <= 4e-6 * want_lse.abs().clamp(min=1.0)).all():
-            raise AssertionError(f"upsample_ce fwd {case}: lse max abs err {lse_err.max().item()}")
+            raise AssertionError(f"upsample_ce fwd {config} {case}: lse max abs err "
+                                 f"{lse_err.max().item()}")
         if not ((d - d_want).abs() <= 1e-4 * d_want.abs() + 1e-6).all():
-            raise AssertionError(f"upsample_ce bwd {case}: max abs err {bwd_errs[case]}")
-    logits, labels = _ce_inputs(*CE_SHAPE, SCALE, torch.float32)
-    b, h, w, k = CE_SHAPE
+            raise AssertionError(f"upsample_ce bwd {config} {case}: max abs err "
+                                 f"{bwd_errs[case]}")
+    logits, labels = _ce_inputs(*path_shape, SCALE, torch.float32, labels=path_labels)
+    b, h, w, k = path_shape
     _, lse = U.upsample_ce_fwd_cuda(logits, labels, SCALE)
     g = torch.ones(1, device="cuda")
     out_px = b * SCALE * h * SCALE * w
@@ -617,7 +702,9 @@ def check_upsample_ce(card, smi, flush):
     bf16_ms = (time_ms(lambda: U.upsample_ce_fwd_cuda(lb, labels, SCALE), flush=flush),
                time_ms(lambda: U.upsample_ce_bwd_cuda(lb, labels, lse, g, SCALE), flush=flush))
     for row, errs, build, ms in zip(rows, (fwd_errs, bwd_errs), builds, bf16_ms):
-        emit({"phase": "kernels", "kernel": row["name"], "bf16_logits_ms": ms,
+        row["shape"] = [*path_shape, SCALE]
+        row["bf16_ms"] = ms
+        emit({"phase": "kernels", "kernel": row["name"], "config": config,
               "max_abs_err": errs,
               "tolerance": "fwd: nll rtol 1e-5 (atomic order), counts exact, "
                            "lse |d| <= 4e-6 max(1, |lse|); bwd: rtol 1e-4, atol 1e-6",
@@ -628,15 +715,52 @@ def check_upsample_ce(card, smi, flush):
 
 
 def phase_kernels(card: str, smi: str):
+    """Every kernel against its plain version and timed, at the ADE20K
+    paths' shapes (with the edge cases and the sweeps), then at the
+    Cityscapes paths' shapes (K = 19; the training kernels on the region map
+    and labels of the Cityscapes train batch); each ADE row carries its
+    Cityscapes row under "cityscapes"."""
+    from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.ops import _build
 
     # registers, spills and static shared bytes of every kernel, as ptxas
     # reported them when the library was built
     emit({"phase": "kernels", "ptxas": _build.resource_usage()})
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = [check_encode_map(card, smi, flush), check_q_sample(card, smi, flush),
-            check_dtable(card, smi, flush)]
-    return rows + check_upsample_ce(card, smi, flush)
+    k = K + 1
+    rows = [check_encode_map(card, smi, flush)["path"], check_q_sample(card, smi, flush),
+            # (rows, columns, table rows); "converge": converge_seg_window's
+            # step (16 images of 16 x 16 latents, C = 64, K = 7 classes + the
+            # ignore row)
+            check_dtable(card, smi, flush, cases={
+                "random": (N, C, k), "ragged": (N + 3, 250, k), "contended": (N, C, k),
+                "region": (N, C, k), "strided": (N, C, k), "converge": (16 * 16 * 16, 64, 8)}),
+            *check_upsample_ce(card, smi, flush)]
+
+    city_cfg = get_config("cityscapes_convnext_t")
+    b, h, w, _ = CITY_CE_SHAPE
+    region = region_labels(city_cfg, b)
+    city = check_encode_map(card, smi, flush, k=CITY_K + 1, path_rows=CITY_SERVE_N, edges=(),
+                            sweeps=False, config=city_cfg.name)
+    city["q_sample"] = check_q_sample(card, smi, flush, n=region.numel(), k=CITY_K + 1,
+                                      labels=region, edges=(), config=city_cfg.name)
+    city["dtable"] = check_dtable(card, smi, flush, city_cfg.name, b,
+                                  cases={"region": (b * h * w, C, CITY_K + 1)},
+                                  row_case="region", extras=False)
+    batch_labels = train_batch(city_cfg, b)["label"].cpu()
+    city["upsample_ce_fwd"], city["upsample_ce_bwd"] = check_upsample_ce(
+        card, smi, flush, config=city_cfg.name, path_shape=CITY_CE_SHAPE,
+        path_labels=batch_labels,
+        cases=[("path", CITY_CE_SHAPE, SCALE, torch.float32, batch_labels),
+               ("path_bf16", CITY_CE_SHAPE, SCALE, torch.bfloat16, batch_labels)])
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "shape",
+              "bf16_ms")
+    for row in rows:
+        if row["name"] == "encode_map":
+            row["cityscapes"] = {key: {f: city[key][f] for f in fields} for key in CITY_SERVE_N}
+        else:
+            row["cityscapes"] = {f: city[row["name"]][f] for f in fields}
+    return rows
 
 
 # --- serving ----------------------------------------------------------------
@@ -719,23 +843,42 @@ def phase_main(smi: str, profile: str = None):
           "denoise_step_s": step_s, "dtype": "float32, tf32 off",
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi})
     if profile:
-        busy_ms, _ = profile_device(lambda: model.sample(img, init_noise=noise), profile,
-                                    f"# one ade20k_swin_t sample() at {b}x{h}x{w}, {smi}\n")
-        # device busy share: kernel time of the profiled call over the
-        # unprofiled wall time of one call
-        emit({"phase": "profile", "table": profile, "device_busy_ms": busy_ms,
-              "sample_ms": sec * 1e3, "busy_share": busy_ms / (sec * 1e3), "card": smi})
+        busy_line, _ = profile_device(lambda: model.sample(img, init_noise=noise), profile,
+                                  f"# one ade20k_swin_t sample() at {b}x{h}x{w}, {smi}\n")
+        emit({"phase": "profile", "table": profile, **busy_line, "sample_ms": sec * 1e3,
+              "card": smi})
     return model, cfg, launches
 
 
-def profiled(fn):
-    """A profile (CPU and CUDA activity) of one call of ``fn``."""
+def profiled(fn, timed: bool = False):
+    """A profile (CPU and CUDA activity) of one call of ``fn``; with
+    ``timed`` also the call's wall ms (ending in a device synchronise),
+    taken inside the profile."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return p
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return (p, wall_ms) if timed else p
+
+
+def busy(p, wall_ms: float) -> dict:
+    """The device's busy time in a profile and its share of the profiled
+    call's wall time: the union of the intervals of the kernels and copies
+    the card ran, so that kernels a CUDA graph runs side by side count
+    once (a sum of their times can exceed the wall time)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in p.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    total, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return {"device_busy_ms": total / 1e3, "profiled_wall_ms": wall_ms,
+            "busy_share": total / 1e3 / wall_ms}
 
 
 def device_kernels(p):
@@ -764,27 +907,26 @@ def kernel_launches(p) -> dict:
 
 
 def profile_call(fn, path=None, header=""):
-    """(device kernel ms, launches of the port's kernels) of one call of
+    """(busy, launches of the port's kernels) of one profiled call of
     ``fn``; the per-kernel table is written to ``path`` when given."""
-    p = profiled(fn)
+    p, wall_ms = profiled(fn, timed=True)
     if path:
         with open(path, "w") as f:
             f.write(header)
             f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
-    return sum(e.self_device_time_total for e in device_kernels(p)) / 1e3, kernel_launches(p)
+    return busy(p, wall_ms), kernel_launches(p)
 
 
 def profile_device(fn, path: str, header: str):
-    """Profile one call of ``fn``: (device kernel ms, top kernel families),
-    and the per-kernel table written to ``path``."""
-    p = profiled(fn)
-    kernels = device_kernels(p)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    """Profile one call of ``fn``: (busy, top kernel families), and the
+    per-kernel table written to ``path``."""
+    p, wall_ms = profiled(fn, timed=True)
+    top = sorted(device_kernels(p), key=lambda e: -e.self_device_time_total)[:12]
     with open(path, "w") as f:
         f.write(header)
         f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
-    return busy_ms, [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top]
+    return busy(p, wall_ms), [(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                              for e in top]
 
 
 def phase_serve(model, cfg, smi: str):
@@ -968,11 +1110,10 @@ def phase_train(smi: str, profile: str = None):
            "forward_s": fwd_s, "backward_s": fwd_bwd_s - fwd_s, "optimizer_s": opt_s,
            "peak_mem_gb": peak, "kernel_vs_plain": grads_check, "card": smi}
     if profile:
-        busy_ms, top = profile_device(lambda: step(state, batch), profile + ".train",
-                                      f"# one ade20k_swin_t f32 train step at {b}x512x512, "
-                                      f"{smi}\n")
-        out.update(device_busy_ms=busy_ms, busy_share=busy_ms / (step_s * 1e3),
-                   top_kernels_ms=top)
+        busy_line, top = profile_device(lambda: step(state, batch), profile + ".train",
+                                    f"# one ade20k_swin_t f32 train step at {b}x512x512, "
+                                    f"{smi}\n")
+        out.update(busy_line, top_kernels_ms=top)
     emit(out)
 
     bf16 = make_train_step(mixed_precision=True)
@@ -995,11 +1136,10 @@ def phase_train(smi: str, profile: str = None):
            "step_s": sec, "img_per_s": b / sec,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}
     if profile:
-        busy_ms, top = profile_device(lambda: bf16(state, batch), profile + ".train_bf16",
-                                      f"# one ade20k_swin_t bf16 train step at {b}x512x512, "
-                                      f"{smi}\n")
-        out.update(device_busy_ms=busy_ms, busy_share=busy_ms / (sec * 1e3),
-                   top_kernels_ms=top)
+        busy_line, top = profile_device(lambda: bf16(state, batch), profile + ".train_bf16",
+                                    f"# one ade20k_swin_t bf16 train step at {b}x512x512, "
+                                    f"{smi}\n")
+        out.update(busy_line, top_kernels_ms=top)
     emit(out)
     return launches
 
@@ -1207,9 +1347,10 @@ def check_capture_failure():
     return err
 
 
-def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
-    """``cfg`` (ade20k_swin_t or ade20k_swin_t_msda) at 2 x 512^2: the eager
-    step and the graphed chunks of ``ns`` steps from one state and one batch. The optimizer starts
+def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: int = 2):
+    """``cfg`` (ade20k_swin_t, ade20k_swin_t_msda or cityscapes_convnext_t) at
+    b crops of its size: the eager step and the graphed chunks of ``ns``
+    steps from one state and one batch. The optimizer starts
     at the end of the lr warm-up (lr 6e-5, as a run resumed there): at the
     first steps' lr (below 1e-7) an update is a few ulps of a parameter near
     1 (the norms' weights), so one rounding of p - u.lr is a third of it and
@@ -1218,7 +1359,6 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
     from ddp_tpu_torch.train.optim import make_optimizer
     from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
 
-    b = 2
     model = build_model(cfg.model, device="cuda", seed=0)
     state = TrainState(model, make_optimizer(cfg.optim, model),
                        torch.Generator(device="cuda").manual_seed(0))
@@ -1238,11 +1378,11 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
     if eager_launches != PER_STEP:
         raise AssertionError(f"graph {tag}: the card ran {eager_launches} in an eager step")
 
-    out = {"phase": "graph", "preset": cfg.name, "img": [b, 512, 512, 3],
+    out = {"phase": "graph", "preset": cfg.name, "img": [b, *cfg.data.crop_size, 3],
            "dtype": "bf16 forward/backward, f32 master weights" if mixed
            else "float32, tf32 off", "lr": state.optimizer.lr_schedule(state.optimizer.count),
            "eager": {"wall_ms_per_step": eager_s * 1e3, "img_per_s": b / eager_s,
-                     "device_busy_ms": eager_busy, "busy_share": eager_busy / (eager_s * 1e3),
+                     **eager_busy,
                      "launches_profiled": eager_launches, "peak_mem_gb": eager_peak}}
     for n in ns:
         reps = 5 if n == 1 else 3
@@ -1263,9 +1403,9 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
         chunk(state, chunk_batch)
         sec = wall_s(lambda: chunk(state, chunk_batch), reps=reps, warmup=0) / n
         peak = torch.cuda.max_memory_allocated() / 1e9
-        # one replay under the profiler: its kernel time and the launches the
-        # card ran, by kernel name
-        busy, launched = profile_call(
+        # one replay under the profiler: the card's busy share of it and the
+        # launches the card ran, by kernel name
+        replay_busy, launched = profile_call(
             lambda: chunk(state, chunk_batch), profile and f"{profile}.{cfg.name}_{tag}_n{n}",
             f"# one replay of {n} graphed {cfg.name} {tag} train steps, {smi}\n")
         per_step = {k: v / n for k, v in launched.items()}
@@ -1273,7 +1413,9 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10)):
             raise AssertionError(f"graph {tag} n={n}: the card ran {launched} in one replay")
         out[f"graph_n{n}"] = {
             "wall_ms_per_step": sec * 1e3, "img_per_s": b / sec,
-            "device_busy_ms_per_step": busy / n, "busy_share": busy / n / (sec * 1e3),
+            "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
+            "busy_share": replay_busy["busy_share"],
+            "profiled_wall_ms_per_step": replay_busy["profiled_wall_ms"] / n,
             "launches_per_replayed_step": per_step, "capture_s": chunk.capture_s[n],
             "peak_mem_gb": peak, "vs_eager_deterministic_algorithms": check}
         del chunk
@@ -1638,7 +1780,7 @@ def phase_msda_main(smi: str):
     if not (diff <= 1e-4 and agree >= 0.999):
         raise AssertionError(f"msda: kernel vs plain path: prob diff {diff}, agreement {agree}")
     sec = wall_s(lambda: model.sample(img, init_noise=noise))
-    busy_ms, card_launches = profile_call(lambda: model.sample(img, init_noise=noise))
+    busy_line, card_launches = profile_call(lambda: model.sample(img, init_noise=noise))
     with torch.no_grad():
         feat = model.extract_feat(img)
         log_snr = torch.zeros(noise.shape[0], device="cuda")
@@ -1652,31 +1794,28 @@ def phase_msda_main(smi: str):
                      "load_mmseg_checkpoint", "import_report": report, "load_s": load_s,
           "launches": launches, "launches_run_by_card": card_launches,
           "max_abs_prob_diff_vs_plain": diff, "argmax_agreement_vs_plain": agree,
-          "sample_s": sec, "img_per_s": b / sec, "device_busy_ms": busy_ms,
-          "busy_share": busy_ms / (sec * 1e3), "denoise_step_s": step_s,
+          "sample_s": sec, "img_per_s": b / sec, **busy_line, "denoise_step_s": step_s,
           "dtype": "float32, tf32 off", "peak_mem_gb": peak,
           "msda_op": msda_op(smi), "card": smi})
     return launches
 
 
-def phase_msda_train(smi: str):
-    """Training with the msda decoder: ade20k_swin_t_msda at full width and
-    depth, 2 x 512^2: one eager step in f32 and in bf16 (the kernels' launch
-    counts), one step with fixed draws through the kernels and through the
-    plain versions, and a graphed chunk of 10 steps held to the eager steps
-    (graph_case, f32 and bf16)."""
-    from ddp_tpu_torch.config import build_model, get_config
+def train_paths(cfg, b: int, phase: str, smi: str, profile: str = None):
+    """``cfg`` at full width and depth, b crops of its size: one step with
+    fixed draws through the kernels and through the plain versions, one eager
+    step in f32 and in bf16 (the kernels' launch counts, loss, peak memory),
+    and a graphed chunk of 10 steps held to the eager steps (graph_case, f32
+    and bf16). Returns (launches of the eager f32 step, per replayed step)."""
+    from ddp_tpu_torch.config import build_model
     from ddp_tpu_torch.train.optim import make_optimizer
     from ddp_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = get_config("ade20k_swin_t_msda")
-    b = 2
     model = build_model(cfg.model, device="cuda", seed=0)
     opt = make_optimizer(cfg.optim, model)
     state = TrainState(model, opt, torch.Generator(device="cuda").manual_seed(0))
     batch = train_batch(cfg, b)
     grads_check = compare_grads(cfg, model, opt, batch)
-    out = {"phase": "msda_train", "preset": cfg.name, "img": [b, 512, 512, 3],
+    out = {"phase": phase, "preset": cfg.name, "img": [b, *cfg.data.crop_size, 3],
            "kernel_vs_plain": grads_check}
     launches = None
     for mixed in (False, True):
@@ -1691,23 +1830,352 @@ def phase_msda_train(smi: str):
         sec = time.perf_counter() - t0
         counted = all_launches()
         if counted != PER_STEP:
-            raise AssertionError(f"msda train: launches per step {counted}, want {PER_STEP}")
+            raise AssertionError(f"{phase}: launches per step {counted}, want {PER_STEP}")
         loss = logs["loss"].item()
         if not (loss == loss and abs(loss) < float("inf")):
-            raise AssertionError(f"msda train: non-finite loss {loss}")
+            raise AssertionError(f"{phase}: non-finite loss {loss}")
         launches = launches or counted
         out["bf16" if mixed else "f32"] = {
             "eager_step_s": sec, "img_per_s": b / sec, "loss": loss,
             "launches_per_step": counted,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del model, opt, state
+    del model, opt, state, step
     torch.cuda.empty_cache()
     emit(dict(out, card=smi))
-    graphed = graph_case(cfg, False, smi, ns=(10,))
+    graphed = graph_case(cfg, False, smi, profile, ns=(10,), b=b)
     torch.cuda.empty_cache()
-    graph_case(cfg, True, smi, ns=(10,))
+    graph_case(cfg, True, smi, profile, ns=(10,), b=b)
     torch.cuda.empty_cache()
     return launches, graphed
+
+
+def phase_msda_train(smi: str):
+    """Training with the msda decoder: ade20k_swin_t_msda at 2 x 512^2
+    through train_paths."""
+    from ddp_tpu_torch.config import get_config
+
+    return train_paths(get_config("ade20k_swin_t_msda"), 2, "msda_train", smi)
+
+
+# --- the Cityscapes ConvNeXt segmentor -------------------------------------------
+
+CITY_DIR = os.path.join("work_dirs", "chip_smoke_city")
+# the reference's released Cityscapes checkpoints hold an 8-head msda decoder;
+# the presets (window decoder) take it by these overrides
+CITY_MSDA = {"model.decoder_attn": "msda", "model.decoder_heads": "8"}
+
+
+def city_serve_case(model, cfg, img, mode: str, label: str, smi: str,
+                    profile: str = None) -> dict:
+    """One 1024 x 2048 image through ``model``: ``sample`` whole, or
+    ``slide_inference`` of ``sample`` over 1024^2 crops at stride 768 (3
+    crops). The kernel path against the plain path (the main phase's
+    limits; the same generator seed, so the same noise), encode_map
+    launches (3 per crop), wall ms, img/s, the busy share and peak memory."""
+    from ddp_tpu_torch.evaluation.slide import slide_grid, slide_inference
+
+    m = cfg.model
+    crop, stride = (1024, 1024), (768, 768)
+    crops = len(slide_grid(img.shape[1], img.shape[2], crop, stride)) if mode == "slide" else 1
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        if mode == "whole":
+            return model.sample(img, generator=gen)
+        return slide_inference(lambda x: model.sample(x, generator=gen), img, m.num_classes,
+                               crop, stride)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    probs = run()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = m.diffusion.timesteps * crops
+    if launches != {**dict.fromkeys(launches, 0), "encode_map": want}:
+        raise AssertionError(f"{cfg.name} {mode}: launches {launches}, want {want} encode_map")
+    check_probs(probs, (*img.shape[:3], m.num_classes))
+    with plain_kernels():
+        plain = run()
+    diff, agree = compare_probs(probs, plain)
+    del plain, probs
+    if not (diff <= 1e-4 and agree >= 0.999):
+        raise AssertionError(f"{cfg.name} {mode}: kernel vs plain path: prob diff {diff}, "
+                             f"agreement {agree}")
+    sec = wall_s(run, reps=3)
+    busy_line, card_launches = profile_call(
+        run, profile and f"{profile}.{cfg.name}_{label}_{mode}",
+        f"# one {mode} 1024x2048 call of {cfg.name} ({label} decoder), {smi}\n")
+    return {"mode": mode, "crops": crops, "launches": launches,
+            "launches_run_by_card": card_launches, "max_abs_prob_diff_vs_plain": diff,
+            "argmax_agreement_vs_plain": agree, "wall_ms": sec * 1e3,
+            "img_per_s": img.shape[0] / sec, **busy_line, "peak_mem_gb": peak}
+
+
+def phase_city_main(smi: str, profile: str = None):
+    """Serving the Cityscapes ConvNeXt segmentor on one 1024 x 2048 image,
+    whole and slide: cityscapes_convnext_t with the msda overrides, its
+    weights seeded random tensors under mmseg's and mmcls's names written to a
+    .pth and loaded by load_mmseg_checkpoint (the report must be empty), and
+    the preset's own window model (random weights, seed 0)."""
+    import shutil
+
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.torch_import import load_mmseg_checkpoint, synthetic_mmseg_state
+
+    cfg = get_config("cityscapes_convnext_t", CITY_MSDA)
+    os.makedirs(CITY_DIR, exist_ok=True)
+    path = os.path.join(CITY_DIR, "mmseg_random.pth")
+    state = synthetic_mmseg_state(cfg.model, seed=0, gn="gn")
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in state.items()}}, path)
+    t0 = time.perf_counter()
+    model, report = load_mmseg_checkpoint(path, cfg, device="cuda")
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(CITY_DIR, ignore_errors=True)
+    if report["missing"] or report["unused"]:
+        raise AssertionError(f"city import report not empty: {report}")
+    img = torch.randn(1, 1024, 2048, 3, generator=_gen(41)).cuda()
+    out = {"phase": "city_main", "img": list(img.shape), "dtype": "float32, tf32 off",
+           "msda_import": {"preset": cfg.name, "overrides": CITY_MSDA, "import_report": report,
+                           "tensors": len(state),
+                           "values_m": sum(v.size for v in state.values()) / 1e6,
+                           "load_s": load_s}}
+    launches = {}
+    for label, c in (("msda", cfg), ("window", get_config("cityscapes_convnext_t"))):
+        if model is None:
+            model = build_model(c.model, device="cuda", seed=0, input_size=c.data.crop_size)
+        out[label] = {"preset": c.name, "decoder": f"{c.model.decoder_attn}, "
+                                                  f"{c.model.decoder_heads} heads"}
+        for mode in ("whole", "slide"):
+            case = city_serve_case(model, c, img, mode, label, smi, profile)
+            out[label][mode] = case
+            launches[f"{label}_{mode}"] = case["launches"]
+        model = None
+        torch.cuda.empty_cache()
+    emit(dict(out, card=smi))
+    return launches
+
+
+def phase_city_train(smi: str, profile: str = None):
+    """Training the Cityscapes ConvNeXt segmentor: cityscapes_convnext_t at
+    4 x 512 x 1024, the reference's per-GPU batch, through train_paths."""
+    from ddp_tpu_torch.config import get_config
+
+    return train_paths(get_config("cityscapes_convnext_t"), 4, "city_train", smi, profile)
+
+
+def write_png(path: str, img) -> None:
+    """A PNG of the uint8 array ``img`` ([H, W] grey or [H, W, 3] RGB) from
+    the standard library's zlib, its rows filtered None, Sub, Up, Average
+    and Paeth in turn, as an adaptive encoder mixes them."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    rows = img.reshape(h, w * bpp).astype(np.int32)
+    prev = np.zeros(w * bpp, np.int32)
+    out = []
+    for r in range(h):
+        cur, kind = rows[r], r % 5
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+        p = left + prev - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, ul))
+        pred = (0, left, prev, (left + prev) >> 1, paeth)[kind]
+        out.append(bytes([kind]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+        prev = cur
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(b"".join(out), 6)) + chunk(b"IEND", b""))
+
+
+# one make_train_iter batch at a preset's crop, timed in a process of its
+# own (its prefetch thread ends with it); "PIL" blocked makes it read_png's
+_BATCH_TIMER = """
+import json, sys, time
+if sys.argv[3] == "no_pillow":
+    sys.modules["PIL"] = None
+from ddp_tpu_torch.config import get_config
+from ddp_tpu_torch.data import make_train_iter
+cfg = get_config(sys.argv[1], {"data.data_root": sys.argv[2]})
+it = make_train_iter(cfg)
+times = []
+for _ in range(int(sys.argv[4])):
+    t0 = time.perf_counter()
+    batch = next(it)
+    times.append(time.perf_counter() - t0)
+print(json.dumps({"batch_s": times, "image": list(batch["image"].shape)}))
+"""
+
+
+def city_decode(root: str) -> dict:
+    """The host's part of a Cityscapes train step: one 1024 x 2048 RGB image
+    and one label map, written with zlib, decoded by read_png and by Pillow
+    (where installed; read_image's choice) and held bitwise to each other;
+    then make_train_iter batches of cityscapes_convnext_t (16 crops of 512 x
+    1024) from four such pairs, through read_image (two batches) and with
+    Pillow blocked, through read_png (one batch)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from ddp_tpu_torch.data.image_io import read_png
+
+    tree = os.path.join(root, CITY_DIR, "city_tree")
+    img_dir = os.path.join(tree, "leftImg8bit", "train", "synth")
+    ann_dir = os.path.join(tree, "gtFine", "train", "synth")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:1024, 0:2048].astype(np.float32)
+    smooth = np.stack([128 + 60 * np.sin(xx / 97 + c) * np.cos(yy / 61 - c) for c in range(3)], -1)
+    img = (smooth + rng.normal(0, 6, smooth.shape)).clip(0, 255).astype(np.uint8)
+    label = ((xx // 128 + 3 * (yy // 96)) % 34).astype(np.uint8)  # labelIds 0..33
+    rgb_path, lab_path = os.path.join(img_dir, "a_leftImg8bit.png"), os.path.join(
+        ann_dir, "a_gtFine_labelIds.png")
+    write_png(rgb_path, img)
+    write_png(lab_path, label)
+    for i in range(1, 4):
+        shutil.copy(rgb_path, os.path.join(img_dir, f"{'abcd'[i]}_leftImg8bit.png"))
+        shutil.copy(lab_path, os.path.join(ann_dir, f"{'abcd'[i]}_gtFine_labelIds.png"))
+    got_rgb, got_lab = read_png(rgb_path, rgb=True), read_png(lab_path)
+    if not (np.array_equal(got_rgb, img) and np.array_equal(got_lab, label)):
+        raise AssertionError("city_data: read_png does not give the pixels written")
+    out = {"image": [1024, 2048], "filters": "None/Sub/Up/Average/Paeth by row",
+           "read_png_rgb_ms": _host_ms(lambda: read_png(rgb_path, rgb=True), 2),
+           "read_png_label_ms": _host_ms(lambda: read_png(lab_path), 2)}
+    pillow = importlib.util.find_spec("PIL") is not None
+    out["pillow_installed"] = pillow
+    if pillow:
+        from PIL import Image
+
+        def pil(path, rgb):
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB") if rgb else im)
+
+        if not (np.array_equal(pil(rgb_path, True), got_rgb)
+                and np.array_equal(pil(lab_path, False), got_lab)):
+            raise AssertionError("city_data: read_png differs from Pillow")
+        out["pillow_rgb_ms"] = _host_ms(lambda: pil(rgb_path, True), 5)
+        out["pillow_label_ms"] = _host_ms(lambda: pil(lab_path, False), 5)
+
+    def batches(mode, n):
+        proc = subprocess.run([sys.executable, "-c", _BATCH_TIMER, "cityscapes_convnext_t",
+                               tree, mode, str(n)], cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"city_data batch timer ({mode}): exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    out["make_train_iter"] = {"preset": "cityscapes_convnext_t", "read_image": batches(
+        "read_image", 2), "read_png_no_pillow": batches("no_pillow", 1)}
+    shutil.rmtree(tree, ignore_errors=True)
+    return out
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host ms of ``fn`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_city_data(smi: str):
+    """The entry points on real-format data: ``python -m
+    ddp_tpu_torch.tools.train smoke`` on tests/data/cityscapes (20
+    iterations, 10 per dispatch), then ``python -m ddp_tpu_torch.tools.test``
+    on its workdir in whole and slide modes (a 32 x 64 crop of the 48 x 96
+    images); each must exit 0 and print its mIoU line. An ADE20K JPEG must
+    raise the named ImportError where Pillow is missing (its import is
+    blocked for that check, since the card has it). Then the decoders' and
+    the train iterator's host times at the Cityscapes size (city_decode)."""
+    import importlib.util
+    import shutil
+
+    from ddp_tpu_torch.data.image_io import read_image
+    from ddp_tpu_torch.data.seg_datasets import SegDataset
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(root, CITY_DIR, "smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    sets = ["data.dataset=cityscapes", "data.data_root=tests/data/cityscapes",
+            "model.num_classes=19"]
+    line = re.compile(r"\[seed 0\] aAcc [\d.]+ \| mIoU [\d.]+ \| mAcc [\d.]+")
+
+    def run(args, name):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
+                              text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"city_data {name}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        return proc.stdout, sec
+
+    _, train_s = run(["ddp_tpu_torch.tools.train", "smoke", "--workdir", workdir,
+                      "--set", *sets, "runtime.total_iters=20", "runtime.steps_per_dispatch=10",
+                      "runtime.log_interval=10", "runtime.ckpt_interval=20",
+                      "optim.total_steps=20"], "train")
+    logs = _log_steps(workdir)
+    out = {"phase": "city_data", "train": {"wall_s": train_s,
+                                           "log_steps": [r["step"] for r in logs],
+                                           "loss": [r["loss"] for r in logs]}}
+    if [r["step"] for r in logs] != [1, 10, 20] or not all(
+            r["loss"] == r["loss"] and abs(r["loss"]) < float("inf") for r in logs):
+        raise AssertionError(f"city_data train: logs {logs}")
+    for mode, extra in (("whole", []), ("slide", ["runtime.test_mode=slide",
+                                                  "runtime.test_crop=(32,64)",
+                                                  "runtime.test_stride=(16,32)"])):
+        text, sec = run(["ddp_tpu_torch.tools.test", "smoke", "--workdir", workdir, "--set",
+                         *sets, *extra], f"test {mode}")
+        if "restored step 20" not in text or not line.search(text):
+            raise AssertionError(f"city_data test {mode}: output {text!r}")
+        out[f"test_{mode}"] = {"wall_s": sec, "lines": text.strip().splitlines()}
+    # an ADE20K JPEG: read through Pillow where it is installed; without it
+    # (here made absent by blocking its import) the named ImportError
+    jpg = os.path.join(root, "tests", "data", "ade", "images", "training", "ADE_train_0.jpg")
+    pillow = importlib.util.find_spec("PIL") is not None
+    out["ade_jpeg"] = {"pillow_installed": pillow}
+    if pillow:
+        out["ade_jpeg"]["decoded_by_pillow"] = list(read_image(jpg, rgb=True).shape)
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
+    sys.modules["PIL"] = None  # import PIL now raises ImportError
+    errors = []
+    try:
+        for name, fn in (("read_image", lambda: read_image(jpg, rgb=True)),
+                         ("SegDataset.load", lambda: SegDataset(os.path.join(
+                             root, "tests", "data", "ade"), "train", "ade20k").load(0))):
+            try:
+                fn()
+            except ImportError as e:
+                if "no JPEG decoder" not in str(e):
+                    raise
+                errors.append(f"{name}: {e}")
+            else:
+                raise AssertionError(f"city_data: {name} read a JPEG without Pillow")
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+    out["ade_jpeg"]["without_pillow_raises"] = errors
+    out["decode"] = city_decode(root)
+    shutil.rmtree(CITY_DIR, ignore_errors=True)
+    emit(dict(out, card=smi))
 
 
 def converge_case(preset: str, smi: str):
@@ -1752,8 +2220,8 @@ def phase_converge(smi: str):
 
 
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
-          "table_grad", "graph", "loop", "msda_main", "msda_train", "converge", "graph_grads",
-          "converge_msda")
+          "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
+          "city_data", "converge", "graph_grads", "converge_msda")
 ON_REQUEST = ("converge", "graph_grads", "converge_msda")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
@@ -1795,6 +2263,13 @@ def main(argv=None) -> int:
         launches["msda_serve"] = phase_msda_main(smi)
     if "msda_train" in phases:
         launches["msda_train"], launches["msda_graph"] = phase_msda_train(smi)
+    if "city_main" in phases:
+        for key, counted in phase_city_main(smi, args.profile).items():
+            launches[f"city_{key}"] = counted
+    if "city_train" in phases:
+        launches["city_train"], launches["city_graph"] = phase_city_train(smi, args.profile)
+    if "city_data" in phases:
+        phase_city_data(smi)
     if "converge" in phases:
         phase_converge(smi)
     if "converge_msda" in phases:
@@ -1819,7 +2294,18 @@ def main(argv=None) -> int:
                 ("msda_serve", "sample() call of ade20k_swin_t_msda"),
                 ("msda_train", "eager train step of ade20k_swin_t_msda"),
                 ("msda_graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t_msda), "
-                               "profiled"))
+                               "profiled"),
+                ("city_msda_whole", "sample() of one 1024x2048 image, cityscapes_convnext_t "
+                                    "with the imported msda decoder"),
+                ("city_msda_slide", "slide_inference (3 crops of 1024^2) of one 1024x2048 "
+                                    "image, cityscapes_convnext_t with the imported msda "
+                                    "decoder"),
+                ("city_window_whole", "sample() of one 1024x2048 image, cityscapes_convnext_t"),
+                ("city_window_slide", "slide_inference (3 crops of 1024^2) of one 1024x2048 "
+                                      "image, cityscapes_convnext_t"),
+                ("city_train", "eager train step of cityscapes_convnext_t, 4 x 512x1024"),
+                ("city_graph", "replayed step of a 10-step CUDA graph (cityscapes_convnext_t, "
+                               "4 x 512x1024), profiled"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -12,5 +12,9 @@ DDIM rollout through the window-attention time-FiLM decoder, with the
 argmax re-embedding on a hand-written CUDA kernel) and its training path
 (``DDPSegmentor.forward``, ``train.step.make_train_step``, ``train.loop.train``:
 the ground-truth corruption and its table gradient, and the fused ×4
-upsample + cross-entropy forward and backward, on hand-written CUDA kernels).
+upsample + cross-entropy forward and backward, on hand-written CUDA kernels),
+with Swin or ConvNeXt backbones (the ADE20K and Cityscapes presets), the
+window or msda decoder, mmseg checkpoint import, slide inference, the
+ADE20K/Cityscapes datasets and the train/test entry points
+(``python -m ddp_tpu_torch.tools.train`` / ``tools.test``).
 """

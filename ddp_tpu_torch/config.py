@@ -1,16 +1,22 @@
-"""Configuration of the port (from ``ddp_tpu/config.py:19-142,206-252,334-347,640-673``).
+"""Configuration of the port (from ``ddp_tpu/config.py:19-172,206-268,334-347,
+569-581,640-673``).
 
 Holds the segmentation fields of ``ModelConfig``, the data fields, the
-``OptimConfig`` and the ``RuntimeConfig`` fields the training loop reads, the
+``OptimConfig`` and the ``RuntimeConfig`` fields the training loop and the
+test CLI read, the dotted-path overrides (``--set model.bit_scale=0.1``), the
 ``ade20k_swin_t`` (window decoder) and ``ade20k_swin_t_msda`` (the
-reference's msda decoder) presets, the end checks ``converge_seg_window``,
-``converge_seg_msda`` and ``converge_seg_aligned_msda``, one tiny test
-preset, and ``build_model``.
+reference's msda decoder) presets, the Cityscapes ConvNeXt and Swin families
+(``cityscapes_{convnext,swin}_{t,s,b,l}``, ``cityscapes_convnext_{t,l}_aligned``),
+the end checks ``converge_seg_window``, ``converge_seg_msda`` and
+``converge_seg_aligned_msda``, the test presets ``tiny_seg`` and ``smoke``,
+and ``build_model``. The JAX package's YAML overlay is not ported (no PyYAML
+on the card; ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from .core.diffusion import DiffusionConfig
 from .train.optim import OptimConfig
@@ -47,6 +53,7 @@ class ModelConfig:
 @dataclass(frozen=True)
 class DataConfig:
     dataset: str = "ade20k"
+    data_root: str = "data/ade/ADEChallengeData2016"
     crop_size: Tuple[int, int] = (512, 512)
     batch_size: int = 16  # global training batch
     # train-pipeline knobs (mmseg transforms.py semantics)
@@ -74,6 +81,9 @@ class RuntimeConfig:
     seed: int = 0
     workdir: str = "work_dirs/default"
     mixed_precision: bool = True  # bf16 forward/backward, f32 masters
+    test_mode: str = "whole"  # 'whole' | 'slide' (evaluation/slide.py)
+    test_crop: Tuple[int, int] = (1024, 1024)
+    test_stride: Tuple[int, int] = (768, 768)
 
 
 @dataclass(frozen=True)
@@ -85,32 +95,79 @@ class Config:
     name: str = "custom"
 
 
+def _replace_path(cfg: Any, dotted: str, value: Any):
+    """Immutable deep-replace along a dotted path of dataclass fields."""
+    head, _, rest = dotted.partition(".")
+    if not dataclasses.is_dataclass(cfg):
+        raise KeyError(f"cannot descend into non-dataclass at {head!r}")
+    cur = getattr(cfg, head)
+    new = _replace_path(cur, rest, value) if rest else _coerce(cur, value)
+    return dataclasses.replace(cfg, **{head: new})
+
+
+def _coerce(old: Any, value: Any):
+    """A string from the command line in the type of the field it replaces."""
+    if isinstance(value, str) and old is not None and not isinstance(old, str):
+        t = type(old)
+        if t is bool:
+            return value.lower() in ("1", "true", "yes")
+        if t is tuple:
+            items = [v for v in value.strip("()[] ").split(",") if v]
+            inner = type(old[0]) if old else float
+            return tuple(inner(v) for v in items)
+        return t(value)
+    return value
+
+
+def apply_overrides(cfg: Config, overrides: Dict[str, Any]) -> Config:
+    """``cfg`` with each dotted path of ``overrides`` replaced (an unknown
+    field raises AttributeError)."""
+    for k, v in overrides.items():
+        cfg = _replace_path(cfg, k, v)
+    return cfg
+
+
+_DATA_ROOTS = {
+    "ade20k": "data/ade/ADEChallengeData2016",
+    "cityscapes": "data/cityscapes",
+    "synthetic": "",
+}
+
+
+def _seg(name, backbone, variant, dataset, classes, crop, bs, bit_scale, timesteps=3,
+         accumulation=True, lr=6e-5, grad_clip=0.1, iters=160_000, self_aligned=False,
+         drop_path=0.3, decoder_attn="window", **rt) -> Config:
+    """A reference seg config as the JAX package's ``_seg`` builds it: window
+    presets take the 16x16-window, 4-head decoder shape, msda ones keep the
+    reference's 8 heads."""
+    win_shape = (dict(decoder_window=16, decoder_heads=4)
+                 if decoder_attn == "window" else {})
+    return Config(
+        name=name,
+        model=ModelConfig(
+            task="seg", backbone_type=backbone, backbone_variant=variant,
+            num_classes=classes, bit_scale=bit_scale, self_aligned=self_aligned,
+            drop_path_rate=drop_path, decoder_attn=decoder_attn, **win_shape,
+            diffusion=DiffusionConfig(timesteps=timesteps, accumulation=accumulation)),
+        data=DataConfig(dataset=dataset, crop_size=crop, batch_size=bs,
+                        data_root=_DATA_ROOTS.get(dataset, "data")),
+        optim=OptimConfig(lr=lr, grad_clip=grad_clip, total_steps=iters),
+        runtime=RuntimeConfig(total_iters=iters, **rt),
+    )
+
+
 PRESETS: Dict[str, Callable[[], Config]] = {
     # configs/ade/ddp_swin_t_2x8_512x512_160k_ade20k.py with the JAX package's
     # shipped window decoder shape (16x16 windows, 4 heads of 64)
-    "ade20k_swin_t": lambda: Config(
-        name="ade20k_swin_t",
-        model=ModelConfig(backbone_variant="tiny", num_classes=150, bit_scale=0.01,
-                          decoder_attn="window", decoder_window=16, decoder_heads=4,
-                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
-        data=DataConfig(dataset="ade20k", crop_size=(512, 512), batch_size=16),
-        optim=OptimConfig(lr=6e-5, grad_clip=0.1, total_steps=160_000),
-        runtime=RuntimeConfig(total_iters=160_000),
-    ),
+    "ade20k_swin_t": lambda: _seg("ade20k_swin_t", "swin", "tiny", "ade20k", 150,
+                                  (512, 512), 16, 0.01),
     # the reference config itself, with its msda decoder: the JAX package's
     # _seg("ade20k_swin_t", ..., decoder_attn="msda") (ddp_tpu/config.py:
     # 206-252), which keeps the 8-head shape of the released checkpoints
     # (ddp_tpu's get_config("ade20k_swin_t", {"model.decoder_attn": "msda"})
     # keeps the window preset's 4 heads instead: ROADMAP.md queue 3)
-    "ade20k_swin_t_msda": lambda: Config(
-        name="ade20k_swin_t_msda",
-        model=ModelConfig(backbone_variant="tiny", num_classes=150, bit_scale=0.01,
-                          decoder_attn="msda", decoder_heads=8,
-                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
-        data=DataConfig(dataset="ade20k", crop_size=(512, 512), batch_size=16),
-        optim=OptimConfig(lr=6e-5, grad_clip=0.1, total_steps=160_000),
-        runtime=RuntimeConfig(total_iters=160_000),
-    ),
+    "ade20k_swin_t_msda": lambda: _seg("ade20k_swin_t_msda", "swin", "tiny", "ade20k", 150,
+                                       (512, 512), 16, 0.01, decoder_attn="msda"),
     # the end check of training (ddp_tpu/config.py:334-347): flagship-shaped
     # but tiny (nano Swin, 64-d window decoder of 6 layers, window 8, 8 heads),
     # trained on synthetic 64x64 crops through train() and scored by
@@ -163,6 +220,19 @@ PRESETS: Dict[str, Callable[[], Config]] = {
                               eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
                               workdir="work_dirs/torch_converge_seg_aligned_msda"),
     ),
+    # tiny CPU-runnable smoke preset (ddp_tpu/config.py:569-581): ConvNeXt
+    # nano with the msda decoder (the JAX ModelConfig's default attention)
+    "smoke": lambda: Config(
+        name="smoke",
+        model=ModelConfig(task="seg", backbone_type="convnext", backbone_variant="nano",
+                          num_classes=7, embed_dims=32, decoder_layers=2, decoder_heads=4,
+                          decoder_ffn_dim=64, drop_path_rate=0.0, decoder_attn="msda",
+                          diffusion=DiffusionConfig(timesteps=2)),
+        data=DataConfig(dataset="synthetic", crop_size=(32, 32), batch_size=8),
+        optim=OptimConfig(lr=1e-3, total_steps=100, warmup_steps=10, grad_clip=1.0),
+        runtime=RuntimeConfig(total_iters=100, log_interval=10, ckpt_interval=50,
+                              eval_interval=50, workdir="work_dirs/smoke"),
+    ),
     # test-only scale: swin 'nano', 64-d decoder of 2 layers, window 4, K=7,
     # two randsteps hypotheses so that the r-major folding is exercised
     "tiny_seg": lambda: Config(
@@ -181,15 +251,40 @@ PRESETS: Dict[str, Callable[[], Config]] = {
 }
 
 
-def get_config(name: str) -> Config:
+# Cityscapes ConvNeXt and Swin families (configs/cityscapes/ddp_{convnext,swin}_*_
+# 4x4_512x1024_160k_cityscapes.py, as ddp_tpu/config.py:254-260 builds them)
+for _b in ("convnext", "swin"):
+    for _v in ("tiny", "small", "base", "large"):
+        PRESETS[f"cityscapes_{_b}_{_v[0]}"] = lambda b=_b, v=_v: _seg(
+            f"cityscapes_{b}_{v[0]}", b, v, "cityscapes", 19, (512, 1024), 16, 0.01,
+            drop_path=0.4 if b == "convnext" else 0.3)
+
+# the self-aligned fine-tune (configs/cityscapes/ddp_convnext_t_4x4_512x1024_5k_
+# cityscapes_aligned.py: 10 DDIM steps, lr 10x lower, 5k iterations;
+# ddp_tpu/config.py:262-268)
+for _v in ("tiny", "large"):
+    PRESETS[f"cityscapes_convnext_{_v[0]}_aligned"] = lambda v=_v: _seg(
+        f"cityscapes_convnext_{v[0]}_aligned", "convnext", v, "cityscapes", 19,
+        (512, 1024), 16, 0.01, timesteps=10, lr=6e-6, iters=5000, self_aligned=True,
+        drop_path=0.4)
+
+
+def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
+    """The preset ``name`` with the dotted-path ``overrides`` applied."""
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
-    return PRESETS[name]()
+    cfg = PRESETS[name]()
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    return cfg
 
 
-def build_model(cfg: ModelConfig, device=None, seed: int = 0):
+def build_model(cfg: ModelConfig, device=None, seed: int = 0,
+                input_size: Optional[Tuple[int, int]] = None):
     """DDPSegmentor for ``cfg`` on ``device`` (default "cuda"; raises without
-    a GPU unless a device is named), weights drawn from ``seed``."""
+    a GPU unless a device is named), weights drawn from ``seed``.
+    ``input_size``: the image size the model is built for (the training
+    crop), which sizes the learned position tables."""
     if cfg.task != "seg":
         raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
     from .models.segmentor import DDPSegmentor
@@ -204,7 +299,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0):
         decoder_window=cfg.decoder_window, decoder_film=cfg.decoder_film,
         decoder_pos=cfg.decoder_pos, aux_weight=cfg.aux_weight,
         drop_path_rate=cfg.drop_path_rate, self_aligned=cfg.self_aligned,
-        loss_at=cfg.loss_at, device=device)
+        loss_at=cfg.loss_at, input_size=input_size, device=device)
     if next(model.parameters()).device.type != "meta":
         init_params_(model, seed)
     return model

@@ -16,7 +16,9 @@ so its reduction needs only the Dense transpose. The msda decoder's leaves
 need no rule of their own: its modules carry the flax names
 (``attn/{sampling_offsets,attention_weights,value_proj,output_proj}``,
 ``pos_enc/{row_embed,col_embed}/embedding``, FiLM v2/v3's 4C ``time_mlp``),
-so the renames above map them. Leaves are numpy arrays (or
+so the renames above map them. ConvNeXt's modules carry the flax names
+too: its depthwise kernel [7, 7, 1, C] takes the Conv rule to [C, 1, 7, 7],
+and its layer scale ``gamma`` keeps its name. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """
@@ -41,7 +43,7 @@ _MODULE_RENAMES = (
 )
 _AUTO_NAME = re.compile(r"^[A-Z]\w*_\d+$")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-                 "bias": "bias", "weights": "weights",
+                 "bias": "bias", "weights": "weights", "gamma": "gamma",
                  "relative_position_bias_table": "relative_position_bias_table"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 

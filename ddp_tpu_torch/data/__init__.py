@@ -8,22 +8,27 @@ from __future__ import annotations
 
 def make_train_iter(cfg):
     """The infinite train batch iterator for a Config: segmentation on the
-    procedural ``SyntheticSegDataset`` through ``seg_batch_iterator`` and the
-    seg train pipeline. Under ``torch.distributed`` each process gets its
-    rank's slice of every global batch."""
+    procedural ``SyntheticSegDataset`` (``data.dataset="synthetic"``) or on an
+    ADE20K or Cityscapes tree under ``data.data_root`` (``SegDataset``, its
+    train split; FileNotFoundError when it holds nothing), through
+    ``seg_batch_iterator`` and the seg train pipeline. Under
+    ``torch.distributed`` each process gets its rank's slice of every global
+    batch."""
     import torch.distributed as dist
 
-    from .seg_datasets import SyntheticSegDataset, seg_batch_iterator
+    from .seg_datasets import SegDataset, SyntheticSegDataset, seg_batch_iterator
 
     if cfg.model.task != "seg":
         raise NotImplementedError(f"task {cfg.model.task!r} has no data loader in the port yet")
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r}: the real-format segmentation datasets are not "
-            "ported yet (ROADMAP.md queue 1, item 5)")
     rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
                    else (0, 1))
-    ds = SyntheticSegDataset(num_classes=cfg.model.num_classes, size=cfg.data.crop_size)
+    if cfg.data.dataset == "synthetic":
+        ds = SyntheticSegDataset(num_classes=cfg.model.num_classes, size=cfg.data.crop_size)
+    else:
+        ds = SegDataset(cfg.data.data_root, "train", cfg.data.dataset)
+        if len(ds) == 0:
+            raise FileNotFoundError(
+                f"no data found for {cfg.data.dataset} under {cfg.data.data_root}")
     return seg_batch_iterator(
         ds, cfg.data.batch_size, cfg.data.crop_size, seed=cfg.runtime.seed,
         mean=cfg.data.mean, std=cfg.data.std, ratio_range=cfg.data.ratio_range,

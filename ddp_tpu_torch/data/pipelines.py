@@ -11,7 +11,7 @@ numpy on the host, mmseg semantics:
 All transforms take and return a dict sample {'image': HxWx3 float32,
 'label': HxW int32} and use an explicit np.random.Generator, so that a
 sample is a function of its generator's seed alone.
-
+The JAX package resizes with Pillow, which the port does not require.
 The JAX package resizes with Pillow, which the card's installation lacks.
 ``pil_resize_bilinear`` and ``pil_resize_nearest`` are numpy versions of the
 two Pillow resamples the pipeline uses, equal to Pillow's output bit for bit

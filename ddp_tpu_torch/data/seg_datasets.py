@@ -1,6 +1,14 @@
-"""Segmentation data: the procedural dataset and the train batch iterator
-(copies of ``SyntheticSegDataset`` and ``seg_batch_iterator`` from
-``ddp_tpu/data/seg_datasets.py:84-178``; numpy only).
+"""Segmentation data (port of ``ddp_tpu/data/seg_datasets.py``; numpy only).
+
+  - ``SegDataset``: ADE20K (150 classes, ``reduce_zero_label``: 0 -> 255, the
+    rest shift by -1) and Cityscapes (labelIds -> the 19 trainIds) file lists
+    (mmseg's ``ADE20KDataset`` and ``CityscapesDataset``);
+  - ``SyntheticSegDataset``, the procedural dataset;
+  - ``seg_batch_iterator``, the train batch iterator.
+
+Files are read by ``data/image_io.py: read_image`` (Pillow where it is
+installed; without it a PNG by the port's own decoder and no JPEG), which
+gives exactly Pillow's pixels, so every sample is the JAX package's.
 
 The iterator is deterministic and seeded: the epoch's order is a
 permutation seeded by ``seed + epoch`` and each sample's augmentation draws
@@ -9,13 +17,72 @@ from (seed, step) alone, on every process of a multi-process run.
 """
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import threading
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from .image_io import read_image
 from .pipelines import seg_train_pipeline
+
+# Cityscapes labelId -> trainId (34 entries; 255 = ignore)
+CITYSCAPES_LABEL2TRAIN = np.full(256, 255, np.int32)
+for _lid, _tid in [(7, 0), (8, 1), (11, 2), (12, 3), (13, 4), (17, 5), (19, 6),
+                   (20, 7), (21, 8), (22, 9), (23, 10), (24, 11), (25, 12),
+                   (26, 13), (27, 14), (28, 15), (31, 16), (32, 17), (33, 18)]:
+    CITYSCAPES_LABEL2TRAIN[_lid] = _tid
+
+
+class SegDataset:
+    """File-list dataset with task-specific label decoding."""
+
+    def __init__(self, data_root: str, split: str = "train", dataset: str = "ade20k"):
+        self.dataset = dataset
+        self.data_root = data_root
+        self.split = split
+        self.items = self._index()
+
+    def _index(self) -> List[Tuple[str, str]]:
+        r = self.data_root
+        pairs = []
+        if self.dataset == "ade20k":
+            sub = "training" if self.split == "train" else "validation"
+            img_dir = os.path.join(r, "images", sub)
+            ann_dir = os.path.join(r, "annotations", sub)
+            if os.path.isdir(img_dir):
+                for f in sorted(os.listdir(img_dir)):
+                    if f.endswith(".jpg"):
+                        pairs.append((os.path.join(img_dir, f),
+                                      os.path.join(ann_dir, f[:-4] + ".png")))
+        elif self.dataset == "cityscapes":
+            img_dir = os.path.join(r, "leftImg8bit", self.split)
+            ann_dir = os.path.join(r, "gtFine", self.split)
+            if os.path.isdir(img_dir):
+                for city in sorted(os.listdir(img_dir)):
+                    for f in sorted(os.listdir(os.path.join(img_dir, city))):
+                        if f.endswith("_leftImg8bit.png"):
+                            ann = f.replace("_leftImg8bit.png", "_gtFine_labelIds.png")
+                            pairs.append((os.path.join(img_dir, city, f),
+                                          os.path.join(ann_dir, city, ann)))
+        else:
+            raise ValueError(f"unknown dataset {self.dataset!r}")
+        return pairs
+
+    def __len__(self):
+        return len(self.items)
+
+    def load(self, idx: int) -> Dict[str, np.ndarray]:
+        img_path, ann_path = self.items[idx]
+        img = read_image(img_path, rgb=True).astype(np.float32)
+        label = read_image(ann_path).astype(np.int32)
+        if self.dataset == "ade20k":
+            # reduce_zero_label: 0 (background) -> 255, shift others by -1
+            label = np.where(label == 0, 255, label - 1).astype(np.int32)
+        elif self.dataset == "cityscapes":
+            label = CITYSCAPES_LABEL2TRAIN[np.clip(label, 0, 255)]
+        return {"image": img, "label": label}
 
 
 class SyntheticSegDataset:

@@ -32,7 +32,7 @@ from ..config import build_model, get_config
 from ..data import make_train_iter
 from ..data.pipelines import normalize
 from ..data.seg_datasets import SyntheticSegDataset
-from ..train.checkpoint import read_latest_model
+from ..train.checkpoint import read_model
 from ..train.loop import train
 from .metrics import SegMetricAccumulator
 
@@ -115,7 +115,7 @@ def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
     if preset in FINE_TUNE_FROM:
         base = FINE_TUNE_FROM[preset]
         try:
-            step, init_params = read_latest_model(get_config(base).runtime.workdir)
+            step, init_params = read_model(get_config(base).runtime.workdir)
         except FileNotFoundError as e:
             raise FileNotFoundError(f"{preset} fine-tunes {base}'s checkpoint: run {base} "
                                     f"first ({e})") from None

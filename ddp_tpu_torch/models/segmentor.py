@@ -1,6 +1,7 @@
 """DDPSegmentor (port of ``ddp_tpu/models/segmentor.py:39-294``).
 
-Swin -> FPN -> MultiStageMerging gives one 1/4-scale feature map.
+Swin or ConvNeXt -> FPN -> MultiStageMerging gives one 1/4-scale feature
+map.
 
 Training (``forward``, the JAX module's ``__call__``): the ground truth,
 nearest-downsampled to the feature grid with 255 mapped to K, is embedded,
@@ -34,6 +35,7 @@ from ..core.diffusion import DiffusionConfig
 from ..core.schedules import log_snr_to_alpha_sigma
 from ..device import resolve_device
 from ..nn.common import ConvModule
+from ..nn.convnext import ConvNeXt, convnext_variant
 from ..nn.fpn import FPN, MultiStageMerging
 from ..nn.heads import DeformableHeadWithTime, FCNHead
 from ..nn.losses import cross_entropy_seg, seg_accuracy
@@ -42,6 +44,15 @@ from ..nn.time_embed import TimeMLP
 from ..ops import q_sample
 from ..ops.resize import resize, resize_nearest
 from ..ops.upsample_ce import upsample_ce
+
+
+def latent_grid(backbone_type: str, input_size: Tuple[int, int]) -> Tuple[int, int]:
+    """The 1/4-scale feature grid of an (H, W) image: Swin pads the image to
+    its patch size, ConvNeXt's stem floors."""
+    h, w = input_size
+    if backbone_type == "swin":
+        return -(-h // 4), -(-w // 4)
+    return h // 4, w // 4
 
 
 class DDPSegmentor(nn.Module):
@@ -53,10 +64,14 @@ class DDPSegmentor(nn.Module):
                  decoder_attn: str = "window", decoder_window: int = 8,
                  decoder_film: str = "v1", decoder_pos: str = "sine",
                  aux_weight: float = 0.4, drop_path_rate: float = 0.3,
-                 self_aligned: bool = False, loss_at: str = "full", device=None):
+                 self_aligned: bool = False, loss_at: str = "full",
+                 input_size: Optional[Tuple[int, int]] = None, device=None):
+        """``input_size``: the image size (H, W) the model is built for; the
+        learned position tables are sized for its latent grid, as the JAX
+        package's init sizes them from its input (None: tables of 50)."""
         super().__init__()
-        if backbone_type != "swin":
-            raise NotImplementedError(f"backbone {backbone_type!r} is not ported yet")
+        if backbone_type not in ("swin", "convnext"):
+            raise ValueError(f"unknown backbone {backbone_type!r}")
         if loss_at not in ("full", "quarter"):
             raise ValueError(f"loss_at must be 'full' or 'quarter', got {loss_at!r}")
         self.num_classes = num_classes
@@ -68,16 +83,23 @@ class DDPSegmentor(nn.Module):
         self.self_aligned = self_aligned
         self.loss_at = loss_at
         with torch.device(resolve_device(device)):
-            kw = swin_variant(backbone_variant)
-            self.backbone = SwinTransformer(drop_path_rate=drop_path_rate, **kw)
-            dims = [kw["embed_dims"] * 2 ** i for i in range(len(kw["depths"]))]
+            if backbone_type == "swin":
+                kw = swin_variant(backbone_variant)
+                self.backbone = SwinTransformer(drop_path_rate=drop_path_rate, **kw)
+                dims = [kw["embed_dims"] * 2 ** i for i in range(len(kw["depths"]))]
+            else:
+                kw = convnext_variant(backbone_variant)
+                self.backbone = ConvNeXt(drop_path_rate=drop_path_rate, **kw)
+                dims = list(kw["dims"])
+            pos_grid = (50, 50) if input_size is None else latent_grid(backbone_type,
+                                                                        input_size)
             self.neck_fpn = FPN(dims, embed_dims, num_outs=4)
             self.neck_merge = MultiStageMerging(4 * embed_dims, embed_dims)
             self.decode_head = DeformableHeadWithTime(
                 num_classes, embed_dims, num_layers=decoder_layers,
                 num_heads=decoder_heads, ffn_dim=decoder_ffn_dim,
                 attn_type=decoder_attn, film=decoder_film, pos_type=decoder_pos,
-                window=decoder_window)
+                window=decoder_window, pos_grid=pos_grid)
             self.aux_head = FCNHead(num_classes, embed_dims, embed_dims)
             # K+1 entries: index num_classes is the ignore/padding class (ddp.py:78)
             self.embedding_table = nn.Embedding(num_classes + 1, embed_dims)

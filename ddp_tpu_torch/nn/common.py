@@ -141,7 +141,8 @@ def init_params_(module: nn.Module, seed: int) -> None:
     86-103``): ``sampling_offsets`` and ``attention_weights`` kernels 0, the
     offsets' bias mmcv's ring (``DeformableAttention.offset_bias``),
     ``value_proj`` and ``output_proj`` kernels xavier-uniform; the learned
-    position tables U(0, 1)."""
+    position tables U(0, 1). ConvNeXt's layer scales ``gamma`` keep their
+    block's ``layer_scale_init`` (1e-6, as the JAX package's init)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -160,6 +161,8 @@ def init_params_(module: nn.Module, seed: int) -> None:
                 val = (torch.rand(p.shape, generator=gen) * 2.0 - 1.0) * limit
             elif kind in ("row_embed", "col_embed"):
                 val = torch.rand(p.shape, generator=gen)
+            elif leaf == "gamma":
+                val = torch.full(p.shape, module.get_submodule(owner).layer_scale_init)
             elif p.ndim == 1:
                 val = torch.ones(p.shape)
             else:

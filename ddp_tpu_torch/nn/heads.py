@@ -9,7 +9,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,13 +30,15 @@ def _reference_points(h: int, w: int, device: torch.device) -> torch.Tensor:
 
 
 class DeformableHeadWithTime(nn.Module):
-    """The learned position tables (``pos_type="learned"``) have mmseg's 50
-    rows and columns, which is the JAX package's max(50, h) for grids up to
-    50; a larger grid raises."""
+    """The learned position tables (``pos_type="learned"``) have max(50, h)
+    rows and max(50, w) columns for ``pos_grid`` = (h, w), the latent grid
+    the model is built for (the JAX package sizes them from the grid it is
+    initialised on, ``ddp_tpu/nn/heads.py:40-44``); a larger grid raises."""
 
     def __init__(self, num_classes: int, embed_dims: int = 256, num_layers: int = 6,
                  num_heads: int = 8, ffn_dim: int = 1024, attn_type: str = "window",
-                 film: str = "v1", pos_type: str = "sine", window: int = 8):
+                 film: str = "v1", pos_type: str = "sine", window: int = 8,
+                 pos_grid: Tuple[int, int] = (50, 50)):
         super().__init__()
         if pos_type not in ("sine", "learned"):
             raise ValueError(f"pos_type must be 'sine' or 'learned', got {pos_type!r}")
@@ -44,7 +46,8 @@ class DeformableHeadWithTime(nn.Module):
         self.attn_type = attn_type
         self.pos_type = pos_type
         if pos_type == "learned":
-            self.pos_enc = LearnedPositionalEncoding(embed_dims // 2)
+            self.pos_enc = LearnedPositionalEncoding(
+                embed_dims // 2, max(50, pos_grid[0]), max(50, pos_grid[1]))
         self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim=ffn_dim,
                                        use_time=True, attn_type=attn_type, window=window,
                                        film=film)

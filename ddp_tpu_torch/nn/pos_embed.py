@@ -42,9 +42,9 @@ def sine_pos_embed(h: int, w: int, num_feats: int = 128, temperature: float = 10
 class LearnedPositionalEncoding(nn.Module):
     """Learned row/col position tables (mmseg LearnedPositionalEncoding):
     position (y, x) gets concat(col_embed[x], row_embed[y]), x first. The
-    JAX package sizes the tables max(50, h) and max(50, w) from the grid it
-    is initialised on; here they are sized when built. Returns
-    [h·w, 2·num_feats]."""
+    caller sizes the tables (the decode head: max(50, h) × max(50, w) for the
+    grid the model is built for, as the JAX package's init does); a grid
+    beyond them raises. Returns [h·w, 2·num_feats]."""
 
     def __init__(self, num_feats: int = 128, row_num_embed: int = 50,
                  col_num_embed: int = 50):

@@ -63,16 +63,20 @@ def _read(d: str, step: int, state):
     return state
 
 
-def read_latest_model(workdir: str) -> Tuple[int, Dict[str, torch.Tensor]]:
-    """(step, model state_dict) of the latest checkpoint under
-    ``<workdir>/ckpts``, on the CPU; FileNotFoundError when there is none."""
+def read_model(workdir: str, step: Optional[int] = None
+               ) -> Tuple[int, Dict[str, torch.Tensor]]:
+    """(step, model state_dict) of the checkpoint of ``step`` (the latest when
+    None) under ``<workdir>/ckpts``, on the CPU; FileNotFoundError when there
+    is none."""
     d = os.path.join(workdir, "ckpts")
     steps = _steps(d)
-    if not steps:
-        raise FileNotFoundError(f"no checkpoint under {os.path.abspath(d)}")
-    payload = torch.load(os.path.join(d, f"step_{steps[-1]}.pt"), map_location="cpu",
+    if not steps or (step is not None and step not in steps):
+        raise FileNotFoundError(f"no checkpoint{'' if step is None else f' of step {step}'} "
+                                f"under {os.path.abspath(d)}")
+    step = steps[-1] if step is None else step
+    payload = torch.load(os.path.join(d, f"step_{step}.pt"), map_location="cpu",
                          weights_only=True)
-    return steps[-1], payload["model"]
+    return step, payload["model"]
 
 
 class CheckpointManager:

@@ -78,7 +78,7 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     built, as the JAX loop's ``init_params`` replaces its init."""
     rt = cfg.runtime
     dev = resolve_device(device)
-    model = build_model(cfg.model, device=dev, seed=rt.seed)
+    model = build_model(cfg.model, device=dev, seed=rt.seed, input_size=cfg.data.crop_size)
     if init_params is not None:
         model.load_state_dict(init_params)
     optimizer = make_optimizer(cfg.optim, model)

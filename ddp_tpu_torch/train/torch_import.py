@@ -1,11 +1,18 @@
 """Import the released mmseg DDP segmentor checkpoints (port of ``Importer``
-and ``import_ddp_seg``, ``ddp_tpu/train/torch_import.py:53-252``; Swin only).
+and ``import_ddp_seg``, ``ddp_tpu/train/torch_import.py:53-252``: Swin and
+ConvNeXt backbones).
 
 An mmseg state_dict maps straight onto the port's state_dict: both are torch
 layouts, so conv and linear weights copy as they are. What changes is names
 and one permutation:
 
-  - backbone ``stages.{s}.blocks.{b}`` -> ``stage{s}_block{b}``, the neck's
+  - Swin's ``stages.{s}.blocks.{b}`` -> ``stage{s}_block{b}``; mmcls
+    ConvNeXt's ``downsample_layers.0.{0,1}`` -> ``stem_{conv,norm}``,
+    ``downsample_layers.{s}.{0,1}`` -> ``down_{norm,conv}{s}``,
+    ``stages.{s}.{b}.{depthwise_conv,norm,pointwise_conv1,pointwise_conv2,gamma}``
+    -> ``stage{s}_block{b}.{dwconv,norm,pwconv1,pwconv2,gamma}`` (the
+    pointwise convs are Linears in both, the depthwise kernel [C, 1, 7, 7]
+    in both); each backbone's ``norm{s}`` -> ``out_norm{s}``; the neck's
     ``neck.0`` (FPN) and ``neck.1.down`` (merge), the decoder's
     ``encoder.layers.{i}.attentions.0`` / ``ffns.0`` / ``norms.{0,1}`` /
     ``time_mlp.1``, the aux head's ``convs.0`` (with its BN running
@@ -24,13 +31,14 @@ unused tensor, or one of another shape, raises with the preset's and the
 tensor's names. The released checkpoints are msda-shaped (8 heads, 1 level,
 4 points), so a preset of another decoder shape is refused, as is the JAX
 package's ``ade20k_swin_t`` with the ``decoder_attn=msda`` override (4
-heads; ROADMAP.md queue 3).
+heads; ROADMAP.md queue 3). A Cityscapes checkpoint loads into its preset
+with both overrides (the window presets have 4 heads)::
 
     python -m ddp_tpu_torch.train.torch_import CKPT --preset ade20k_swin_t_msda --out DIR
+    python -m ddp_tpu_torch.train.torch_import CKPT --preset cityscapes_convnext_t \
+        --set model.decoder_attn=msda model.decoder_heads=8 --out DIR
 
-writes DIR/ckpts/step_0.pt through ``train/checkpoint.py``. ConvNeXt (the
-JAX package's ``Importer.convnext``) is not ported yet (ROADMAP.md queue 1,
-item 6): ``import_mmseg_seg`` raises for it.
+writes DIR/ckpts/step_0.pt through ``train/checkpoint.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..nn.convnext import convnext_variant
 from ..nn.swin import swin_variant
 from ..nn.transformer import offset_bias_init
 
@@ -136,6 +145,24 @@ class Importer:
         for si in range(len(depths)):
             self.layer_norm(f"{t}.norm{si}", f"{p}.out_norm{si}")
 
+    def convnext(self, depths) -> None:
+        t, p = "backbone", "backbone"
+        self.linear(f"{t}.downsample_layers.0.0", f"{p}.stem_conv")
+        self.layer_norm(f"{t}.downsample_layers.0.1", f"{p}.stem_norm")
+        for si in range(1, len(depths)):
+            self.layer_norm(f"{t}.downsample_layers.{si}.0", f"{p}.down_norm{si}")
+            self.linear(f"{t}.downsample_layers.{si}.1", f"{p}.down_conv{si}")
+        for si, depth in enumerate(depths):
+            for bi in range(depth):
+                tb, pb = f"{t}.stages.{si}.{bi}", f"{p}.stage{si}_block{bi}"
+                self.linear(f"{tb}.depthwise_conv", f"{pb}.dwconv")
+                self.layer_norm(f"{tb}.norm", f"{pb}.norm")
+                self.linear(f"{tb}.pointwise_conv1", f"{pb}.pwconv1")
+                self.linear(f"{tb}.pointwise_conv2", f"{pb}.pwconv2")
+                self.put(f"{pb}.gamma", f"{tb}.gamma")
+        for si in range(len(depths)):
+            self.layer_norm(f"{t}.norm{si}", f"{p}.out_norm{si}")
+
     def fpn_and_merge(self) -> None:
         for i in range(4):
             self.conv_module(f"neck.0.lateral_convs.{i}", f"neck_fpn.lateral{i}")
@@ -174,15 +201,17 @@ def import_mmseg_seg(state: Mapping[str, object], model_cfg
                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[str]], Dict[str, str]]:
     """An mmseg DDP segmentor state_dict -> (the port's state_dict, the
     ``{missing, unused}`` report of mmseg keys, port key -> mmseg key)."""
-    if model_cfg.backbone_type != "swin":
-        raise NotImplementedError(f"{model_cfg.backbone_type} import is not ported yet "
-                                  "(ROADMAP.md queue 1, item 6: ConvNeXt)")
+    if model_cfg.backbone_type not in ("swin", "convnext"):
+        raise ValueError(f"unknown backbone {model_cfg.backbone_type!r}")
     if model_cfg.decoder_attn != "msda":
         raise ValueError(f"mmseg checkpoints hold an msda decoder; this config's decoder_attn "
                          f"is {model_cfg.decoder_attn!r}")
     imp = Importer(state)
-    kw = swin_variant(model_cfg.backbone_variant)
-    imp.swin(kw["depths"], [kw["embed_dims"] * 2 ** i for i in range(len(kw["depths"]))])
+    if model_cfg.backbone_type == "swin":
+        kw = swin_variant(model_cfg.backbone_variant)
+        imp.swin(kw["depths"], [kw["embed_dims"] * 2 ** i for i in range(len(kw["depths"]))])
+    else:
+        imp.convnext(convnext_variant(model_cfg.backbone_variant)["depths"])
     imp.fpn_and_merge()
     imp.decode_head(model_cfg.decoder_layers, model_cfg.decoder_pos == "learned")
     imp.aux_head()
@@ -194,13 +223,14 @@ def import_mmseg_seg(state: Mapping[str, object], model_cfg
 
 def synthetic_mmseg_state(m, seed: int = 0, gn: str = "bn") -> Dict[str, np.ndarray]:
     """A seeded random state_dict with the names and shapes of an mmseg DDP
-    checkpoint of ``m`` (a ModelConfig: Swin, msda decoder with sine
-    positions), numpy float32, for where no released checkpoint is at hand
-    (the tests, ``chip_smoke.py``). Written from mmseg's module names, not
-    from this module's mapping. The neck's GN sits under ``.{gn}`` (the JAX
-    importer reads ``.bn``), the aux head's BN under ``.bn`` with running
-    statistics. Matrices N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases
-    N(0, 0.1), BN variances U(0.5, 1.5), the sampling offsets' kernel N(0,
+    checkpoint of ``m`` (a ModelConfig: Swin or mmcls ConvNeXt, msda
+    decoder with sine positions), numpy float32, for where no released
+    checkpoint is at hand (the tests, ``chip_smoke.py``). Written from
+    mmseg's and mmcls's module names, not from this module's mapping. The
+    neck's GN sits under ``.{gn}`` (the JAX importer reads ``.bn``), the aux
+    head's BN under ``.bn`` with running statistics. Matrices N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases
+    N(0, 0.1), ConvNeXt's layer scales 0.5 + N(0, 0.1) (so that every block
+    matters), BN variances U(0.5, 1.5), the sampling offsets' kernel N(0,
     0.01/fan_in) and its bias mmcv's ring + N(0, 0.04), so that the points
     move off their cells."""
     rng = np.random.RandomState(seed)
@@ -230,31 +260,10 @@ def synthetic_mmseg_state(m, seed: int = 0, gn: str = "bn") -> Dict[str, np.ndar
             st[f"{key}.bn.running_var"] = rng.uniform(0.5, 1.5, out).astype(np.float32)
             st[f"{key}.bn.num_batches_tracked"] = np.asarray(7, np.int64)
 
-    kw = swin_variant(m.backbone_variant)
-    dims = [kw["embed_dims"] * 2 ** i for i in range(4)]
-    win = kw.get("window", 7)
-    mat("backbone.patch_embed.projection.weight", dims[0], 3, 4, 4)
-    vec("backbone.patch_embed.projection.bias", dims[0])
-    norm("backbone.patch_embed.norm", dims[0])
-    for si, depth in enumerate(kw["depths"]):
-        c, heads = dims[si], kw["num_heads"][si]
-        for bi in range(depth):
-            t = f"backbone.stages.{si}.blocks.{bi}"
-            norm(f"{t}.norm1", c)
-            norm(f"{t}.norm2", c)
-            st[f"{t}.attn.w_msa.relative_position_bias_table"] = (
-                0.02 * rng.randn((2 * win - 1) ** 2, heads)).astype(np.float32)
-            st[f"{t}.attn.w_msa.relative_position_index"] = np.zeros(
-                (win * win, win * win), np.int64)
-            linear(f"{t}.attn.w_msa.qkv", 3 * c, c)
-            linear(f"{t}.attn.w_msa.proj", c, c)
-            linear(f"{t}.ffn.layers.0.0", 4 * c, c)
-            linear(f"{t}.ffn.layers.1", c, 4 * c)
-        if si < 3:
-            t = f"backbone.stages.{si}.downsample"
-            norm(f"{t}.norm", 4 * c)
-            linear(f"{t}.reduction", 2 * c, 4 * c, bias=False)
-        norm(f"backbone.norm{si}", c)
+    if m.backbone_type == "swin":
+        dims = _swin_state(st, rng, m.backbone_variant, mat, vec, linear, norm)
+    else:
+        dims = _convnext_state(st, rng, m.backbone_variant, mat, vec, linear, norm)
     e = m.embed_dims
     for i in range(4):
         conv_module(f"neck.0.lateral_convs.{i}", e, dims[i], 1)
@@ -287,6 +296,61 @@ def synthetic_mmseg_state(m, seed: int = 0, gn: str = "bn") -> Dict[str, np.ndar
     linear("time_mlp.1", 4 * e, 17)
     linear("time_mlp.3", 4 * e, 4 * e)
     return st
+
+
+def _swin_state(st, rng, variant, mat, vec, linear, norm):
+    """mmseg Swin's tensors into ``st``; returns the stages' widths."""
+    kw = swin_variant(variant)
+    dims = [kw["embed_dims"] * 2 ** i for i in range(4)]
+    win = kw.get("window", 7)
+    mat("backbone.patch_embed.projection.weight", dims[0], 3, 4, 4)
+    vec("backbone.patch_embed.projection.bias", dims[0])
+    norm("backbone.patch_embed.norm", dims[0])
+    for si, depth in enumerate(kw["depths"]):
+        c, heads = dims[si], kw["num_heads"][si]
+        for bi in range(depth):
+            t = f"backbone.stages.{si}.blocks.{bi}"
+            norm(f"{t}.norm1", c)
+            norm(f"{t}.norm2", c)
+            st[f"{t}.attn.w_msa.relative_position_bias_table"] = (
+                0.02 * rng.randn((2 * win - 1) ** 2, heads)).astype(np.float32)
+            st[f"{t}.attn.w_msa.relative_position_index"] = np.zeros(
+                (win * win, win * win), np.int64)
+            linear(f"{t}.attn.w_msa.qkv", 3 * c, c)
+            linear(f"{t}.attn.w_msa.proj", c, c)
+            linear(f"{t}.ffn.layers.0.0", 4 * c, c)
+            linear(f"{t}.ffn.layers.1", c, 4 * c)
+        if si < 3:
+            t = f"backbone.stages.{si}.downsample"
+            norm(f"{t}.norm", 4 * c)
+            linear(f"{t}.reduction", 2 * c, 4 * c, bias=False)
+        norm(f"backbone.norm{si}", c)
+    return dims
+
+
+def _convnext_state(st, rng, variant, mat, vec, linear, norm):
+    """mmcls ConvNeXt's tensors into ``st``; returns the stages' widths."""
+    kw = convnext_variant(variant)
+    dims = list(kw["dims"])
+    mat("backbone.downsample_layers.0.0.weight", dims[0], 3, 4, 4)
+    vec("backbone.downsample_layers.0.0.bias", dims[0])
+    norm("backbone.downsample_layers.0.1", dims[0])
+    for si in range(1, 4):
+        norm(f"backbone.downsample_layers.{si}.0", dims[si - 1])
+        mat(f"backbone.downsample_layers.{si}.1.weight", dims[si], dims[si - 1], 2, 2)
+        vec(f"backbone.downsample_layers.{si}.1.bias", dims[si])
+    for si, depth in enumerate(kw["depths"]):
+        c = dims[si]
+        for bi in range(depth):
+            t = f"backbone.stages.{si}.{bi}"
+            mat(f"{t}.depthwise_conv.weight", c, 1, 7, 7)
+            vec(f"{t}.depthwise_conv.bias", c)
+            norm(f"{t}.norm", c)
+            linear(f"{t}.pointwise_conv1", 4 * c, c)
+            linear(f"{t}.pointwise_conv2", c, 4 * c)
+            vec(f"{t}.gamma", c, 0.5)
+        norm(f"backbone.norm{si}", c)
+    return dims
 
 
 def load_mmseg_state(model: torch.nn.Module, state: Mapping[str, object], cfg
@@ -331,7 +395,8 @@ def load_mmseg_checkpoint(path: str, cfg, device=None):
     (``load_mmseg_state``)."""
     from ..config import build_model
 
-    model = build_model(cfg.model, device=device, seed=cfg.runtime.seed)
+    model = build_model(cfg.model, device=device, seed=cfg.runtime.seed,
+                        input_size=cfg.data.crop_size)
     report = load_mmseg_state(model, read_state_dict(path), cfg)
     return model, report
 
@@ -342,6 +407,8 @@ def main(argv=None) -> int:
     ap.add_argument("ckpt")
     ap.add_argument("--preset", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--set", nargs="*", default=[], metavar="K=V",
+                    help="config overrides, e.g. model.decoder_attn=msda model.decoder_heads=8")
     ap.add_argument("--device", help="default: cuda")
     args = ap.parse_args(argv)
 
@@ -352,7 +419,7 @@ def main(argv=None) -> int:
     from .optim import make_optimizer
     from .step import TrainState
 
-    cfg = get_config(args.preset)
+    cfg = get_config(args.preset, dict(kv.split("=", 1) for kv in args.set))
     model, report = load_mmseg_checkpoint(args.ckpt, cfg, args.device)
     print(f"missing ({len(report['missing'])}), unused ({len(report['unused'])})")
     device = next(model.parameters()).device

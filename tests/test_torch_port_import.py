@@ -129,7 +129,7 @@ def test_import_cli_writes_port_checkpoint(tmp_path, monkeypatch):
     (called in-process, on the CPU, with a tiny msda preset registered)
     writes DIR/ckpts/step_0.pt, which the checkpoint manager restores."""
     from ddp_tpu_torch import config as tconfig
-    from ddp_tpu_torch.train.checkpoint import read_latest_model
+    from ddp_tpu_torch.train.checkpoint import read_model
 
     cfg = _tiny()
     monkeypatch.setitem(tconfig.PRESETS, cfg.name, lambda: cfg)
@@ -138,7 +138,7 @@ def test_import_cli_writes_port_checkpoint(tmp_path, monkeypatch):
     out = str(tmp_path / "imported")
     assert TI.main([str(tmp_path / "ckpt.pth"), "--preset", cfg.name, "--out", out,
                     "--device", "cpu"]) == 0
-    step, sd = read_latest_model(out)
+    step, sd = read_model(out)
     want, _, _ = TI.import_mmseg_seg(state, cfg.model)
     assert step == 0 and set(sd) == set(want)
     for key, value in want.items():
@@ -181,8 +181,14 @@ def test_importer_refuses_incomplete_and_convnext():
     state["decode_head.extra.weight"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError, match=r"embedding_table\.weight.*decode_head\.extra\.weight"):
         TI.load_mmseg_state(build_model(cfg.model, device="cpu"), state, cfg)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        TI.import_mmseg_seg({}, dataclasses.replace(cfg.model, backbone_type="convnext"))
+    # ConvNeXt imports since the Cityscapes slice: a ConvNeXt (mmcls)
+    # checkpoint is refused by a Swin preset, naming what is missing
+    convnext = dataclasses.replace(cfg.model, backbone_type="convnext")
+    with pytest.raises(KeyError, match=r"backbone\.patch_embed\.projection\.weight"):
+        TI.load_mmseg_state(build_model(cfg.model, device="cpu"),
+                            TI.synthetic_mmseg_state(convnext), cfg)
+    with pytest.raises(ValueError, match="unknown backbone 'vit'"):
+        TI.import_mmseg_seg({}, dataclasses.replace(cfg.model, backbone_type="vit"))
 
 
 def test_train_starts_from_init_params(tmp_path):

@@ -123,8 +123,16 @@ def test_make_train_iter_converge_seg_window_bitwise():
         _same(b, next(it_j))
 
 
-def test_make_train_iter_refuses_real_datasets():
+def test_make_train_iter_refuses_real_datasets(tmp_path):
+    """Real-format datasets are read since the seg data slice: one whose root
+    holds no files is refused by name (FileNotFoundError, as in JAX), and a
+    dataset the loader does not know by ValueError."""
     cfg = get_config("converge_seg_window")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        make_train_iter(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data,
-                                                                          dataset="ade20k")))
+
+    def with_data(**kw):
+        return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, **kw))
+
+    with pytest.raises(FileNotFoundError, match="no data found for ade20k"):
+        make_train_iter(with_data(dataset="ade20k", data_root=str(tmp_path)))
+    with pytest.raises(ValueError, match="unknown dataset 'voc'"):
+        make_train_iter(with_data(dataset="voc", data_root=str(tmp_path)))

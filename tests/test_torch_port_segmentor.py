@@ -113,9 +113,13 @@ def test_port_imports_no_jax():
             "ddp_tpu_torch.nn.common, ddp_tpu_torch.train.optim, ddp_tpu_torch.train.step, "
             "ddp_tpu_torch.train.checkpoint, ddp_tpu_torch.train.events, "
             "ddp_tpu_torch.train.loop, ddp_tpu_torch.data, ddp_tpu_torch.data.seg_datasets, "
-            "ddp_tpu_torch.data.pipelines, ddp_tpu_torch.evaluation.convergence; "
+            "ddp_tpu_torch.data.pipelines, ddp_tpu_torch.evaluation.convergence, "
+            "ddp_tpu_torch.data.image_io, ddp_tpu_torch.nn.convnext, "
+            "ddp_tpu_torch.evaluation.slide, ddp_tpu_torch.train.torch_import, "
+            "ddp_tpu_torch.tools.train, ddp_tpu_torch.tools.test; "
+            # Pillow only inside read_image's JPEG branch, never at import
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu')); print(bad); "
+            "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu', 'PIL')); print(bad); "
             # importing loads no CUDA library
             "sys.exit(1 if bad or ddp_tpu_torch.ops._build._lib is not None else 0)")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -162,7 +166,8 @@ def test_bridge_rejects_unmapped_leaves():
     with pytest.raises(KeyError, match="no rule"):
         params_from_flax({"head": {"Dense_7": {"kernel": np.zeros((2, 3))}}})
     with pytest.raises(KeyError, match="no rule"):
-        params_from_flax({"head": {"conv": {"gamma": np.zeros(3)}}})
+        # ConvNeXt's layer scale "gamma" has a rule; "beta" has none
+        params_from_flax({"head": {"conv": {"beta": np.zeros(3)}}})
     model = build_model(get_config("tiny_seg").model, device="meta")
     sd = {k: torch.empty(v.shape) for k, v in model.state_dict().items()}
     sd.pop("embedding_table.weight")
