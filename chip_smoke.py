@@ -9,10 +9,13 @@
                                            # build always run)
     python3 chip_smoke.py --phases build,converge          # the window end check
     python3 chip_smoke.py --phases build,converge_msda     # the msda end checks
+    python3 chip_smoke.py --phases build,converge_depth    # the depth end check
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A busy share is the union of the intervals of the kernels and copies that
-the card ran in one profiled call over that call's wall time.
+the card ran in one profiled call over that call's wall time. A profiled
+eager call also gives the MSDA op's device ms: the kernels launched in its
+ms_deform_attn range and by the backward nodes made there.
 
   0. device  - needs torch.cuda; prints the card's name and power limit
                (nvidia-smi) on a line of its own. TF32 is switched off for
@@ -59,7 +62,8 @@ the card ran in one profiled call over that call's wall time.
                state, tensor by tensor, with PyTorch's deterministic
                algorithms on; wall ms per step, img/s, the device
                busy share and the kernels' launches per replayed step (both
-               from a profile of one replay), peak memory and capture time;
+               from a profile of one replay), peak memory (and what was
+               live before) and capture time;
                after the other phases, a capture that must raise.
  10. loop    - train() on converge_seg_window for 100 iterations, 10 steps
                per dispatch, batches from make_train_iter: the loss halves,
@@ -109,18 +113,45 @@ the card ran in one profiled call over that call's wall time.
                bitwise to each other), and make_train_iter batches of
                cityscapes_convnext_t (16 crops of 512 x 1024) with and
                without Pillow.
- 16. converge - (only when named) the end check: converge_seg_window's 1500
+ 16. depth_reference - a small depther (converge_depth: nano Swin, 64-d msda
+               decoder; its deform head and the upconv head, 2 randsteps) on
+               the card and on the CPU from the same weights: the training
+               loss with fixed t and noise (1e-5 relative) and sample() from
+               the same initial noise (1e-4 m).
+ 17. depth_main - serving nyu_swin_t at full width and depth (random
+               weights, seed 0) on one random 480 x 640 frame (a 120 x 160
+               latent grid: 19,200 msda queries, 3 DDIM steps): finite depth
+               inside [min_depth, max_depth], no kernel launched, wall ms,
+               img/s, busy share (profiled, and the profiled device ms over
+               the unprofiled wall ms), peak memory, a sample() of 4 copies
+               of the frame; sample_with_uncertainty once at 5 randsteps;
+               kitti_swin_t on one 352 x 1216 frame.
+ 18. depth_train - nyu_swin_t at 2 x 416 x 544 (the reference's per-GPU
+               batch), procedural depth maps: the eager step and graphed
+               chunks of 1 and 10 steps, f32 and bf16, held to the eager
+               steps as in graph; no kernel launched.
+ 19. depth_data - the entry points on an NYU-layout tree of full-size PNGs
+               (480 x 640 RGB, 16-bit depth in mm, from write_png):
+               tools.train converge_depth for 20 iterations at 416 x 544
+               crops, batch 16, then tools.test with --uncertainty; the
+               host's decode ms of one frame and its depth map (read_png
+               and Pillow) and s per make_train_iter batch of 16.
+ 20. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 17. graph_grads - (only when named) where the graphed and the eager step
+ 21. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 18. converge_msda - (only when named) the msda end checks:
+ 22. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
+ 23. converge_depth - (only when named) the depth end check: converge_depth's
+               1500 iterations through train() and eval_depth's abs_rel,
+               rmse and a1 at 1, 3 and 10 DDIM steps beside
+               work_dirs/converge_depth/result.json of the JAX package.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -906,15 +937,53 @@ def kernel_launches(p) -> dict:
     return counts
 
 
+def _kernel_us(e, skip: str) -> float:
+    """Device us of the kernels launched under the host event ``e`` and its
+    children (not the device-side span of a range named ``skip``)."""
+    return (sum(k.duration for k in e.kernels if k.name != skip)
+            + sum(_kernel_us(c, skip) for c in e.cpu_children))
+
+
+def msda_op_ms(p):
+    """The MSDA op's device ms in a profile of eager calls, (forward,
+    backward): the kernels launched inside its ``ms_deform_attn`` ranges
+    (ops/deform_attn.py), and those of the backward nodes made there (the
+    profiler gives a backward node the sequence number of the forward op
+    that made it). None where no range ran: a path without MSDA, or a
+    CUDA-graph replay, which runs no Python."""
+    name, cpu = "ms_deform_attn", torch.autograd.DeviceType.CPU
+    events = p.events()
+    ranges = [e for e in events if e.name == name and e.device_type == cpu]
+    if not ranges:
+        return None
+    made, todo = set(), list(ranges)
+    while todo:
+        e = todo.pop()
+        made.update((c.thread, c.sequence_nr) for c in e.cpu_children if c.sequence_nr >= 0)
+        todo.extend(e.cpu_children)
+    bwd = sum(_kernel_us(e, name) for e in events
+              if e.name.startswith("autograd::engine::evaluate_function: ")
+              and (e.fwd_thread, e.sequence_nr) in made)
+    return sum(_kernel_us(r, name) for r in ranges) / 1e3, bwd / 1e3
+
+
 def profile_call(fn, path=None, header=""):
     """(busy, launches of the port's kernels) of one profiled call of
-    ``fn``; the per-kernel table is written to ``path`` when given."""
+    ``fn``; where the call ran the MSDA op eagerly, busy also gives its
+    kernels' device ms (forward and backward) and their share of the
+    device's busy time. The per-kernel table is written to ``path`` when
+    given."""
     p, wall_ms = profiled(fn, timed=True)
     if path:
         with open(path, "w") as f:
             f.write(header)
             f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
-    return busy(p, wall_ms), kernel_launches(p)
+    line = busy(p, wall_ms)
+    msda = msda_op_ms(p)
+    if msda:
+        line.update(msda_op_device_ms=sum(msda), msda_op_backward_device_ms=msda[1],
+                    msda_op_share_of_device=sum(msda) / line["device_busy_ms"])
+    return line, kernel_launches(p)
 
 
 def profile_device(fn, path: str, header: str):
@@ -1347,10 +1416,13 @@ def check_capture_failure():
     return err
 
 
-def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: int = 2):
-    """``cfg`` (ade20k_swin_t, ade20k_swin_t_msda or cityscapes_convnext_t) at
-    b crops of its size: the eager step and the graphed chunks of ``ns``
-    steps from one state and one batch. The optimizer starts
+def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: int = 2,
+               batch=None, per_step: dict = PER_STEP):
+    """``cfg`` (ade20k_swin_t, ade20k_swin_t_msda, cityscapes_convnext_t or
+    nyu_swin_t) at b crops of its size (``batch``; train_batch's when None):
+    the eager step and the graphed chunks of ``ns`` steps from one state and
+    one batch, the card's kernels held to ``per_step`` launches per step
+    (the depther's path runs none). The optimizer starts
     at the end of the lr warm-up (lr 6e-5, as a run resumed there): at the
     first steps' lr (below 1e-7) an update is a few ulps of a parameter near
     1 (the norms' weights), so one rounding of p - u.lr is a third of it and
@@ -1363,27 +1435,30 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: i
     state = TrainState(model, make_optimizer(cfg.optim, model),
                        torch.Generator(device="cuda").manual_seed(0))
     state.optimizer.count = cfg.optim.warmup_steps
-    batch = train_batch(cfg, b)
+    batch = train_batch(cfg, b) if batch is None else batch
     tag = "bf16" if mixed else "f32"
     eager = make_train_step(mixed_precision=mixed)
     for _ in range(2):
         eager(state, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
     eager_s = wall_s(lambda: eager(state, batch), reps=5, warmup=0)
     eager_peak = torch.cuda.max_memory_allocated() / 1e9
     eager_busy, eager_launches = profile_call(
         lambda: eager(state, batch), profile and f"{profile}.{cfg.name}_{tag}_eager",
         f"# one eager {cfg.name} {tag} train step, {smi}\n")
-    if eager_launches != PER_STEP:
+    if eager_launches != per_step:
         raise AssertionError(f"graph {tag}: the card ran {eager_launches} in an eager step")
+    if eager_busy.get("msda_op_backward_device_ms", 1.0) <= 0:
+        raise AssertionError(f"graph {tag}: no backward kernel was tied to the MSDA op")
 
     out = {"phase": "graph", "preset": cfg.name, "img": [b, *cfg.data.crop_size, 3],
            "dtype": "bf16 forward/backward, f32 master weights" if mixed
            else "float32, tf32 off", "lr": state.optimizer.lr_schedule(state.optimizer.count),
            "eager": {"wall_ms_per_step": eager_s * 1e3, "img_per_s": b / eager_s,
-                     **eager_busy,
-                     "launches_profiled": eager_launches, "peak_mem_gb": eager_peak}}
+                     **eager_busy, "launches_profiled": eager_launches,
+                     "live_before_gb": live, "peak_mem_gb": eager_peak}}
     for n in ns:
         reps = 5 if n == 1 else 3
         chunk_batch = stacked(batch, n)
@@ -1399,6 +1474,7 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: i
         del held
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() / 1e9
         chunk = make_chunked_train_step(n, mixed_precision=mixed)
         chunk(state, chunk_batch)
         sec = wall_s(lambda: chunk(state, chunk_batch), reps=reps, warmup=0) / n
@@ -1408,19 +1484,20 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: i
         replay_busy, launched = profile_call(
             lambda: chunk(state, chunk_batch), profile and f"{profile}.{cfg.name}_{tag}_n{n}",
             f"# one replay of {n} graphed {cfg.name} {tag} train steps, {smi}\n")
-        per_step = {k: v / n for k, v in launched.items()}
-        if per_step != PER_STEP:
+        replayed = {k: v / n for k, v in launched.items()}
+        if replayed != per_step:
             raise AssertionError(f"graph {tag} n={n}: the card ran {launched} in one replay")
         out[f"graph_n{n}"] = {
             "wall_ms_per_step": sec * 1e3, "img_per_s": b / sec,
             "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
             "busy_share": replay_busy["busy_share"],
             "profiled_wall_ms_per_step": replay_busy["profiled_wall_ms"] / n,
-            "launches_per_replayed_step": per_step, "capture_s": chunk.capture_s[n],
-            "peak_mem_gb": peak, "vs_eager_deterministic_algorithms": check}
+            "launches_per_replayed_step": replayed, "capture_s": chunk.capture_s[n],
+            "live_before_gb": live, "peak_mem_gb": peak,
+            "vs_eager_deterministic_algorithms": check}
         del chunk
     emit(dict(out, card=smi))
-    return per_step
+    return replayed
 
 
 def phase_graph(smi: str, profile: str = None):
@@ -1966,15 +2043,18 @@ def phase_city_train(smi: str, profile: str = None):
 
 
 def write_png(path: str, img) -> None:
-    """A PNG of the uint8 array ``img`` ([H, W] grey or [H, W, 3] RGB) from
-    the standard library's zlib, its rows filtered None, Sub, Up, Average
-    and Paeth in turn, as an adaptive encoder mixes them."""
+    """A PNG of ``img`` ([H, W] uint8 or uint16 grey, or [H, W, 3] uint8 RGB)
+    from the standard library's zlib, its rows filtered None, Sub, Up,
+    Average and Paeth in turn, as an adaptive encoder mixes them."""
     import struct
     import zlib
 
     import numpy as np
 
     h, w = img.shape[:2]
+    depth = 16 if img.dtype == np.uint16 else 8
+    if depth == 16:  # big-endian samples, filtered byte by byte over 2-byte pixels
+        img = img.astype(">u2").view(np.uint8).reshape(h, w, 2)
     bpp = 1 if img.ndim == 2 else img.shape[2]
     rows = img.reshape(h, w * bpp).astype(np.int32)
     prev = np.zeros(w * bpp, np.int32)
@@ -1994,21 +2074,22 @@ def write_png(path: str, img) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    header = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth, 2 if bpp == 3 else 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(b"".join(out), 6)) + chunk(b"IEND", b""))
 
 
-# one make_train_iter batch at a preset's crop, timed in a process of its
-# own (its prefetch thread ends with it); "PIL" blocked makes it read_png's
+# make_train_iter batches of a preset with overrides (a JSON object), timed
+# in a process of its own (its prefetch thread ends with it); "PIL" blocked
+# makes it read_png's
 _BATCH_TIMER = """
 import json, sys, time
 if sys.argv[3] == "no_pillow":
     sys.modules["PIL"] = None
 from ddp_tpu_torch.config import get_config
 from ddp_tpu_torch.data import make_train_iter
-cfg = get_config(sys.argv[1], {"data.data_root": sys.argv[2]})
+cfg = get_config(sys.argv[1], json.loads(sys.argv[2]))
 it = make_train_iter(cfg)
 times = []
 for _ in range(int(sys.argv[4])):
@@ -2071,19 +2152,25 @@ def city_decode(root: str) -> dict:
         out["pillow_rgb_ms"] = _host_ms(lambda: pil(rgb_path, True), 5)
         out["pillow_label_ms"] = _host_ms(lambda: pil(lab_path, False), 5)
 
-    def batches(mode, n):
-        proc = subprocess.run([sys.executable, "-c", _BATCH_TIMER, "cityscapes_convnext_t",
-                               tree, mode, str(n)], cwd=root, capture_output=True, text=True,
-                              timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"city_data batch timer ({mode}): exit {proc.returncode}\n"
-                                 f"{proc.stderr[-3000:]}")
-        return json.loads(proc.stdout.strip().splitlines()[-1])
-
-    out["make_train_iter"] = {"preset": "cityscapes_convnext_t", "read_image": batches(
-        "read_image", 2), "read_png_no_pillow": batches("no_pillow", 1)}
+    over = {"data.data_root": tree}
+    out["make_train_iter"] = {
+        "preset": "cityscapes_convnext_t",
+        "read_image": batch_times(root, "cityscapes_convnext_t", over, "read_image", 2),
+        "read_png_no_pillow": batch_times(root, "cityscapes_convnext_t", over, "no_pillow", 1)}
     shutil.rmtree(tree, ignore_errors=True)
     return out
+
+
+def batch_times(root: str, preset: str, overrides: dict, mode: str, n: int) -> dict:
+    """Seconds of each of the first n make_train_iter batches of ``preset``
+    with ``overrides``, in a process of its own; mode "no_pillow" blocks
+    Pillow's import there, so that PNGs go through read_png."""
+    proc = subprocess.run([sys.executable, "-c", _BATCH_TIMER, preset, json.dumps(overrides),
+                           mode, str(n)], cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"batch timer ({preset}, {mode}): exit {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def _host_ms(fn, reps: int) -> float:
@@ -2179,17 +2266,17 @@ def phase_city_data(smi: str):
 
 
 def converge_case(preset: str, smi: str):
-    """``preset`` through run_seg (train() and eval_seg) beside the JAX
+    """``preset`` through ``run`` (train() and eval_seg) beside the JAX
     package's result for it (work_dirs/<preset>/result.json)."""
     from ddp_tpu_torch.config import get_config
-    from ddp_tpu_torch.evaluation.convergence import run_seg
+    from ddp_tpu_torch.evaluation.convergence import run
 
     ref_dir = os.path.join("work_dirs", preset)
     with open(os.path.join(ref_dir, "result.json")) as f:
         ref = json.load(f)
     ref_loss = _log_steps(ref_dir)[-1]
     t0 = time.perf_counter()
-    result = run_seg(preset)
+    result = run(preset)
     wall = time.perf_counter() - t0
     own = _log_steps(get_config(preset).runtime.workdir)
     miou = {f"{t}step": {"port": result[f"mIoU@{t}step"], "jax": ref[f"mIoU@{t}step"],
@@ -2219,10 +2306,342 @@ def phase_converge(smi: str):
     converge_case("converge_seg_window", smi)
 
 
+# --- the depther ---------------------------------------------------------------
+
+DEPTH_DIR = os.path.join("work_dirs", "chip_smoke_depth")
+# the depth paths run none of the port's kernels
+NO_KERNELS = dict.fromkeys(PER_STEP, 0)
+
+
+def depth_train_batch(cfg, b: int, device="cuda"):
+    """b procedural depth maps at cfg's crop (SyntheticDepthDataset, smooth
+    fields of 0.9 to 9 m) and their images, normalised, with a band of
+    invalid (0) depth at the top."""
+    import numpy as np
+
+    from ddp_tpu_torch.data.depth_datasets import SyntheticDepthDataset
+
+    ds = SyntheticDepthDataset(cfg.data.crop_size, length=b, max_depth=cfg.model.max_depth)
+    items = [ds.load(i) for i in range(b)]
+    mean, std = np.asarray(cfg.data.mean, np.float32), np.asarray(cfg.data.std, np.float32)
+    img = np.stack([(it["image"] - mean) / std for it in items]).astype(np.float32)
+    depth = np.stack([it["label"] for it in items]).astype(np.float32)
+    depth[:, : depth.shape[1] // 16] = 0.0
+    return {"image": torch.from_numpy(img).to(device), "label": torch.from_numpy(depth).to(device)}
+
+
+def check_depth(d: torch.Tensor, shape, mc, what: str) -> None:
+    """Depth of ``shape``, finite, inside [mc.min_depth, mc.max_depth]."""
+    if tuple(d.shape) != tuple(shape):
+        raise AssertionError(f"{what}: depth shape {tuple(d.shape)} != {tuple(shape)}")
+    if not torch.isfinite(d).all():
+        raise AssertionError(f"{what}: non-finite depth")
+    lo, hi = d.min().item(), d.max().item()
+    if not (mc.min_depth <= lo and hi <= mc.max_depth):
+        raise AssertionError(f"{what}: depth outside [{mc.min_depth}, {mc.max_depth}]: "
+                             f"{lo}..{hi}")
+
+
+def phase_depth_reference(smi: str):
+    """A small depther (converge_depth: nano Swin, 64-d msda decoder of 6
+    layers; its deform head and the upconv head, 2 randsteps hypotheses) on
+    the card and on the CPU from the same weights: the training loss with
+    fixed t and noise (drop path off) within 1e-5 relative, and sample()
+    from the same initial noise within 1e-4 m."""
+    import dataclasses
+
+    from ddp_tpu_torch.config import build_model, get_config
+
+    base = get_config("converge_depth").model
+    g = _gen(41)
+    b, (h, w) = 2, (64, 64)
+    img = torch.randn(b, h, w, 3, generator=g)
+    depth = 0.5 + 9.0 * torch.rand(b, h, w, generator=g)
+    depth[0, :6] = 0.0
+    t = torch.rand(b, generator=g) * 0.999
+    noise = torch.randn(b, h // 4, w // 4, 1, generator=g)
+    out = {"phase": "depth_reference", "preset": "converge_depth", "img": [b, h, w, 3]}
+    for variant in ("deform", "upconv"):
+        mc = dataclasses.replace(base, depth_head_variant=variant, diffusion=dataclasses.replace(
+            base.diffusion, randsteps=2))
+        init = torch.randn(2 * b, h // 4, w // 4, 1, generator=g)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(mc, device=dev, seed=0).train()
+            loss, _ = model(img.to(dev), depth.to(dev), t=t.to(dev), noise=noise.to(dev))
+            d = model.eval().sample(img.to(dev), noise=init.to(dev))
+            check_depth(d, (b, h, w), mc, f"depth_reference {variant} {dev}")
+            res[dev] = (loss.item(), d.cpu())
+        rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        diff = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+        out[variant] = {"loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0],
+                        "loss_rel_diff": rel, "sample_max_abs_diff_m": diff}
+        if not (rel <= 1e-5 and diff <= 1e-4):
+            emit(dict(out, card=smi))
+            raise AssertionError(f"depth_reference {variant}: card vs CPU loss rel {rel}, "
+                                 f"depth diff {diff} m")
+    emit(dict(out, limits="loss 1e-5 relative, depth 1e-4 m", card=smi))
+
+
+def depth_serve_case(model, img, noise, smi: str, label: str) -> dict:
+    """``model.sample`` of ``img`` from ``noise``: the kernels launched (the
+    wrappers' counts, from 0), the depth checked, wall ms, img/s, the busy
+    share (profiled, and the profiled device ms over the unprofiled wall
+    ms: the profiler's host cost slows an eager call), peak memory (with
+    what was live before: the weights and what earlier phases hold), and
+    the wall ms of one ``sample`` of 4 copies of the frame (a host-bound
+    call gains img/s with the batch)."""
+    reset_all_launches()
+    d = model.sample(img, noise=noise)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != NO_KERNELS:
+        raise AssertionError(f"{label}: kernels launched on the depth path: {launches}")
+    check_depth(d, img.shape[:3], model, label)
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    sec = wall_s(lambda: model.sample(img, noise=noise))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_line, card_launches = profile_call(lambda: model.sample(img, noise=noise))
+    if card_launches != NO_KERNELS:
+        raise AssertionError(f"{label}: the card ran {card_launches}")
+    img4, noise4 = img.repeat(4, 1, 1, 1), noise.repeat(4, 1, 1, 1)
+    check_depth(model.sample(img4, noise=noise4), img4.shape[:3], model, label + " batch 4")
+    sec4 = wall_s(lambda: model.sample(img4, noise=noise4))
+    return {"img": list(img.shape), "sample_ms": sec * 1e3, "img_per_s": img.shape[0] / sec,
+            **busy_line, "busy_share_unprofiled": busy_line["device_busy_ms"] / (sec * 1e3),
+            "live_before_gb": live, "peak_mem_gb": peak,
+            "batch4": {"sample_ms": sec4 * 1e3, "img_per_s": 4 / sec4},
+            "depth_range_m": [d.min().item(), d.max().item()], "launches": launches}
+
+
+def phase_depth_main(smi: str):
+    """Serving nyu_swin_t at full width and depth (random weights, seed 0) on
+    one random 480 x 640 NYU frame: a 120 x 160 latent grid (19,200 msda
+    queries), 3 DDIM steps; sample_with_uncertainty once with 5 randsteps;
+    then kitti_swin_t on one 352 x 1216 KB-cropped frame (88 x 304 grid)."""
+    import dataclasses
+
+    from ddp_tpu_torch.config import build_model, get_config
+
+    cfg = get_config("nyu_swin_t")
+    mc = cfg.model
+    model = build_model(mc, device="cuda", seed=0)
+    g = _gen(43)
+    img = torch.randn(1, 480, 640, 3, generator=g).cuda()
+    noise = torch.randn(1, 120, 160, 1, generator=g).cuda()
+    out = {"phase": "depth_main", "preset": cfg.name, "msda_queries": 120 * 160,
+           "timesteps": mc.diffusion.timesteps, "dtype": "float32, tf32 off",
+           "nyu": depth_serve_case(model, img, noise, smi, "depth_main nyu")}
+    launches = out["nyu"]["launches"]
+    with torch.no_grad():
+        feat = model.extract_feat(img)
+        tb = torch.ones(1, device=img.device)
+        out["nyu"]["extract_feat_ms"] = wall_s(lambda: model.extract_feat(img)) * 1e3
+        out["nyu"]["denoise_step_ms"] = wall_s(lambda: model.denoise_depth(feat, noise, tb)) * 1e3
+    del feat
+    model.diffusion = dataclasses.replace(mc.diffusion, randsteps=5)
+    unc_noise = torch.randn(5, 120, 160, 1, generator=g).cuda()
+    t0 = time.perf_counter()
+    d, unc = model.sample_with_uncertainty(img, noise=unc_noise)
+    torch.cuda.synchronize()
+    unc_s = time.perf_counter() - t0
+    check_depth(d, (1, 480, 640), mc, "depth_main uncertainty")
+    width = unc["interval_high"] - unc["interval_low"]
+    if not (torch.isfinite(unc["std"]).all() and (unc["std"] >= 0).all()
+            and (width >= 0).all()):
+        raise AssertionError("depth_main: invalid uncertainty maps")
+    out["uncertainty"] = {"randsteps": 5, "wall_ms": unc_s * 1e3,
+                          "mean_std_m": unc["std"].mean().item(),
+                          "mean_interval_width_m": width.mean().item()}
+    del model, d, unc
+    torch.cuda.empty_cache()
+    kcfg = get_config("kitti_swin_t")
+    kitti = build_model(kcfg.model, device="cuda", seed=0)
+    kimg = torch.randn(1, 352, 1216, 3, generator=g).cuda()
+    knoise = torch.randn(1, 88, 304, 1, generator=g).cuda()
+    out["kitti"] = dict(depth_serve_case(kitti, kimg, knoise, smi, "depth_main kitti"),
+                        preset=kcfg.name, msda_queries=88 * 304)
+    del kitti
+    torch.cuda.empty_cache()
+    emit(dict(out, card=smi))
+    return launches
+
+
+def phase_depth_train(smi: str, profile: str = None):
+    """Training nyu_swin_t at 2 x 416 x 544 (the reference's per-GPU batch
+    of bs2x8) on procedural depth maps: the eager step and graphed chunks of
+    1 and 10 steps, f32 and bf16, through graph_case (held to the eager
+    steps with deterministic algorithms on); the eager step's kernel
+    launches (none) by the wrappers' counts."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = get_config("nyu_swin_t")
+    batch = depth_train_batch(cfg, 2)
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step()
+    step(state, batch)
+    reset_all_launches()
+    logs = step(state, batch)
+    torch.cuda.synchronize()
+    eager = all_launches()
+    loss = logs["loss"].item()
+    if eager != NO_KERNELS or not (0 < loss < float("inf")):
+        raise AssertionError(f"depth_train: launches {eager}, loss {loss}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    graphed = graph_case(cfg, False, smi, profile, batch=batch, per_step=NO_KERNELS)
+    torch.cuda.empty_cache()
+    graph_case(cfg, True, smi, profile, batch=batch, per_step=NO_KERNELS)
+    torch.cuda.empty_cache()
+    return eager, graphed
+
+
+def phase_depth_data(smi: str):
+    """The depth entry points on real-format files: an NYU-layout tree of
+    full-size frames (480 x 640 RGB and 16-bit depth in millimetres, PNGs
+    from write_png; 4 train and 2 test frames); python -m
+    ddp_tpu_torch.tools.train converge_depth on it for 20 iterations at
+    416 x 544 crops, batch 16, then python -m ddp_tpu_torch.tools.test on its
+    workdir: each must exit 0 and print its metric line. Then the host's
+    times: one frame and its depth map decoded by read_png and by Pillow
+    (where installed; held bitwise to each other), and make_train_iter
+    batches of 16 with and without Pillow."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from ddp_tpu_torch.data.image_io import read_png
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.join(root, DEPTH_DIR, "nyu")
+    shutil.rmtree(os.path.join(root, DEPTH_DIR), ignore_errors=True)
+    os.makedirs(os.path.join(tree, "image"))
+    os.makedirs(os.path.join(tree, "depth"))
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    names, written = [], []
+    for i in range(6):
+        field = 0.5 + 0.4 * np.sin(xx / (40 + 9 * i) + i) * np.cos(yy / (31 + 5 * i) - i)
+        img = np.stack([field * 200 + 20, np.roll(field, 7, 0) * 200 + 20,
+                        np.roll(field, 7, 1) * 200 + 20], -1)
+        img = (img + rng.normal(0, 4, img.shape)).clip(0, 255).astype(np.uint8)
+        depth = ((0.5 + field * 9.0) * 1000).astype(np.uint16)
+        depth[rng.random(depth.shape) < 0.05] = 0  # missing returns
+        write_png(os.path.join(tree, "image", f"{i}.png"), img)
+        write_png(os.path.join(tree, "depth", f"{i}.png"), depth)
+        written.append((img, depth))
+        names.append(f"image/{i}.png depth/{i}.png 518.8579\n")
+    with open(os.path.join(tree, "nyu_train.txt"), "w") as f:
+        f.writelines(names[:4])
+    with open(os.path.join(tree, "nyu_test.txt"), "w") as f:
+        f.writelines(names[4:])
+    rgb0, dep0 = os.path.join(tree, "image", "0.png"), os.path.join(tree, "depth", "0.png")
+    got_rgb, got_dep = read_png(rgb0, rgb=True), read_png(dep0)
+    if not (np.array_equal(got_rgb, written[0][0]) and got_dep.dtype == np.uint16
+            and np.array_equal(got_dep, written[0][1])):
+        raise AssertionError("depth_data: read_png does not give the pixels written")
+
+    workdir = os.path.join(root, DEPTH_DIR, "train")
+    sets = ["data.dataset=nyu", f"data.data_root={tree}"]
+
+    def run(args, name):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
+                              text=True, timeout=600)
+        sec = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"depth_data {name}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        return proc.stdout, sec
+
+    _, train_s = run(["ddp_tpu_torch.tools.train", "converge_depth", "--workdir", workdir,
+                      "--set", *sets, "data.crop_size=(416,544)", "runtime.total_iters=20",
+                      "runtime.steps_per_dispatch=10", "runtime.log_interval=10",
+                      "runtime.ckpt_interval=20", "optim.total_steps=20"], "train")
+    logs = _log_steps(workdir)
+    out = {"phase": "depth_data", "tree": "nyu layout, 480x640 PNG frames, 4 train 2 test",
+           "train": {"wall_s": train_s, "log_steps": [r["step"] for r in logs],
+                     "loss": [r["loss"] for r in logs]}}
+    if [r["step"] for r in logs] != [1, 10, 20] or not all(
+            0 < r["loss"] < float("inf") for r in logs):
+        raise AssertionError(f"depth_data train: logs {logs}")
+    line = re.compile(r"a1 [\d.]+ \| a2 [\d.]+ \| a3 [\d.]+ \| abs_rel [\d.]+ .*\(n=2\)")
+    text, test_s = run(["ddp_tpu_torch.tools.test", "converge_depth", "--workdir", workdir,
+                        "--uncertainty", "--set", *sets, "model.diffusion.randsteps=2"], "test")
+    if "restored step 20" not in text or not line.search(text) or "hypothesis std" not in text:
+        raise AssertionError(f"depth_data test: output {text!r}")
+    out["test"] = {"wall_s": test_s, "lines": text.strip().splitlines()}
+
+    dec = {"frame": [480, 640], "read_png_rgb_ms": _host_ms(lambda: read_png(rgb0, rgb=True), 3),
+           "read_png_depth16_ms": _host_ms(lambda: read_png(dep0), 3)}
+    dec["pillow_installed"] = importlib.util.find_spec("PIL") is not None
+    if dec["pillow_installed"]:
+        from PIL import Image
+
+        def pil(path, rgb):
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB") if rgb else im)
+
+        if not (np.array_equal(pil(rgb0, True), got_rgb)
+                and np.array_equal(pil(dep0, False), got_dep)):
+            raise AssertionError("depth_data: read_png differs from Pillow")
+        dec["pillow_rgb_ms"] = _host_ms(lambda: pil(rgb0, True), 5)
+        dec["pillow_depth16_ms"] = _host_ms(lambda: pil(dep0, False), 5)
+    over = {"data.dataset": "nyu", "data.data_root": tree, "data.crop_size": "(416,544)"}
+    dec["make_train_iter"] = {
+        "preset": "converge_depth, batch 16 of 416x544 crops",
+        "read_image": batch_times(root, "converge_depth", over, "read_image", 2),
+        "read_png_no_pillow": batch_times(root, "converge_depth", over, "no_pillow", 1)}
+    out["decode"] = dec
+    shutil.rmtree(os.path.join(root, DEPTH_DIR), ignore_errors=True)
+    emit(dict(out, card=smi))
+
+
+def phase_converge_depth(smi: str):
+    """The depth end check: converge_depth's 1500 iterations through train()
+    and eval_depth's abs_rel, rmse and a1 at 1, 3 and 10 DDIM steps beside
+    the JAX package's work_dirs/converge_depth/result.json. The targets
+    (abs_rel within 0.005 and rmse within 0.03 m of JAX at every horizon,
+    a1@3 >= 0.99) are reported, not enforced; the phase fails only on a
+    run that did not learn (a1@3 below 0.5)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.evaluation.convergence import run
+
+    ref_dir = os.path.join("work_dirs", "converge_depth")
+    with open(os.path.join(ref_dir, "result.json")) as f:
+        ref = json.load(f)
+    ref_logs = _log_steps(ref_dir)
+    t0 = time.perf_counter()
+    result = run("converge_depth")
+    wall = time.perf_counter() - t0
+    own = _log_steps(get_config("converge_depth").runtime.workdir)
+    by = {}
+    for key, tol in (("abs_rel", 0.005), ("rmse", 0.03), ("a1", None)):
+        by[key] = {f"{t}step": {"port": result[f"{key}@{t}step"], "jax": ref[f"{key}@{t}step"],
+                                "diff": result[f"{key}@{t}step"] - ref[f"{key}@{t}step"]}
+                   for t in (1, 3, 10)}
+        if tol is not None:
+            by[key]["within_target"] = all(abs(v["diff"]) <= tol for v in by[key].values())
+    emit({"phase": "converge_depth", "iters": result["total_iters"], **by,
+          "a1@3step_at_least_0.99": result["a1@3step"] >= 0.99,
+          "loss_curve": {"port": [[r["step"], r["loss"]] for r in own],
+                         "jax": [[r["step"], r["loss"]] for r in ref_logs]},
+          "steps_per_s_logged": [r["steps_per_s"] for r in own], "wall_s": wall, "card": smi})
+    if own[-1]["step"] != result["total_iters"] or not result["a1@3step"] >= 0.5:
+        raise AssertionError(f"converge_depth: did not learn ({result})")
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
-          "city_data", "converge", "graph_grads", "converge_msda")
-ON_REQUEST = ("converge", "graph_grads", "converge_msda")
+          "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
+          "converge", "graph_grads", "converge_msda", "converge_depth")
+ON_REQUEST = ("converge", "graph_grads", "converge_msda", "converge_depth")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
@@ -2231,7 +2650,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but converge, graph_grads and converge_msda; serve needs main)")
+                         "but converge, graph_grads, converge_msda and converge_depth; serve "
+                         "needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -2270,6 +2690,16 @@ def main(argv=None) -> int:
         launches["city_train"], launches["city_graph"] = phase_city_train(smi, args.profile)
     if "city_data" in phases:
         phase_city_data(smi)
+    if "depth_reference" in phases:
+        phase_depth_reference(smi)
+    if "depth_main" in phases:
+        launches["depth_serve"] = phase_depth_main(smi)
+    if "depth_train" in phases:
+        launches["depth_train"], launches["depth_graph"] = phase_depth_train(smi, args.profile)
+    if "depth_data" in phases:
+        phase_depth_data(smi)
+    if "converge_depth" in phases:
+        phase_converge_depth(smi)
     if "converge" in phases:
         phase_converge(smi)
     if "converge_msda" in phases:
@@ -2305,7 +2735,11 @@ def main(argv=None) -> int:
                                       "image, cityscapes_convnext_t"),
                 ("city_train", "eager train step of cityscapes_convnext_t, 4 x 512x1024"),
                 ("city_graph", "replayed step of a 10-step CUDA graph (cityscapes_convnext_t, "
-                               "4 x 512x1024), profiled"))
+                               "4 x 512x1024), profiled"),
+                ("depth_serve", "sample() of one 480x640 frame, nyu_swin_t (depther)"),
+                ("depth_train", "eager train step of nyu_swin_t (depther), 2 x 416x544"),
+                ("depth_graph", "replayed step of a 10-step CUDA graph (nyu_swin_t, depther, "
+                                "2 x 416x544), profiled"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

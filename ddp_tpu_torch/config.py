@@ -1,16 +1,18 @@
-"""Configuration of the port (from ``ddp_tpu/config.py:19-172,206-268,334-347,
-569-581,640-673``).
+"""Configuration of the port (from ``ddp_tpu/config.py:19-172,206-294,334-347,
+447-463,569-581,640-673,746-763``).
 
-Holds the segmentation fields of ``ModelConfig``, the data fields, the
+Holds the segmentation and depth fields of ``ModelConfig``, the data fields, the
 ``OptimConfig`` and the ``RuntimeConfig`` fields the training loop and the
 test CLI read, the dotted-path overrides (``--set model.bit_scale=0.1``), the
 ``ade20k_swin_t`` (window decoder) and ``ade20k_swin_t_msda`` (the
 reference's msda decoder) presets, the Cityscapes ConvNeXt and Swin families
 (``cityscapes_{convnext,swin}_{t,s,b,l}``, ``cityscapes_convnext_{t,l}_aligned``),
-the end checks ``converge_seg_window``, ``converge_seg_msda`` and
-``converge_seg_aligned_msda``, the test presets ``tiny_seg`` and ``smoke``,
-and ``build_model``. The JAX package's YAML overlay is not ported (no PyYAML
-on the card; ROADMAP.md queue 1).
+the NYUv2 and KITTI Swin depthers (``nyu_swin_{t,s,b,l}``,
+``kitti_swin_{t,s,b,l}``), the end checks ``converge_seg_window``,
+``converge_seg_msda``, ``converge_seg_aligned_msda`` and ``converge_depth``,
+the test presets ``tiny_seg`` and ``smoke``, and ``build_model``. The JAX
+package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
+queue 1).
 """
 from __future__ import annotations
 
@@ -48,6 +50,17 @@ class ModelConfig:
     decoder_layers: int = 6
     decoder_heads: int = 8
     decoder_ffn_dim: int = 1024
+    # recompute each decoder layer in the backward pass (the JAX package's
+    # jax.checkpoint): kept for the presets' parity; build_model refuses it
+    # (not ported: ROADMAP.md queue 1)
+    decoder_remat: bool = False
+    # depth: the head variant ('deform' | 'upconv' | 'spade'), its output
+    # activation ('relu', the reference's | 'softplus', which never stops
+    # learning) and the metric range the latent is normalised over
+    depth_head_variant: str = "deform"
+    depth_act: str = "relu"
+    max_depth: float = 10.0
+    min_depth: float = 1e-3
 
 
 @dataclass(frozen=True)
@@ -130,6 +143,8 @@ def apply_overrides(cfg: Config, overrides: Dict[str, Any]) -> Config:
 _DATA_ROOTS = {
     "ade20k": "data/ade/ADEChallengeData2016",
     "cityscapes": "data/cityscapes",
+    "nyu": "data/nyu",
+    "kitti": "data/kitti",
     "synthetic": "",
 }
 
@@ -220,6 +235,22 @@ PRESETS: Dict[str, Callable[[], Config]] = {
                               eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
                               workdir="work_dirs/torch_converge_seg_aligned_msda"),
     ),
+    # the depth end check (ddp_tpu/config.py:447-463): nano Swin, 64-d msda
+    # decoder of 6 layers, softplus output, synthetic 64x64 crops
+    "converge_depth": lambda: Config(
+        name="converge_depth",
+        model=ModelConfig(task="depth", backbone_variant="nano", embed_dims=64,
+                          decoder_layers=6, decoder_heads=8, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.1, max_depth=10.0,
+                          depth_act="softplus", decoder_attn="msda",
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=False)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=1e-4, grad_clip=1.0, total_steps=1500, warmup_steps=300,
+                          schedule="cosine"),
+        runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_depth"),
+    ),
     # tiny CPU-runnable smoke preset (ddp_tpu/config.py:569-581): ConvNeXt
     # nano with the msda decoder (the JAX ModelConfig's default attention)
     "smoke": lambda: Config(
@@ -269,6 +300,33 @@ for _v in ("tiny", "large"):
         drop_path=0.4)
 
 
+# the NYUv2 and KITTI Swin depthers (depth/configs/ddp_{nyu,kitti}/ddp_swin*_
+# scale01.py, as ddp_tpu/config.py:270-294 builds them): bit_scale 0.1, 3 DDIM
+# steps, the msda decoder, cosine lr 6e-5 after 12,800 warm-up iterations from
+# a ratio of 1e-3, grad clip 35, 38,400 iterations at 2 x 8 images
+def _depth(name, variant, dataset, max_depth, crop) -> Config:
+    return Config(
+        name=name,
+        model=ModelConfig(task="depth", backbone_type="swin", backbone_variant=variant,
+                          bit_scale=0.1, max_depth=max_depth, min_depth=1e-3,
+                          decoder_attn="msda",
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=False)),
+        data=DataConfig(dataset=dataset, crop_size=crop, batch_size=16,
+                        data_root=_DATA_ROOTS.get(dataset, "data")),
+        optim=OptimConfig(lr=6e-5, grad_clip=35.0, total_steps=38_400, schedule="cosine",
+                          warmup_steps=12_800, warmup_ratio=1e-3),
+        runtime=RuntimeConfig(total_iters=38_400, ckpt_interval=1600, eval_interval=1600,
+                              max_keep_ckpts=2),
+    )
+
+
+for _v in ("tiny", "small", "base", "large"):
+    PRESETS[f"nyu_swin_{_v[0]}"] = lambda v=_v: _depth(
+        f"nyu_swin_{v[0]}", v, "nyu", 10.0, (416, 544))
+    PRESETS[f"kitti_swin_{_v[0]}"] = lambda v=_v: _depth(
+        f"kitti_swin_{v[0]}", v, "kitti", 80.0, (352, 704))
+
+
 def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
     """The preset ``name`` with the dotted-path ``overrides`` applied."""
     if name not in PRESETS:
@@ -281,25 +339,42 @@ def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0,
                 input_size: Optional[Tuple[int, int]] = None):
-    """DDPSegmentor for ``cfg`` on ``device`` (default "cuda"; raises without
-    a GPU unless a device is named), weights drawn from ``seed``.
-    ``input_size``: the image size the model is built for (the training
-    crop), which sizes the learned position tables."""
-    if cfg.task != "seg":
-        raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
-    from .models.segmentor import DDPSegmentor
+    """DDPSegmentor (``task="seg"``) or DDPDepther (``task="depth"``) for
+    ``cfg`` on ``device`` (default "cuda"; raises without a GPU unless a
+    device is named), weights drawn from ``seed``. ``input_size``: the image
+    size the model is built for (the training crop), which sizes a
+    segmentor's learned position tables."""
     from .nn.common import init_params_
 
-    model = DDPSegmentor(
-        num_classes=cfg.num_classes, backbone_type=cfg.backbone_type,
-        backbone_variant=cfg.backbone_variant, embed_dims=cfg.embed_dims,
-        bit_scale=cfg.bit_scale, diffusion=cfg.diffusion,
-        decoder_layers=cfg.decoder_layers, decoder_heads=cfg.decoder_heads,
-        decoder_ffn_dim=cfg.decoder_ffn_dim, decoder_attn=cfg.decoder_attn,
-        decoder_window=cfg.decoder_window, decoder_film=cfg.decoder_film,
-        decoder_pos=cfg.decoder_pos, aux_weight=cfg.aux_weight,
-        drop_path_rate=cfg.drop_path_rate, self_aligned=cfg.self_aligned,
-        loss_at=cfg.loss_at, input_size=input_size, device=device)
+    if cfg.decoder_remat:
+        raise NotImplementedError("decoder_remat (the decoder's layers recomputed in the "
+                                  "backward pass) is not ported")
+    if cfg.task == "seg":
+        from .models.segmentor import DDPSegmentor
+
+        model = DDPSegmentor(
+            num_classes=cfg.num_classes, backbone_type=cfg.backbone_type,
+            backbone_variant=cfg.backbone_variant, embed_dims=cfg.embed_dims,
+            bit_scale=cfg.bit_scale, diffusion=cfg.diffusion,
+            decoder_layers=cfg.decoder_layers, decoder_heads=cfg.decoder_heads,
+            decoder_ffn_dim=cfg.decoder_ffn_dim, decoder_attn=cfg.decoder_attn,
+            decoder_window=cfg.decoder_window, decoder_film=cfg.decoder_film,
+            decoder_pos=cfg.decoder_pos,
+            aux_weight=cfg.aux_weight, drop_path_rate=cfg.drop_path_rate,
+            self_aligned=cfg.self_aligned, loss_at=cfg.loss_at, input_size=input_size,
+            device=device)
+    elif cfg.task == "depth":
+        from .models.depther import DDPDepther
+
+        model = DDPDepther(
+            backbone_type=cfg.backbone_type, backbone_variant=cfg.backbone_variant,
+            embed_dims=cfg.embed_dims, bit_scale=cfg.bit_scale, diffusion=cfg.diffusion,
+            max_depth=cfg.max_depth, min_depth=cfg.min_depth,
+            drop_path_rate=cfg.drop_path_rate, decoder_layers=cfg.decoder_layers,
+            decoder_heads=cfg.decoder_heads, decoder_ffn_dim=cfg.decoder_ffn_dim,
+            head_variant=cfg.depth_head_variant, depth_act=cfg.depth_act, device=device)
+    else:
+        raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
     if next(model.parameters()).device.type != "meta":
         init_params_(model, seed)
     return model

@@ -18,7 +18,9 @@ need no rule of their own: its modules carry the flax names
 ``pos_enc/{row_embed,col_embed}/embedding``, FiLM v2/v3's 4C ``time_mlp``),
 so the renames above map them. ConvNeXt's modules carry the flax names
 too: its depthwise kernel [7, 7, 1, C] takes the Conv rule to [C, 1, 7, 7],
-and its layer scale ``gamma`` keeps its name. Leaves are numpy arrays (or
+and its layer scale ``gamma`` keeps its name. So do the depther's (``down``,
+``time_mlp``, ``decode_head/encoder``, ``conv_depth``, the 'upconv' head's
+``up_conv``). Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """

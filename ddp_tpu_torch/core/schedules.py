@@ -1,7 +1,8 @@
 """Continuous-time log-SNR noise schedules (port of ``ddp_tpu/core/schedules.py``).
 
 Reference: segmentation/mmseg/models/segmentors/ddp.py:14-28 (schedules,
-``log_snr_to_alpha_sigma``) and :204-213 (the sampling timestep grid).
+``log_snr_to_alpha_sigma``) and :204-213 (the sampling timestep grid);
+depth/depth/models/depther/ddp.py:207-208 (``cosine_gamma``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,12 @@ def get_log_snr_fn(name: str):
 def log_snr_to_alpha_sigma(log_snr: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """alpha = sqrt(sigmoid(log_snr)), sigma = sqrt(sigmoid(-log_snr))."""
     return torch.sqrt(torch.sigmoid(log_snr)), torch.sqrt(torch.sigmoid(-log_snr))
+
+
+def cosine_gamma(t: torch.Tensor, ns: float = 0.0002, ds: float = 0.00025) -> torch.Tensor:
+    """gamma(t) = cos²(((t + ns) / (1 + ds))·π/2), the depther's corruption
+    coefficient: x_t = sqrt(gamma)·x0 + sqrt(1 − gamma)·noise."""
+    return torch.cos((t + ns) / (1.0 + ds) * math.pi * 0.5) ** 2
 
 
 def right_pad_dims_to(x_ndim: int, t: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import os
 import queue as queue_mod
 import threading
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -147,12 +147,20 @@ def seg_batch_iterator(
             labels.append(sample["label"][: crop[0], : crop[1]])
         return {"image": np.stack(imgs), "label": np.stack(labels)}
 
+    return prefetched(make_batch, len(ds), batch_size)
+
+
+def prefetched(make_batch: Callable[[int, int], Dict[str, np.ndarray]], length: int,
+               batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+    """The infinite sequence make_batch(epoch, start), start stepping by
+    ``batch_size`` through an epoch of ``length`` samples, made by a
+    background thread that keeps two batches ready."""
     def gen():
         epoch, cursor = 0, 0
         while True:
             yield make_batch(epoch, cursor)
             cursor += batch_size
-            if cursor >= len(ds):
+            if cursor >= length:
                 cursor = 0
                 epoch += 1
 

@@ -1,20 +1,24 @@
-"""The end check of training: the segmentation part of the JAX package's
-convergence harness (``tools/run_convergence.py:43-46,102-145,589-720``).
+"""The end check of training: the segmentation and depth parts of the JAX
+package's convergence harness (``tools/run_convergence.py:43-46,102-190,
+589-720``).
 
 A preset is trained through the real ``train()`` on its synthetic data
 (from scratch, or for ``converge_seg_aligned_msda`` fine-tuned from
 ``converge_seg_msda``'s latest checkpoint, as
-``tools/run_convergence.py:651-657`` does), then scored by ``eval_seg``: the
-mIoU of the T-step DDIM rollout at T = 1, 3 and 10 on 32 held-out
-``SyntheticSegDataset`` images (indices from 100,000; training draws from
-[0, 256)), in batches of 8, averaged over 3 seeds of the rollout noise. The result is written to
+``tools/run_convergence.py:651-657`` does), then scored on the T-step DDIM
+rollout at T = 1, 3 and 10 over 32 held-out synthetic images (indices from
+100,000; training draws from [0, 256)), in batches of 8, averaged over 3
+seeds of the rollout noise: a segmentor by ``eval_seg`` (mIoU), a depther by
+``eval_depth`` (abs_rel, rmse and a1). The result is written to
 ``<workdir>/result.json`` in the JAX harness's format::
 
     python -m ddp_tpu_torch.evaluation.convergence converge_seg_window
+    python -m ddp_tpu_torch.evaluation.convergence converge_depth
 
 The JAX package's results are ``work_dirs/converge_seg_window``,
-``work_dirs/converge_seg_msda`` and ``work_dirs/converge_seg_aligned_msda``
-(``result.json``); the port's presets write under ``work_dirs/torch_*``.
+``work_dirs/converge_seg_msda``, ``work_dirs/converge_seg_aligned_msda`` and
+``work_dirs/converge_depth`` (``result.json``); the port's presets write
+under ``work_dirs/torch_*``.
 """
 from __future__ import annotations
 
@@ -30,11 +34,12 @@ import torch
 
 from ..config import build_model, get_config
 from ..data import make_train_iter
+from ..data.depth_datasets import SyntheticDepthDataset
 from ..data.pipelines import normalize
 from ..data.seg_datasets import SyntheticSegDataset
 from ..train.checkpoint import read_model
 from ..train.loop import train
-from .metrics import SegMetricAccumulator
+from .metrics import SegMetricAccumulator, depth_metrics
 
 N_EVAL = 32
 EVAL_BATCH = 8
@@ -49,7 +54,16 @@ STD = (58.395, 57.12, 57.375)
 def heldout_batches(num_classes: int) -> List[Tuple[np.ndarray, np.ndarray]]:
     """The held-out (images [8, 64, 64, 3] normalised, labels [8, 64, 64])
     batches, in order."""
-    ds = SyntheticSegDataset(num_classes, (64, 64))
+    return _heldout(SyntheticSegDataset(num_classes, (64, 64)))
+
+
+def heldout_depth_batches(max_depth: float) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The held-out (images [8, 64, 64, 3] normalised, metric depth
+    [8, 64, 64]) batches of the depth end check, in order."""
+    return _heldout(SyntheticDepthDataset((64, 64), max_depth=max_depth))
+
+
+def _heldout(ds) -> List[Tuple[np.ndarray, np.ndarray]]:
     out = []
     for s0 in range(0, N_EVAL, EVAL_BATCH):
         samples = [normalize(ds.load(HELDOUT_BASE + i), MEAN, STD)
@@ -84,8 +98,7 @@ def eval_seg(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, flo
     batches = heldout_batches(mc.num_classes)
     out = {}
     for steps in timesteps_list:
-        m_t = build_model(dataclasses.replace(
-            mc, diffusion=dataclasses.replace(mc.diffusion, timesteps=steps)), device=device)
+        m_t = build_model(_with_timesteps(mc, steps), device=device)
         m_t.load_state_dict(model.state_dict())
         mious = []
         for seed in seeds:
@@ -103,13 +116,49 @@ def eval_seg(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, flo
     return out
 
 
-def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
-            device=None) -> Dict:
+def _with_timesteps(mc, steps: int):
+    return dataclasses.replace(mc, diffusion=dataclasses.replace(mc.diffusion, timesteps=steps))
+
+
+@torch.no_grad()
+def eval_depth(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, float]:
+    """Seed-averaged depth metrics of the T-step DDIM rollout on the held-out
+    synthetic images (the JAX harness's ``eval_depth``, every pixel scored):
+    ``abs_rel@{T}step``, ``rmse@{T}step`` with their standard deviations over
+    the seeds, and ``a1@{T}step``, rounded to 4 places."""
+    device = next(model.parameters()).device
+    batches = heldout_depth_batches(mc.max_depth)
+    out = {}
+    for steps in timesteps_list:
+        m_t = build_model(_with_timesteps(mc, steps), device=device)
+        m_t.load_state_dict(model.state_dict())
+        rels, rmses, a1s = [], [], []
+        for seed in seeds:
+            preds = [m_t.sample(torch.from_numpy(img).to(device),
+                                generator=rollout_generator(seed, i * EVAL_BATCH, device))
+                     .cpu().numpy() for i, (img, _) in enumerate(batches)]
+            m = depth_metrics(np.concatenate(preds), np.concatenate([d for _, d in batches]))
+            rels.append(m["abs_rel"])
+            rmses.append(m["rmse"])
+            a1s.append(m["a1"])
+        for key, vals in (("abs_rel", rels), ("rmse", rmses)):
+            out[f"{key}@{steps}step"] = round(float(np.mean(vals)), 4)
+            out[f"{key}@{steps}step_std"] = round(float(np.std(vals)), 4)
+        out[f"a1@{steps}step"] = round(float(np.mean(a1s)), 4)
+        print(f"  depth {steps}-step: abs_rel {out[f'abs_rel@{steps}step']:.4f} "
+              f"± {out[f'abs_rel@{steps}step_std']:.4f} rmse {out[f'rmse@{steps}step']:.4f} "
+              f"a1 {out[f'a1@{steps}step']:.4f}", flush=True)
+    return out
+
+
+def run(preset: str = "converge_seg_window", iters: Optional[int] = None,
+        device=None) -> Dict:
     """Train ``preset`` through ``train()`` (stale checkpoints cleared, an old
     train log kept as ``.prev``), from scratch or, for a preset of
     ``FINE_TUNE_FROM``, from its base's latest checkpoint (refused when there
-    is none), score it with ``eval_seg`` and write ``<workdir>/result.json``.
-    ``iters`` cuts the run (and its lr schedule) to that many steps."""
+    is none), score it with ``eval_seg`` (a depth preset: ``eval_depth``) and
+    write ``<workdir>/result.json``. ``iters`` cuts the run (and its lr
+    schedule) to that many steps."""
     cfg = get_config(preset)
     init_params = None
     if preset in FINE_TUNE_FROM:
@@ -133,7 +182,8 @@ def run_seg(preset: str = "converge_seg_window", iters: Optional[int] = None,
     os.makedirs(workdir, exist_ok=True)
     print(f"=== {preset} ===", flush=True)
     state = train(cfg, make_train_iter(cfg), device=device, init_params=init_params)
-    result = eval_seg(state.model, cfg.model)
+    score = eval_depth if cfg.model.task == "depth" else eval_seg
+    result = score(state.model, cfg.model)
     result["preset"] = preset
     result["total_iters"] = cfg.runtime.total_iters
     path = os.path.join(workdir, "result.json")
@@ -149,7 +199,7 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, help="cut the run to this many steps")
     ap.add_argument("--device", help="default: cuda")
     args = ap.parse_args(argv)
-    run_seg(args.preset, args.iters, args.device)
+    run(args.preset, args.iters, args.device)
 
 
 if __name__ == "__main__":

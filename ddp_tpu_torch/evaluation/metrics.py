@@ -1,10 +1,12 @@
-"""Segmentation metrics (port of ``ddp_tpu/evaluation/metrics.py:22-68``).
+"""Segmentation and depth metrics (port of ``ddp_tpu/evaluation/metrics.py:
+22-91``), numpy on the host.
 
-mmseg ``intersect_and_union`` / mIoU, aAcc, mAcc as numpy histograms.
+mmseg ``intersect_and_union`` / mIoU, aAcc, mAcc as numpy histograms, and
+the depth toolbox's nine metrics in float64.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -53,3 +55,28 @@ class SegMetricAccumulator:
             "mAcc": float(acc[present].mean()) if present.any() else 0.0,
             "IoU_per_class": iou,
         }
+
+
+def depth_metrics(pred: np.ndarray, gt: np.ndarray, mask: Optional[np.ndarray] = None
+                  ) -> Dict[str, float]:
+    """a1-a3, abs_rel, sq_rel, rmse, rmse_log, log10 and silog over the pixels
+    with gt > 0 (and ``mask``), in float64."""
+    valid = gt > 0
+    if mask is not None:
+        valid &= mask
+    p = pred[valid].astype(np.float64)
+    g = gt[valid].astype(np.float64)
+    thresh = np.maximum(g / p, p / g)
+    err = p - g
+    log_err = np.log(p) - np.log(g)
+    return {
+        "a1": float((thresh < 1.25).mean()),
+        "a2": float((thresh < 1.25 ** 2).mean()),
+        "a3": float((thresh < 1.25 ** 3).mean()),
+        "abs_rel": float((np.abs(err) / g).mean()),
+        "sq_rel": float((err ** 2 / g).mean()),
+        "rmse": float(np.sqrt((err ** 2).mean())),
+        "rmse_log": float(np.sqrt((log_err ** 2).mean())),
+        "log10": float(np.abs(np.log10(p) - np.log10(g)).mean()),
+        "silog": float(np.sqrt((log_err ** 2).mean() - log_err.mean() ** 2) * 100.0),
+    }

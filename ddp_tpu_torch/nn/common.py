@@ -142,7 +142,9 @@ def init_params_(module: nn.Module, seed: int) -> None:
     offsets' bias mmcv's ring (``DeformableAttention.offset_bias``),
     ``value_proj`` and ``output_proj`` kernels xavier-uniform; the learned
     position tables U(0, 1). ConvNeXt's layer scales ``gamma`` keep their
-    block's ``layer_scale_init`` (1e-6, as the JAX package's init)."""
+    block's ``layer_scale_init`` (1e-6, as the JAX package's init). The depth
+    head's ``conv_depth`` bias starts at 0.5 (``ddp_tpu/nn/heads.py:142,145``),
+    so that a fresh head's output is above zero, where relu passes gradients."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -152,6 +154,8 @@ def init_params_(module: nn.Module, seed: int) -> None:
                 val = torch.randn(p.shape, generator=gen) * 0.02
             elif leaf == "weights":
                 val = torch.randn(p.shape, generator=gen)
+            elif kind == "conv_depth" and leaf == "bias":
+                val = torch.full(p.shape, 0.5)
             elif kind == "sampling_offsets" and leaf == "bias":
                 val = module.get_submodule(parent).offset_bias()
             elif kind in ("sampling_offsets", "attention_weights") or leaf == "bias":

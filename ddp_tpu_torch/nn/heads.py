@@ -1,8 +1,11 @@
-"""Decode heads (port of ``ddp_tpu/nn/heads.py:23-67,150-166``).
+"""Decode heads (port of ``ddp_tpu/nn/heads.py:23-166``).
 
   - DeformableHeadWithTime: flatten HW -> sine or learned pos-enc ->
     time-FiLM encoder (msda over the one level, or window attention; FiLM
     v1/v2/v3) -> reshape -> 1x1 conv_seg (deformable_head_with_time.py:21-189).
+  - DeformableDepthHead: the same encoder (msda, sine positions) with a
+    one-channel ``conv_depth`` output, relu or softplus plus ``min_depth``;
+    its 'upconv' variant ends in two pixel shuffles (x4 the encoder's grid).
   - FCNHead: the training-time auxiliary head (3x3 conv+BN+ReLU, dropout
     0.1 in training, 1x1 conv_seg) on the clean encoder features.
 """
@@ -12,6 +15,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .common import ConvModule, dropout
@@ -65,6 +69,67 @@ class DeformableHeadWithTime(nn.Module):
         q = self.encoder(x.reshape(b, h * w, c), time, pos, refs, ((h, w),))
         q = q.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.conv_seg(q).permute(0, 2, 3, 1)
+
+
+def pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """NHWC depth-to-space as the JAX package lays it out: [B, H, W, C] ->
+    [B, H·s, W·s, C/s²], input channels ordered (sy, sx, c'). Not
+    ``F.pixel_shuffle``, whose input channels are ordered (c', sy, sx): JAX
+    weights of the 'upconv' head would give other outputs through it."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h, w, scale, scale, c // (scale * scale))
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * scale, w * scale, c // (scale * scale))
+
+
+class DeformableDepthHead(nn.Module):
+    """The time-FiLM decoder with a depth output (``ddp_tpu/nn/heads.py:
+    83-147``; the reference's decode_head.py:258-270, scale_up off, eps on).
+
+    ``variant``: 'deform' - a 1x1 ``conv_depth`` on the encoder's grid;
+    'upconv' - pixel shuffle x2, a 3x3 ConvModule + ReLU (``up_conv``), pixel
+    shuffle x2, a 3x3 ``conv_depth``: the output is 4x the encoder's grid;
+    'spade' - the 'deform' compute, with a ``condition`` argument accepted and
+    unused, as in the reference. ``act``: 'relu' (the reference's; a head
+    whose conv_depth goes all negative stops learning) or 'softplus'; the
+    output is act(conv_depth) + min_depth. ``init_params_`` starts
+    ``conv_depth``'s bias at 0.5, as the JAX package's init does."""
+
+    def __init__(self, embed_dims: int = 256, num_layers: int = 6, num_heads: int = 8,
+                 ffn_dim: int = 1024, min_depth: float = 1e-3, variant: str = "deform",
+                 act: str = "relu", film: str = "v1"):
+        super().__init__()
+        if variant not in ("deform", "upconv", "spade"):
+            raise ValueError(f"variant must be 'deform', 'upconv' or 'spade', got {variant!r}")
+        if act not in ("relu", "softplus"):
+            raise ValueError(f"act must be 'relu' or 'softplus', got {act!r}")
+        self.embed_dims = embed_dims
+        self.min_depth = min_depth
+        self.variant = variant
+        self.act = act
+        self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim=ffn_dim,
+                                       use_time=True, attn_type="msda", film=film)
+        if variant == "upconv":
+            self.up_conv = ConvModule(embed_dims // 4, embed_dims // 4, (3, 3), act="relu")
+            self.conv_depth = nn.Conv2d(embed_dims // 16, 1, 3, padding=1)
+        else:
+            self.conv_depth = nn.Conv2d(embed_dims, 1, 1)
+
+    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor],
+                condition: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, H, W, C]; time: [B, 4C]. Returns metric depth [B, H, W, 1]
+        ([B, 4H, 4W, 1] for 'upconv')."""
+        del condition  # accepted and unused, as in the reference
+        b, h, w, c = x.shape
+        pos = _sine_pos(h, w, self.embed_dims // 2, x.device).to(x.dtype)
+        refs = _reference_points(h, w, x.device).to(x.dtype)
+        q = self.encoder(x.reshape(b, h * w, c), time, pos, refs, ((h, w),))
+        q = q.reshape(b, h, w, c)
+        if self.variant == "upconv":
+            q = pixel_shuffle(self.up_conv(pixel_shuffle(q, 2)), 2)
+        depth = self.conv_depth(q.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        depth = F.softplus(depth) if self.act == "softplus" else F.relu(depth)
+        return depth + self.min_depth
 
 
 class FCNHead(nn.Module):

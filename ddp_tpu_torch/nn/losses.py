@@ -1,4 +1,4 @@
-"""Segmentation losses (port of ``ddp_tpu/nn/losses.py:19-163``).
+"""Segmentation and depth losses (port of ``ddp_tpu/nn/losses.py:19-206``).
 
   - ``cross_entropy_seg``: pixel CE with ignore_index and mmseg's historical
     averaging (the NLL summed over valid pixels / all pixels).
@@ -6,8 +6,11 @@
   - ``cross_entropy_seg_upsampled``: CE of the x``scale`` bilinear upsample
     without materialising it: the plain version of the fused upsample+CE
     kernel (``ops/upsample_ce.py``), computed phase by phase.
+  - ``sig_loss``: the depther's scale-invariant log loss (SigLoss).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -44,3 +47,19 @@ def cross_entropy_seg_upsampled(logits: torch.Tensor, labels: torch.Tensor, scal
     if with_acc:
         return loss, sums[2] / torch.clamp(sums[1], min=1.0)
     return loss
+
+
+def sig_loss(pred: torch.Tensor, gt: torch.Tensor, valid: Optional[torch.Tensor] = None,
+             lam: float = 0.85, eps: float = 1e-3) -> torch.Tensor:
+    """sqrt(E[g²] − λ·E[g]²) over the valid pixels, g = log(pred + eps) −
+    log(gt + eps) (depth/depth/models/losses/sigloss.py:41-53). pred and gt
+    [B, H, W] metric depth; ``valid`` defaults to gt > 0. Masked, not
+    indexed, and with no host read, so that a CUDA graph can hold it: with no
+    valid pixel it is sqrt(1e-12)."""
+    if valid is None:
+        valid = gt > 0
+    n = torch.clamp(valid.sum(), min=1)
+    g = torch.log(pred + eps) - torch.log(torch.where(valid, gt, 1.0) + eps)
+    g = torch.where(valid, g, 0.0)
+    dg = (g * g).sum() / n - lam * (g.sum() / n) ** 2
+    return torch.sqrt(torch.clamp(dg, min=1e-12))

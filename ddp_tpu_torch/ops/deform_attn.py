@@ -69,6 +69,13 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
     """Multi-scale deformable attention core. See the module docstring."""
+    # a named range: a profile of eager calls sums the op's kernels from it
+    # (the forward) and from the backward nodes made inside it
+    with torch.profiler.record_function("ms_deform_attn"):
+        return _ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
+
+
+def _ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights):
     b, s, nh, d = value.shape
     q = sampling_locations.shape[1]
     idx, wts = [], []

@@ -1,4 +1,4 @@
-"""Evaluation CLI (port of the segmentation part of ``tools/test.py``).
+"""Evaluation CLI (port of ``tools/test.py``).
 
     python -m ddp_tpu_torch.tools.test PRESET [--workdir DIR] [--step N]
         [--limit N] [--seed S] [--seeds N] [--set K=V ...] [--uncertainty]
@@ -11,9 +11,16 @@ or slide inference (``runtime.test_mode``, ``test_crop``, ``test_stride``;
 the aAcc / mIoU / mAcc line of each diffusion seed as the JAX tool prints
 it. The rollout noise of image i under seed s comes from a generator seeded
 by (s, i). ``--uncertainty`` (whole mode only, as in JAX) also prints the
-randsteps ensemble's mean variance and predictive entropy. Runs on the card
-unless ``--device cpu``. The depth branch of the JAX tool waits for the depth
-slice (ROADMAP.md queue 1).
+randsteps ensemble's mean variance and predictive entropy.
+
+A depth preset (``task="depth"``) is scored over the test split of its
+nyu, kitti, sunrgbd or cityscapes tree (or the synthetic data) image by
+image, whole, with the rollout noise of image i seeded by (``--seed``, i),
+on the Eigen crop (nyu, sunrgbd) or the Garg crop (kitti, cityscapes), and
+the nine depth metrics are printed on one line; ``--uncertainty`` also
+prints the mean across-hypothesis standard deviation and the mean width of
+the 80 % interval (10th to 90th percentile), in metres. Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -52,9 +59,11 @@ def main(argv=None) -> int:
     from ..evaluation.slide import slide_inference
 
     cfg = get_config(args.preset, dict(kv.split("=", 1) for kv in args.set))
-    if cfg.model.task != "seg":
+    if cfg.model.task not in ("seg", "depth"):
         raise SystemExit(f"task {cfg.model.task!r} is not ported yet")
     rt = cfg.runtime
+    if cfg.model.task == "depth" and rt.test_mode != "whole":
+        raise SystemExit("a depther is evaluated on whole images (runtime.test_mode=whole)")
     if args.uncertainty and rt.test_mode == "slide":
         raise SystemExit("--uncertainty supports whole-image mode only "
                          "(slide accumulates logits across crops; "
@@ -72,6 +81,8 @@ def main(argv=None) -> int:
         model.load_state_dict(sd)
         print(f"restored step {step} from {workdir}")
     model.eval()
+    if cfg.model.task == "depth":
+        return eval_depth_cli(args, cfg, model, device)
 
     if cfg.data.dataset == "synthetic":
         ds = SyntheticSegDataset(cfg.model.num_classes, cfg.data.crop_size)
@@ -120,6 +131,43 @@ def main(argv=None) -> int:
         mious = [m["mIoU"] for m in per_seed]
         print(f"seed-averaged mIoU {np.mean(mious) * 100:.2f} ± {np.std(mious) * 100:.2f} "
               f"over {args.seeds} seeds")
+    return 0
+
+
+def eval_depth_cli(args, cfg, model, device) -> int:
+    """The depth branch (``tools/test.py:55-66,101-145``)."""
+    from ..data.depth_datasets import DepthDataset, SyntheticDepthDataset, eval_mask
+    from ..data.pipelines import normalize
+    from ..evaluation.convergence import rollout_generator
+    from ..evaluation.metrics import depth_metrics
+
+    if cfg.data.dataset == "synthetic":
+        ds = SyntheticDepthDataset(cfg.data.crop_size, max_depth=cfg.model.max_depth)
+    else:
+        ds = DepthDataset(cfg.data.data_root, "test", cfg.data.dataset)
+    n = min(len(ds), args.limit or len(ds))
+    preds, gts, masks, unc_std, unc_width = [], [], [], [], []
+    for i in range(n):
+        s = normalize(ds.load(i), cfg.data.mean, cfg.data.std)
+        img = torch.from_numpy(np.ascontiguousarray(s["image"][None])).to(device)
+        gen = rollout_generator(args.seed, i, device)
+        if args.uncertainty:
+            d, unc = model.sample_with_uncertainty(img, generator=gen)
+            unc_std.append(unc["std"].mean().item())
+            unc_width.append((unc["interval_high"] - unc["interval_low"]).mean().item())
+        else:
+            d = model.sample(img, generator=gen)
+        preds.append(d[0].cpu().numpy())
+        gts.append(s["label"])
+        masks.append(eval_mask(cfg.data.dataset, s["label"].shape))
+    m = depth_metrics(np.stack(preds), np.stack(gts), np.stack(masks))
+    print(" | ".join(f"{k} {v:.4f}" for k, v in m.items()) + f"  (n={n})", flush=True)
+    if args.uncertainty:
+        print(f"mean hypothesis std {np.mean(unc_std):.4f} m | "
+              f"mean 80% interval width {np.mean(unc_width):.4f} m")
+        if cfg.model.diffusion.randsteps == 1:
+            print("  (randsteps=1: hypothesis std is trivially 0 — use "
+                  "--set model.diffusion.randsteps=5)")
     return 0
 
 

@@ -72,7 +72,8 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     """Run ``cfg.runtime.total_iters`` steps on ``device`` (default "cuda";
     raises without a GPU unless ``device="cpu"``), ``runtime.steps_per_dispatch``
     per dispatch. ``data_iter`` yields host batches {'image': [B, H, W, 3],
-    'label': [B, H, W]}; with ``resume`` it must yield the batches from the
+    'label': [B, H, W]} (int classes for a segmentor, float metric depth for
+    a depther); with ``resume`` it must yield the batches from the
     restored step on. ``init_params``: a state_dict (parameters and BN
     statistics) loaded strictly into the fresh model before the optimizer is
     built, as the JAX loop's ``init_params`` replaces its init."""

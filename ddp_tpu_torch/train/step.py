@@ -1,21 +1,26 @@
 """Train state and train step (port of ``ddp_tpu/train/state.py:24-158``).
 
-One step: the segmentor's training forward on the batch (in ``microbatch``
+One step: the model's training forward on the batch (in ``microbatch``
 equal chunks, gradients averaged), the backward pass, and the optimizer
 chain (global-norm clip, AdamW, lr multipliers; ``train/optim.py``). BatchNorm
 statistics update inside the forward, chunk after chunk, as the JAX package
 threads them through its scan. Parameters, optimizer moments and BN
 statistics are updated in place (PyTorch's idiom; JAX returns a new state).
 
+The model is a ``DDPSegmentor`` ('label' an int map, 255 = ignore) or a
+``DDPDepther`` ('label' float metric depth, <= 0 = invalid); both take
+``(image, label, t=, noise=, generator=)`` and return ``(loss, logs)``.
+
 ``mixed_precision=True`` is the JAX package's bf16 policy: the forward and
-backward run on bf16 copies of the parameters and of the float inputs
-(``torch.func.functional_call``), so the gradients land as float32 on the
+backward run on bf16 copies of the parameters and of the float inputs (the
+image, a depth label, the noise; ``torch.func.functional_call``), so the
+gradients land as float32 on the
 float32 master parameters; the optimizer state and the loss stay float32.
 No ``torch.autocast``: it chooses per-op types of its own.
 
 The step's random draws (t, the noise, dropout and drop-path masks) come
 from ``state.generator``; a batch may carry ``t`` [B] and ``noise``
-([B, h, w, C] or [B·h·w, C]) to fix them.
+([B, h, w, C] or [B·h·w, C]; the depther's [B, h, w, 1]) to fix them.
 
 ``make_chunked_train_step`` (``ddp_tpu/train/state.py:177-205``) runs n such
 steps per call; on CUDA they are one CUDA-graph replay.
@@ -80,7 +85,7 @@ class TrainStep:
         low = {name: p.to(torch.bfloat16) for name, p in params.items()}
         if kwargs["noise"] is not None:
             kwargs["noise"] = _to_bf16(kwargs["noise"])
-        return functional_call(model, low, (_to_bf16(img), gt), kwargs)
+        return functional_call(model, low, (_to_bf16(img), _to_bf16(gt)), kwargs)
 
     def grads(self, state: TrainState, batch: Dict[str, torch.Tensor]
               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -117,7 +122,8 @@ class TrainStep:
 def make_train_step(microbatch: int = 1, mixed_precision: bool = False) -> TrainStep:
     """The train step (``ddp_tpu.train.state.make_train_step``): batches are
     dicts of tensors on the model's device, 'image' [B, H, W, 3] float and
-    'label' [B, H, W] int (255 = ignore)."""
+    'label' [B, H, W]: int classes (255 = ignore) for a segmentor, float
+    metric depth (<= 0 = invalid) for a depther."""
     return TrainStep(microbatch, mixed_precision)
 
 

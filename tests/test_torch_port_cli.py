@@ -3,8 +3,9 @@ the CPU.
 
   - Presets field by field against ``ddp_tpu.config``: every preset the
     two packages share (the Cityscapes ConvNeXt and Swin families, the
-    aligned fine-tunes, ``smoke``, the ADE20K and end-check presets; the
-    end checks' workdirs differ on purpose, ``work_dirs/torch_*``); every
+    aligned fine-tunes, ``smoke``, the ADE20K and end-check presets, the
+    NYUv2 and KITTI Swin depthers; the end checks' workdirs differ on
+    purpose, ``work_dirs/torch_*``); every
     field of the port's dataclasses exists in the JAX package's.
   - ``get_config`` overrides coerced as the JAX package coerces them
     (bools, ints, floats, tuples, nested dataclasses); an unknown key raises
@@ -48,13 +49,14 @@ def test_presets_match_jax_field_by_field():
     assert {"cityscapes_convnext_t", "cityscapes_convnext_s", "cityscapes_convnext_b",
             "cityscapes_convnext_l", "cityscapes_swin_t", "cityscapes_swin_l",
             "cityscapes_convnext_t_aligned", "cityscapes_convnext_l_aligned", "smoke",
-            "ade20k_swin_t", "converge_seg_window", "converge_seg_msda"} <= set(SHARED)
+            "ade20k_swin_t", "converge_seg_window", "converge_seg_msda", "converge_depth",
+            *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")} <= set(SHARED)
     for name in SHARED:
         port, ref = _fields(tconfig.get_config(name)), _fields(jconfig.get_config(name))
         missing = sorted(set(port) - set(ref))
         assert not missing, (name, missing)
         diff = {k: (v, ref[k]) for k, v in port.items() if v != ref[k]}
-        if name.startswith("converge_seg"):
+        if name.startswith("converge_"):
             assert diff.pop("runtime.workdir")[0] == f"work_dirs/torch_{name}"
         assert not diff, (name, diff)
     city = tconfig.get_config("cityscapes_convnext_t")

@@ -33,7 +33,7 @@ from ddp_tpu.nn import transformer as jtr
 from ddp_tpu.train.torch_import import import_ddp_seg
 from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.data import make_train_iter
-from ddp_tpu_torch.evaluation.convergence import run_seg
+from ddp_tpu_torch.evaluation.convergence import run
 from ddp_tpu_torch.nn.swin import PatchMerging, swin_variant
 from ddp_tpu_torch.train import torch_import as TI
 from ddp_tpu_torch.train.loop import train
@@ -220,7 +220,7 @@ def test_train_starts_from_init_params(tmp_path):
 def test_aligned_run_refuses_missing_base_checkpoint(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(FileNotFoundError, match="converge_seg_msda"):
-        run_seg("converge_seg_aligned_msda", device="cpu")
+        run("converge_seg_aligned_msda", device="cpu")
     assert not os.path.exists(tmp_path / "work_dirs" / "torch_converge_seg_aligned_msda")
 
 
