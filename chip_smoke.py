@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,converge          # the window end check
     python3 chip_smoke.py --phases build,converge_msda     # the msda end checks
     python3 chip_smoke.py --phases build,converge_depth    # the depth end check
+    python3 chip_smoke.py --phases build,converge_bev      # the BEV end check
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A busy share is the union of the intervals of the kernels and copies that
@@ -136,22 +137,51 @@ ms_deform_attn range and by the backward nodes made there.
                crops, batch 16, then tools.test with --uncertainty; the
                host's decode ms of one frame and its depth map (read_png
                and Pillow) and s per make_train_iter batch of 16.
- 20. converge - (only when named) the end check: converge_seg_window's 1500
+ 20. bev_reference - smoke_bev (2 cameras of 32 x 64, nano Swin, 32-d msda
+               decoder) on the card and on the CPU from the same weights and
+               batch: the loss with fixed t and noise (1e-5 relative) and
+               sample()'s scores from the same initial noise (1e-4).
+ 21. bev_main - serving nuscenes_camera at full width and depth (random
+               weights, seed 0) on one scene of the synthetic 6-camera rig
+               (6 x 256 x 704, the 128^2 BEV latent, 5 window-decoder layers
+               on the 200^2 grid, 3 DDIM steps x 5 randsteps): scores in
+               [0, 1], no kernel launched, wall ms, scenes/s, busy share
+               (profiled and unprofiled), bev_pool's device ms and share (its
+               profiler range), peak memory, sample_with_uncertainty's ms;
+               the geometry's displacement and voxel changes when the bf16
+               policy casts the rig.
+ 22. bev_train - nuscenes_camera at the preset's batch of 8 scenes (or the
+               largest that fits): bev_pool alone with deterministic
+               algorithms off and on; the eager step and a graphed chunk of
+               10 steps, f32 and bf16 (ms, scenes/s, busy share, peak
+               memory, no kernel launched), graph against eager on 2 scenes
+               with deterministic algorithms on; the host's batch of 8 with
+               the 3D aug; python -m ddp_tpu_torch.tools.train smoke_bev.
+ 23. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 21. graph_grads - (only when named) where the graphed and the eager step
+ 24. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 22. converge_msda - (only when named) the msda end checks:
+ 25. replay_records - (only when named) how often a profile of one
+               CUDA-graph replay (ade20k_swin_t_msda, 10 bf16 steps) lacks
+               kernel records, with and without the pauses after the
+               profile starts and before it stops that every other phase
+               takes.
+ 26. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
- 23. converge_depth - (only when named) the depth end check: converge_depth's
+ 27. converge_depth - (only when named) the depth end check: converge_depth's
                1500 iterations through train() and eval_depth's abs_rel,
                rmse and a1 at 1, 3 and 10 DDIM steps beside
                work_dirs/converge_depth/result.json of the JAX package.
+ 28. converge_bev - (only when named) the BEV end check: converge_bev's 2500
+               iterations through train() and eval_bev's map mIoU at 1, 3 and
+               10 DDIM steps beside work_dirs/converge_bev/result.json of the
+               JAX package.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -881,17 +911,27 @@ def phase_main(smi: str, profile: str = None):
     return model, cfg, launches
 
 
-def profiled(fn, timed: bool = False):
+# the pauses between a profile's start and the profiled call, and between
+# the call's last synchronise and the profile's stop: the profiler drops the
+# card's kernel records that it places outside its window (phase
+# replay_records)
+SETTLE_S = 0.1
+
+
+def profiled(fn, timed: bool = False, settle_s: float = SETTLE_S):
     """A profile (CPU and CUDA activity) of one call of ``fn``; with
     ``timed`` also the call's wall ms (ending in a device synchronise),
-    taken inside the profile."""
+    taken inside the profile, which starts ``settle_s`` before the call and
+    stops ``settle_s`` after it."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+        time.sleep(settle_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(settle_s)
     return (p, wall_ms) if timed else p
 
 
@@ -944,14 +984,15 @@ def _kernel_us(e, skip: str) -> float:
             + sum(_kernel_us(c, skip) for c in e.cpu_children))
 
 
-def msda_op_ms(p):
+def msda_op_ms(p, name: str = "ms_deform_attn"):
     """The MSDA op's device ms in a profile of eager calls, (forward,
     backward): the kernels launched inside its ``ms_deform_attn`` ranges
     (ops/deform_attn.py), and those of the backward nodes made there (the
     profiler gives a backward node the sequence number of the forward op
     that made it). None where no range ran: a path without MSDA, or a
-    CUDA-graph replay, which runs no Python."""
-    name, cpu = "ms_deform_attn", torch.autograd.DeviceType.CPU
+    CUDA-graph replay, which runs no Python. ``name``: another op's range
+    (``bev_pool``, ops/bev_pool.py)."""
+    cpu = torch.autograd.DeviceType.CPU
     events = p.events()
     ranges = [e for e in events if e.name == name and e.device_type == cpu]
     if not ranges:
@@ -969,10 +1010,10 @@ def msda_op_ms(p):
 
 def profile_call(fn, path=None, header=""):
     """(busy, launches of the port's kernels) of one profiled call of
-    ``fn``; where the call ran the MSDA op eagerly, busy also gives its
-    kernels' device ms (forward and backward) and their share of the
-    device's busy time. The per-kernel table is written to ``path`` when
-    given."""
+    ``fn``; where the call ran the MSDA op or ``bev_pool`` eagerly, busy
+    also gives its kernels' device ms (forward and backward) and their share
+    of the device's busy time. The per-kernel table is written to ``path``
+    when given."""
     p, wall_ms = profiled(fn, timed=True)
     if path:
         with open(path, "w") as f:
@@ -983,6 +1024,10 @@ def profile_call(fn, path=None, header=""):
     if msda:
         line.update(msda_op_device_ms=sum(msda), msda_op_backward_device_ms=msda[1],
                     msda_op_share_of_device=sum(msda) / line["device_busy_ms"])
+    pool = msda_op_ms(p, "bev_pool")
+    if pool:
+        line.update(bev_pool_device_ms=sum(pool), bev_pool_backward_device_ms=pool[1],
+                    bev_pool_share_of_device=sum(pool) / line["device_busy_ms"])
     return line, kernel_launches(p)
 
 
@@ -1600,6 +1645,71 @@ def phase_graph_grads(smi: str):
     emit(dict(out, card=smi))
 
 
+def _sync_after_last_kernel_us(p) -> float:
+    """The last device synchronise's end less the last kernel's end in a
+    profile, us: negative where the profiler placed a kernel after the host
+    call that waited for it."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = p.events()
+    return (max(e.time_range.end for e in ev if e.name == "cudaDeviceSynchronize")
+            - max(e.time_range.end for e in ev
+                  if e.device_type == cuda and not e.is_user_annotation))
+
+
+def phase_replay_records(smi: str, tries: int = 16):
+    """How often a profile of one CUDA-graph replay lacks kernel records:
+    ade20k_swin_t_msda's 10 graphed bf16 steps at 2 x 512^2 (a replay that
+    graph_case profiles), profiled ``tries`` times each with and without the
+    pauses SETTLE_S after the profile starts and before it stops, in turn.
+    The call runs the same kernels every time (the batch copies, the replay,
+    the logs' clones), so each count below the largest is records lost. Per
+    profile: records lost, the port's kernels missing or extra, and where the profiler
+    placed the last kernel against the host's synchronise; for profiles that
+    lost more than 20 records, the kernels short by name. It fails if a
+    profile with the pauses miscounts the port's kernels."""
+    from collections import Counter
+
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step
+
+    cfg, n = get_config("ade20k_swin_t_msda"), 10
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    state.optimizer.count = cfg.optim.warmup_steps
+    chunk_batch = stacked(train_batch(cfg, 2), n)
+    chunk = make_chunked_train_step(n, mixed_precision=True)
+    for _ in range(2):  # the eager first chunk and the capture, then a replay
+        chunk(state, chunk_batch)
+    seen = {0.0: [], SETTLE_S: []}
+    for _ in range(tries):
+        for settle, runs in seen.items():
+            p = profiled(lambda: chunk(state, chunk_batch), settle_s=settle)
+            runs.append((Counter({e.key: e.count for e in device_kernels(p)}),
+                         kernel_launches(p), _sync_after_last_kernel_us(p)))
+    most = Counter()
+    for runs in seen.values():
+        for names, _, _ in runs:
+            most |= names
+    out = {"phase": "replay_records", "preset": cfg.name, "dtype": "bf16",
+           "steps_per_replay": n, "tries": tries,
+           "kernel_records_per_call": sum(most.values())}
+    for settle, runs in seen.items():
+        lost = [most - names for names, _, _ in runs]
+        out[f"settle_{settle}_s"] = {
+            "records_lost": [sum(c.values()) for c in lost],
+            "port_kernels_off": [sum(abs(n * v - launched[k]) for k, v in PER_STEP.items())
+                                 for _, launched, _ in runs],
+            "sync_after_last_kernel_us": [us for _, _, us in runs],
+            "short_by_name": {i: [(k[:60], v) for k, v in c.most_common(4)]
+                              for i, c in enumerate(lost) if sum(c.values()) > 20}}
+    emit(dict(out, card=smi))
+    if any(out[f"settle_{SETTLE_S}_s"]["port_kernels_off"]):
+        raise AssertionError(f"replay_records: profiles with the pauses miscounted the port's "
+                             f"kernels: {out}")
+
+
 def _log_steps(workdir):
     with open(os.path.join(workdir, "train_log.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -1618,8 +1728,10 @@ def profiled_window(batches, start: int, stop: int, out: list):
         if i == start:
             torch.cuda.synchronize()
             p.start()
+            time.sleep(SETTLE_S)
         elif i == stop:
             torch.cuda.synchronize()
+            time.sleep(SETTLE_S)
             p.stop()
             out.append(p)
         yield batch
@@ -2637,11 +2749,413 @@ def phase_converge_depth(smi: str):
         raise AssertionError(f"converge_depth: did not learn ({result})")
 
 
+# --- BEV camera map segmentation ----------------------------------------------------
+
+BEV_DIR = os.path.join("work_dirs", "chip_smoke_bev")
+# the BEV batch's tensors: the cameras, the rig (5), the map masks
+BEV_KEYS = ("image", "cam2lidar_rots", "cam2lidar_trans", "intrins", "post_rots",
+            "post_trans", "label")
+
+
+def bev_scenes(cfg, b: int, seed: int = 0, aug: bool = True, device="cuda"):
+    """b scenes of the synthetic rig at cfg's camera count, image size and
+    output grid, normalised, as tensors on ``device``: a train batch of
+    bev_batch_iterator (with the 3D aug), or (``aug`` False) scenes as the
+    end check serves them."""
+    import numpy as np
+
+    from ddp_tpu_torch.data.bev_datasets import (BEV_BATCH_KEYS, SyntheticBEVDataset,
+                                                 bev_batch_iterator)
+
+    mc = cfg.model
+    ds = SyntheticBEVDataset(num_cams=mc.bev_num_cams, image_size=mc.bev_image_size,
+                             out_grid=mc.bev_out_grid, num_classes=mc.num_classes,
+                             scope=mc.bev_xbound[1], length=max(b, 8))
+    if aug:
+        batch = next(bev_batch_iterator(ds, b, seed=seed, mean=cfg.data.mean,
+                                        std=cfg.data.std))
+    else:
+        scenes = [ds.load(seed * 1000 + i) for i in range(b)]
+        mean, std = np.asarray(cfg.data.mean, np.float32), np.asarray(cfg.data.std, np.float32)
+        for sc in scenes:
+            sc["image"] = (sc["image"] - mean) / std
+        batch = {k: np.stack([sc[k] for sc in scenes]) for k in BEV_BATCH_KEYS}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def bev_latent_shape(model, batch) -> tuple:
+    """(G, C) of the model's BEV features for this rig."""
+    with torch.no_grad():
+        x = model.extract_bev_feat(*(batch[k][:1] for k in BEV_KEYS[:-1]))
+    return x.shape[1], x.shape[3]
+
+
+def check_scores(s: torch.Tensor, shape, what: str) -> None:
+    """Sigmoid scores of ``shape``, finite, inside [0, 1]."""
+    if tuple(s.shape) != tuple(shape):
+        raise AssertionError(f"{what}: scores shape {tuple(s.shape)} != {tuple(shape)}")
+    if not (torch.isfinite(s).all() and s.min() >= 0 and s.max() <= 1):
+        raise AssertionError(f"{what}: scores not finite or outside [0, 1]")
+
+
+def phase_bev_reference(smi: str):
+    """smoke_bev (2 cameras of 32 x 64, nano Swin, 32-d msda decoder) on the
+    card and on the CPU from the same weights and the same augmented batch:
+    the training loss with fixed t and noise within 1e-5 relative, and
+    sample()'s scores from the same initial noise within 1e-4."""
+    from ddp_tpu_torch.config import build_model, get_config
+
+    cfg = get_config("smoke_bev")
+    mc = cfg.model
+    batch = bev_scenes(cfg, 2, seed=1, device="cpu")
+    g = _gen(51)
+    t = torch.rand(2, generator=g) * 0.999
+    side, c = bev_latent_shape(build_model(mc, device="cpu", seed=0), batch)
+    noise = torch.randn(2, side, side, c, generator=g)
+    init = torch.randn(mc.diffusion.randsteps * 2, side, side, c, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(mc, device=dev, seed=0).train()
+        loss, _ = model(*(batch[k].to(dev) for k in BEV_KEYS), t=t.to(dev), noise=noise.to(dev))
+        s = model.eval().sample(*(batch[k].to(dev) for k in BEV_KEYS[:-1]), noise=init.to(dev))
+        check_scores(s, (2, mc.bev_out_grid, mc.bev_out_grid, mc.num_classes),
+                     f"bev_reference {dev}")
+        res[dev] = (loss.item(), s.cpu())
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    diff = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+    out = {"phase": "bev_reference", "preset": cfg.name, "cameras": [2, 32, 64],
+           "loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0], "loss_rel_diff": rel,
+           "sample_max_abs_diff": diff, "limits": "loss 1e-5 relative, scores 1e-4", "card": smi}
+    emit(out)
+    if not (rel <= 1e-5 and diff <= 1e-4):
+        raise AssertionError(f"bev_reference: card vs CPU loss rel {rel}, scores diff {diff}")
+
+
+def bf16_rig_check(model, batch) -> dict:
+    """What the bf16 policy's cast of the rig does to the LSS geometry: the
+    points of lss_geometry from the rig cast to bf16 (and back to float32, as
+    the model does) against the float32 rig's, in metres, and the share of
+    points whose voxel (or in-range flag) changes."""
+    from ddp_tpu_torch.nn.bev import _frustum_on, lss_geometry
+    from ddp_tpu_torch.ops.bev_pool import quantize_geometry
+
+    vt = model.vtransform
+    rig = [batch[k] for k in BEV_KEYS[1:-1]]
+    frustum = _frustum_on(vt.image_size, vt.feature_size, vt.dbound, rig[0].device)
+    with torch.no_grad():
+        g32 = lss_geometry(frustum, *rig)
+        g16 = lss_geometry(frustum, *(r.to(torch.bfloat16) for r in rig))
+        dist = (g16 - g32).norm(dim=-1)
+        c32, v32 = quantize_geometry(g32, vt.bx, vt.dx, vt.nx)
+        c16, v16 = quantize_geometry(g16, vt.bx, vt.dx, vt.nx)
+        moved = (c16 != c32).any(dim=-1) | (v16 != v32)
+        in_range = v32 | v16
+    return {"points": g32[..., 0].numel(), "max_displacement_m": dist.max().item(),
+            "mean_displacement_m": dist.mean().item(),
+            "share_of_points_changing_voxel": moved.float().mean().item(),
+            "share_of_in_range_points_changing_voxel":
+                (moved & in_range).float().sum().item() / max(in_range.sum().item(), 1),
+            "rig": f"the train pipeline's augmented rig, batch {rig[0].shape[0]}"}
+
+
+def phase_bev_main(smi: str, profile: str = None):
+    """Serving nuscenes_camera at full width (6 cameras of 256 x 704, Swin-T,
+    the LSS lift of 118 depth bins onto a 256^2 grid, the 128^2 BEV latent, 5
+    window-decoder layers on the 200^2 output grid, 3 DDIM steps x 5
+    randsteps; random weights, seed 0) on one scene of the synthetic 6-camera
+    rig: scores in [0, 1], no kernel launched, sample() wall ms (median of
+    5), img/s, busy share (profiled, and the profiled device ms over the
+    unprofiled wall ms), bev_pool's device ms and share in the profiled call,
+    peak memory and what was live before; sample_with_uncertainty's ms; the
+    bf16 rig's displacement of the geometry."""
+    from ddp_tpu_torch.config import build_model, get_config
+
+    cfg = get_config("nuscenes_camera")
+    mc = cfg.model
+    model = build_model(mc, device="cuda", seed=0)
+    batch = bev_scenes(cfg, 1, seed=3, aug=False)
+    rig = [batch[k] for k in BEV_KEYS[:-1]]
+    side, c = bev_latent_shape(model, batch)
+    r = mc.diffusion.randsteps
+    noise = torch.randn(r, side, side, c, generator=_gen(53)).cuda()
+    shape = (1, mc.bev_out_grid, mc.bev_out_grid, mc.num_classes)
+    reset_all_launches()
+    scores = model.sample(*rig, noise=noise)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != NO_KERNELS:
+        raise AssertionError(f"bev_main: kernels launched on the BEV path: {launches}")
+    check_scores(scores, shape, "bev_main")
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    sec = wall_s(lambda: model.sample(*rig, noise=noise))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_line, card_launches = profile_call(
+        lambda: model.sample(*rig, noise=noise), profile and f"{profile}.bev_sample",
+        f"# one nuscenes_camera sample(), 6 x 256x704, {smi}\n")
+    if card_launches != NO_KERNELS:
+        raise AssertionError(f"bev_main: the card ran {card_launches}")
+    if not busy_line.get("bev_pool_device_ms", 0) > 0:
+        raise AssertionError("bev_main: no kernel in the bev_pool range")
+    with torch.no_grad():
+        feat = model.extract_bev_feat(*rig)
+        xr, tb = feat.repeat(r, 1, 1, 1), torch.ones(r, device="cuda")
+        enc_ms = wall_s(lambda: model.extract_bev_feat(*rig)) * 1e3
+        step_ms = wall_s(lambda: model.denoise_logits(xr, noise, tb)) * 1e3
+    del feat, xr
+    model.sample_with_uncertainty(*rig, noise=noise)
+    unc_s = wall_s(lambda: model.sample_with_uncertainty(*rig, noise=noise), reps=1, warmup=0)
+    s2, unc = model.sample_with_uncertainty(*rig, noise=noise)
+    check_scores(s2, shape, "bev_main uncertainty")
+    if not ((unc["variance"] >= 0).all() and torch.isfinite(unc["variance"]).all()):
+        raise AssertionError("bev_main: invalid variance map")
+    rig_check = bf16_rig_check(model, bev_scenes(cfg, 8, seed=4))
+    emit({"phase": "bev_main", "preset": cfg.name, "cameras": [6, 256, 704],
+          "bev_latent": [side, side, c], "out_grid": mc.bev_out_grid,
+          "decoder": f"{mc.decoder_attn}, {mc.decoder_layers} layers",
+          "timesteps": mc.diffusion.timesteps, "randsteps": r, "dtype": "float32, tf32 off",
+          "sample_ms": sec * 1e3, "scenes_per_s": 1 / sec,
+          "img_per_s": mc.bev_num_cams / sec, "img": "camera images, 6 a scene", **busy_line,
+          "busy_share_unprofiled": busy_line["device_busy_ms"] / (sec * 1e3),
+          "live_before_gb": live, "peak_mem_gb": peak, "extract_bev_feat_ms": enc_ms,
+          "denoise_step_ms": step_ms, "sample_with_uncertainty_ms": unc_s * 1e3,
+          "mean_variance": unc["variance"].mean().item(),
+          "mean_entropy": unc["entropy"].mean().item(), "launches": launches,
+          "bf16_rig": rig_check, "card": smi})
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bev_pool_cost(batch, model) -> dict:
+    """bev_pool alone at the train step's shapes (features [B, N·D·fH·fW,
+    C'] from the batch's own geometry): forward and forward + backward
+    device ms, with PyTorch's deterministic algorithms off (index_add_ sums
+    by atomics) and on (a sorted sum)."""
+    from ddp_tpu_torch.nn.bev import _frustum_on, lss_geometry
+    from ddp_tpu_torch.ops.bev_pool import bev_pool, quantize_geometry
+
+    vt = model.vtransform
+    rig = [batch[k] for k in BEV_KEYS[1:-1]]
+    with torch.no_grad():
+        geom = lss_geometry(_frustum_on(vt.image_size, vt.feature_size, vt.dbound, "cuda"),
+                            *rig)
+        coords, valid = quantize_geometry(geom, vt.bx, vt.dx, vt.nx)
+    b = geom.shape[0]
+    p = geom[0, ..., 0].numel()
+    coords, valid = coords.reshape(b, p, 3), valid.reshape(b, p)
+    del geom
+    feats = torch.randn(b, p, vt.out_channels, device="cuda", requires_grad=True)
+    cot = torch.randn(b, vt.nx[0], vt.nx[1], vt.nx[2] * vt.out_channels, device="cuda")
+    out = {"feats": [b, p, vt.out_channels], "in_range_share": valid.float().mean().item()}
+    for det in (False, True):
+        reps = 3 if det else 10  # the sorted sum takes ~0.7 s at these shapes
+        with deterministic_algorithms(det) as warned:
+            fwd = time_ms(lambda: bev_pool(feats, coords, valid, *vt.nx), reps=reps)
+            both = time_ms(lambda: torch.autograd.grad(
+                bev_pool(feats, coords, valid, *vt.nx), feats, cot), reps=reps)
+            a = bev_pool(feats.detach(), coords, valid, *vt.nx)
+            again = torch.equal(a, bev_pool(feats.detach(), coords, valid, *vt.nx))
+        out["deterministic" if det else "atomic"] = {
+            "forward_ms": fwd, "forward_backward_ms": both, "bitwise_repeatable": again,
+            "warnings": warned}
+    del feats, cot
+    torch.cuda.empty_cache()
+    return out
+
+
+def fit_batch(cfg, want: int):
+    """The largest of want, want/2, ... scenes whose eager f32 step fits on
+    the card: (b, batch on the device)."""
+    from ddp_tpu_torch.config import build_model
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    b = want
+    while b >= 1:
+        batch = bev_scenes(cfg, b, seed=6)
+        model = build_model(cfg.model, device="cuda", seed=0)
+        state = TrainState(model, make_optimizer(cfg.optim, model),
+                           torch.Generator(device="cuda").manual_seed(0))
+        try:
+            make_train_step(batch_keys=BEV_KEYS)(state, batch)
+            torch.cuda.synchronize()
+            return b, batch
+        except torch.cuda.OutOfMemoryError:
+            b //= 2
+        finally:
+            del model, state
+            torch.cuda.empty_cache()
+    raise AssertionError("bev_train: not even one scene's step fits on the card")
+
+
+def bev_graph_case(cfg, mixed: bool, batch, check_batch, smi: str, profile: str = None,
+                   n: int = 10):
+    """The BEV train step at ``batch``: eager (wall ms, launches, peak
+    memory), graph against eager on ``check_batch`` (a 2-step chunk,
+    deterministic algorithms on, graph_vs_eager's limits: it runs eager steps
+    while the graph holds its memory, which at the preset's batch does not
+    fit beside a graph in 80 GB), and a graphed chunk of ``n`` steps at
+    ``batch``: wall ms per step (one replay), scenes/s, the busy share and
+    the launches of one profiled replay, peak memory and what was live
+    before, capture s."""
+    from ddp_tpu_torch.config import build_model
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
+
+    b = batch["image"].shape[0]
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    state.optimizer.count = cfg.optim.warmup_steps  # as graph_case: lr past the warm-up
+    tag = "bf16" if mixed else "f32"
+    eager = make_train_step(mixed_precision=mixed, batch_keys=BEV_KEYS)
+    eager(state, batch)
+    reset_all_launches()
+    loss = eager(state, batch)["loss"].item()
+    eager_launches = all_launches()
+    if eager_launches != NO_KERNELS or not 0 < loss < float("inf"):
+        raise AssertionError(f"bev_train {tag}: launches {eager_launches}, loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    eager_s = wall_s(lambda: eager(state, batch), reps=1, warmup=0)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    with deterministic_algorithms(True) as warned:
+        held = make_chunked_train_step(2, mixed_precision=mixed, batch_keys=BEV_KEYS)
+        held(state, stacked(check_batch, 2))
+        check = graph_vs_eager(state, held, eager, check_batch, 2)
+    del held
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    chunk = make_chunked_train_step(n, mixed_precision=mixed, batch_keys=BEV_KEYS)
+    chunk_batch = stacked(batch, n)
+    chunk(state, chunk_batch)  # n eager steps on the capture stream, then the capture
+    sec = wall_s(lambda: chunk(state, chunk_batch), reps=1, warmup=0) / n
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    replay_busy, launched = profile_call(
+        lambda: chunk(state, chunk_batch), profile and f"{profile}.bev_{tag}_n{n}",
+        f"# one replay of {n} graphed nuscenes_camera {tag} train steps, {smi}\n")
+    replayed = {k: v / n for k, v in launched.items()}
+    if replayed != NO_KERNELS:
+        raise AssertionError(f"bev_train {tag}: the card ran {launched} in one replay")
+    emit({"phase": "bev_train", "preset": cfg.name, "batch": [b, 6, 256, 704, 3],
+          "dtype": "bf16 forward/backward, f32 master weights (the rig and masks cast to "
+                   "bf16, the geometry float32)" if mixed else "float32, tf32 off",
+          "eager": {"wall_ms_per_step": eager_s * 1e3, "launches": eager_launches,
+                    "peak_mem_gb": eager_peak},
+          f"graph_n{n}": {"wall_ms_per_step": sec * 1e3, "scenes_per_s": b / sec,
+                          "img_per_s": b * cfg.model.bev_num_cams / sec,
+                          "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
+                          "busy_share": replay_busy["busy_share"],
+                          "launches_per_replayed_step": replayed,
+                          "capture_s": chunk.capture_s[n], "live_before_gb": live,
+                          "peak_mem_gb": peak},
+          "graph_vs_eager_n2_deterministic_algorithms": dict(
+              check, batch=list(check_batch["image"].shape)),
+          "deterministic_algorithms_warnings": warned, "card": smi})
+    del chunk, model, state
+    torch.cuda.empty_cache()
+    return replayed
+
+
+def phase_bev_train(smi: str, profile: str = None):
+    """Training nuscenes_camera at the preset's batch of 8 scenes (48
+    camera images of 256 x 704; the largest power-of-two batch whose f32
+    step fits, where 8 does not), the synthetic rig with the 3D aug:
+    bev_pool alone (deterministic algorithms off and on), then f32 and bf16
+    through bev_graph_case (graph against eager on the batch's first 2
+    scenes); the host's bev_batch_iterator batch of 8 at these shapes (with
+    the aug); python -m ddp_tpu_torch.tools.train smoke_bev to exit 0."""
+    import shutil
+
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.data.bev_datasets import SyntheticBEVDataset, bev_batch_iterator
+
+    cfg = get_config("nuscenes_camera")
+    want = cfg.data.batch_size
+    b, batch = fit_batch(cfg, want)
+    pool = bev_pool_cost(batch, build_model(cfg.model, device="meta"))
+    check_batch = {k: v[:2] for k, v in batch.items()}
+    graphed = bev_graph_case(cfg, False, batch, check_batch, smi, profile)
+    bev_graph_case(cfg, True, batch, check_batch, smi, profile)
+    mc = cfg.model
+    ds = SyntheticBEVDataset(num_cams=mc.bev_num_cams, image_size=mc.bev_image_size,
+                             out_grid=mc.bev_out_grid, num_classes=mc.num_classes,
+                             scope=mc.bev_xbound[1], length=512)
+    it = bev_batch_iterator(ds, want, seed=0)
+    host = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        next(it)
+        host.append(time.perf_counter() - t0)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(root, BEV_DIR, "smoke_bev")
+    shutil.rmtree(os.path.join(root, BEV_DIR), ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.tools.train", "smoke_bev",
+                           "--workdir", workdir], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bev_train: tools.train smoke_bev exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    logs = _log_steps(workdir)
+    if logs[-1]["step"] != 60 or not all(0 < r["loss"] < float("inf") for r in logs):
+        raise AssertionError(f"bev_train: tools.train smoke_bev logs {logs}")
+    shutil.rmtree(os.path.join(root, BEV_DIR), ignore_errors=True)
+    emit({"phase": "bev_train", "preset": cfg.name, "batch_wanted": want, "batch_run": b,
+          "batch_note": "the preset's batch" if b == want else
+          f"the preset's batch of {want} does not fit: {b} is the largest that does",
+          "bev_pool_alone": pool, "host_batch_s": host,
+          "host_batch": f"bev_batch_iterator, {want} scenes of 6 x 256x704 with the 3D aug "
+                        "(the first includes the iterator's start)",
+          "train_cli_smoke_bev": {"exit": proc.returncode, "wall_s": cli_s,
+                                  "log_steps": [r["step"] for r in logs],
+                                  "loss_first_last": [logs[0]["loss"], logs[-1]["loss"]]},
+          "card": smi})
+    return graphed
+
+
+def phase_converge_bev(smi: str):
+    """The BEV end check: converge_bev's 2500 iterations through train()
+    and eval_bev's map mIoU at 1, 3 and 10 DDIM steps beside the JAX
+    package's work_dirs/converge_bev/result.json. The target (within 0.02 of
+    JAX at every horizon, 3 steps >= 1 step) is reported, not enforced; the
+    phase fails only on a run that did not learn (mIoU@3 below 0.2)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.evaluation.convergence import run
+
+    ref_dir = os.path.join("work_dirs", "converge_bev")
+    with open(os.path.join(ref_dir, "result.json")) as f:
+        ref = json.load(f)
+    ref_logs = _log_steps(ref_dir)
+    t0 = time.perf_counter()
+    result = run("converge_bev")
+    wall = time.perf_counter() - t0
+    own = _log_steps(get_config("converge_bev").runtime.workdir)
+    miou = {f"{t}step": {"port": result[f"map_mIoU@{t}step"], "jax": ref[f"map_mIoU@{t}step"],
+                         "diff": result[f"map_mIoU@{t}step"] - ref[f"map_mIoU@{t}step"],
+                         "port_std": result[f"map_mIoU@{t}step_std"],
+                         "jax_std": ref[f"map_mIoU@{t}step_std"]} for t in (1, 3, 10)}
+    emit({"phase": "converge_bev", "iters": result["total_iters"], "map_mIoU": miou,
+          "within_0.02_of_jax": all(abs(v["diff"]) <= 0.02 for v in miou.values()),
+          "3step_at_least_1step": result["map_mIoU@3step"] >= result["map_mIoU@1step"],
+          "iou_class": {k: v for k, v in result.items() if k.startswith("iou_")},
+          "loss_curve": {"port": [[r["step"], r["loss"]] for r in own],
+                         "jax": [[r["step"], r["loss"]] for r in ref_logs]},
+          "steps_per_s_logged": [r["steps_per_s"] for r in own], "wall_s": wall, "card": smi})
+    if own[-1]["step"] != result["total_iters"] or not result["map_mIoU@3step"] >= 0.2:
+        raise AssertionError(f"converge_bev: did not learn ({result})")
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
-          "converge", "graph_grads", "converge_msda", "converge_depth")
-ON_REQUEST = ("converge", "graph_grads", "converge_msda", "converge_depth")
+          "bev_reference", "bev_main", "bev_train", "converge", "graph_grads",
+          "replay_records", "converge_msda", "converge_depth", "converge_bev")
+ON_REQUEST = ("converge", "graph_grads", "replay_records", "converge_msda", "converge_depth",
+              "converge_bev")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
@@ -2650,8 +3164,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but converge, graph_grads, converge_msda and converge_depth; serve "
-                         "needs main)")
+                         "but converge, graph_grads, replay_records, converge_msda, "
+                         "converge_depth and "
+                         "converge_bev; serve needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -2698,14 +3213,24 @@ def main(argv=None) -> int:
         launches["depth_train"], launches["depth_graph"] = phase_depth_train(smi, args.profile)
     if "depth_data" in phases:
         phase_depth_data(smi)
+    if "bev_reference" in phases:
+        phase_bev_reference(smi)
+    if "bev_main" in phases:
+        launches["bev_serve"] = phase_bev_main(smi, args.profile)
+    if "bev_train" in phases:
+        launches["bev_graph"] = phase_bev_train(smi, args.profile)
     if "converge_depth" in phases:
         phase_converge_depth(smi)
+    if "converge_bev" in phases:
+        phase_converge_bev(smi)
     if "converge" in phases:
         phase_converge(smi)
     if "converge_msda" in phases:
         phase_converge_msda(smi)
     if "graph_grads" in phases:
         phase_graph_grads(smi)
+    if "replay_records" in phases:
+        phase_replay_records(smi)
     if "graph" in phases:  # last: it leaves a failed capture behind
         emit({"phase": "graph", "failed_capture_raises": check_capture_failure(), "card": smi})
     for row in kernels:
@@ -2739,7 +3264,10 @@ def main(argv=None) -> int:
                 ("depth_serve", "sample() of one 480x640 frame, nyu_swin_t (depther)"),
                 ("depth_train", "eager train step of nyu_swin_t (depther), 2 x 416x544"),
                 ("depth_graph", "replayed step of a 10-step CUDA graph (nyu_swin_t, depther, "
-                                "2 x 416x544), profiled"))
+                                "2 x 416x544), profiled"),
+                ("bev_serve", "sample() of one 6-camera 256x704 scene, nuscenes_camera (BEV)"),
+                ("bev_graph", "replayed step of a 10-step CUDA graph (nuscenes_camera, BEV, "
+                              "the bev_train batch), profiled"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,16 +1,21 @@
 """Configuration of the port (from ``ddp_tpu/config.py:19-172,206-294,334-347,
 447-463,569-581,640-673,746-763``).
 
-Holds the segmentation and depth fields of ``ModelConfig``, the data fields, the
-``OptimConfig`` and the ``RuntimeConfig`` fields the training loop and the
-test CLI read, the dotted-path overrides (``--set model.bit_scale=0.1``), the
-``ade20k_swin_t`` (window decoder) and ``ade20k_swin_t_msda`` (the
-reference's msda decoder) presets, the Cityscapes ConvNeXt and Swin families
+Holds the segmentation, depth and BEV-camera fields of ``ModelConfig`` (the
+lidar, sparse-conv and ControlNet fields wait for their slices), the data
+fields, the ``OptimConfig`` and the ``RuntimeConfig`` fields the training
+loop and the test CLI read, the dotted-path overrides (``--set
+model.bit_scale=0.1``), the ADE20K Swin family (``ade20k_swin_{t,s,b,l}``,
+window decoder) and ``ade20k_swin_t_msda`` (the reference's msda decoder),
+the Cityscapes ConvNeXt and Swin families
 (``cityscapes_{convnext,swin}_{t,s,b,l}``, ``cityscapes_convnext_{t,l}_aligned``),
 the NYUv2 and KITTI Swin depthers (``nyu_swin_{t,s,b,l}``,
-``kitti_swin_{t,s,b,l}``), the end checks ``converge_seg_window``,
-``converge_seg_msda``, ``converge_seg_aligned_msda`` and ``converge_depth``,
-the test presets ``tiny_seg`` and ``smoke``, and ``build_model``. The JAX
+``kitti_swin_{t,s,b,l}``), the nuScenes camera-only BEV map segmentor
+(``nuscenes_camera``), the end checks ``converge_seg_window``,
+``converge_seg_msda``, ``converge_seg_aligned_msda``, ``converge_seg_quarter``,
+``converge_seg_w16h4``, ``converge_depth`` and ``converge_bev``, the test
+presets ``tiny_seg``, ``smoke`` and ``smoke_bev``, and ``build_model``. The
+defaults are the JAX package's (``decoder_attn="msda"`` among them). The JAX
 package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
 queue 1).
 """
@@ -38,10 +43,10 @@ class ModelConfig:
     self_aligned: bool = False
     loss_at: str = "full"  # 'full' (reference parity) | 'quarter'
     # decoder: 'msda' = the reference's deformable attention (8 heads, 1
-    # level, 4 points: the shape of every released checkpoint); 'window' =
-    # the JAX package's dense shifted-window attention (16x16 windows, 4
-    # heads in its presets)
-    decoder_attn: str = "window"
+    # level, 4 points: the shape of every released checkpoint; the JAX
+    # package's default); 'window' = the JAX package's dense shifted-window
+    # attention (16x16 windows, 4 heads in its seg presets)
+    decoder_attn: str = "msda"
     decoder_window: int = 8
     decoder_film: str = "v1"  # 'v1' | 'v2' | 'v3'
     # 'sine' | 'learned' (tables of 50 rows and columns, mmseg's default and
@@ -61,6 +66,24 @@ class ModelConfig:
     depth_act: str = "relu"
     max_depth: float = 10.0
     min_depth: float = 1e-3
+    # BEV camera (task='bev'; the defaults are the reference's camera-bev256d2
+    # geometry): the rig's camera count and image size, the head's output
+    # grid, the metric scopes bev_grid_transform resamples between, the LSS
+    # voxel bounds (lo, hi, step) and depth bins, the LSS channels, top-k
+    # depth-bin pruning (0 = off) and the BEV ResNet's (blocks, channels,
+    # stride) stages
+    bev_num_cams: int = 6
+    bev_image_size: Tuple[int, int] = (256, 704)
+    bev_out_grid: int = 200
+    bev_input_scope: Tuple = ((-51.2, 51.2, 0.8), (-51.2, 51.2, 0.8))
+    bev_output_scope: Tuple = ((-50.0, 50.0, 0.5), (-50.0, 50.0, 0.5))
+    bev_xbound: Tuple[float, float, float] = (-51.2, 51.2, 0.4)
+    bev_ybound: Tuple[float, float, float] = (-51.2, 51.2, 0.4)
+    bev_zbound: Tuple[float, float, float] = (-10.0, 10.0, 20.0)
+    bev_dbound: Tuple[float, float, float] = (1.0, 60.0, 0.5)
+    bev_lss_channels: int = 80
+    bev_depth_topk: int = 0
+    bev_blocks: Tuple = ((2, 160, 2), (2, 320, 2), (2, 640, 1))
 
 
 @dataclass(frozen=True)
@@ -145,6 +168,7 @@ _DATA_ROOTS = {
     "cityscapes": "data/cityscapes",
     "nyu": "data/nyu",
     "kitti": "data/kitti",
+    "nuscenes": "data/nuscenes",
     "synthetic": "",
 }
 
@@ -172,10 +196,6 @@ def _seg(name, backbone, variant, dataset, classes, crop, bs, bit_scale, timeste
 
 
 PRESETS: Dict[str, Callable[[], Config]] = {
-    # configs/ade/ddp_swin_t_2x8_512x512_160k_ade20k.py with the JAX package's
-    # shipped window decoder shape (16x16 windows, 4 heads of 64)
-    "ade20k_swin_t": lambda: _seg("ade20k_swin_t", "swin", "tiny", "ade20k", 150,
-                                  (512, 512), 16, 0.01),
     # the reference config itself, with its msda decoder: the JAX package's
     # _seg("ade20k_swin_t", ..., decoder_attn="msda") (ddp_tpu/config.py:
     # 206-252), which keeps the 8-head shape of the released checkpoints
@@ -251,6 +271,95 @@ PRESETS: Dict[str, Callable[[], Config]] = {
                               eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
                               workdir="work_dirs/torch_converge_depth"),
     ),
+    # the quarter-resolution CE variant of converge_seg (ddp_tpu/config.py:
+    # 374-391): the loss on the 1/4-scale logits; it names no decoder_attn,
+    # so it takes the default msda decoder, as in JAX
+    "converge_seg_quarter": lambda: Config(
+        name="converge_seg_quarter",
+        model=ModelConfig(backbone_variant="nano", num_classes=7, embed_dims=64,
+                          decoder_layers=6, decoder_heads=8, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.01, loss_at="quarter",
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=3e-4, grad_clip=1.0, total_steps=1500, warmup_steps=100,
+                          schedule="poly"),
+        runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_seg_quarter"),
+    ),
+    # the 16x16-window, 4-head decoder shape at converge_seg's scale
+    # (ddp_tpu/config.py:353-371)
+    "converge_seg_w16h4": lambda: Config(
+        name="converge_seg_w16h4",
+        model=ModelConfig(backbone_variant="nano", num_classes=7, embed_dims=64,
+                          decoder_layers=6, decoder_heads=4, decoder_ffn_dim=256,
+                          drop_path_rate=0.0, bit_scale=0.01, decoder_attn="window",
+                          decoder_window=16,
+                          diffusion=DiffusionConfig(timesteps=3, accumulation=True)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=3e-4, grad_clip=1.0, total_steps=1500, warmup_steps=100,
+                          schedule="poly"),
+        runtime=RuntimeConfig(total_iters=1500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_seg_w16h4"),
+    ),
+    # nuScenes camera-only BEV map segmentation (bev/configs/nuscenes/seg/
+    # ddp-camera-bev256d2-lss-scale001-d5-lr5e-5.yaml, as ddp_tpu/config.py:
+    # 299-315 builds it): Swin-T on 6 cameras of 256x704, LSS, 5 window
+    # decoder layers on the 200^2 output grid, randsteps 5, lr 5e-5, clip 35
+    "nuscenes_camera": lambda: Config(
+        name="nuscenes_camera",
+        model=ModelConfig(task="bev", backbone_type="swin", backbone_variant="tiny",
+                          num_classes=6, bit_scale=0.01, decoder_layers=5,
+                          decoder_attn="window",
+                          diffusion=DiffusionConfig(timesteps=3, randsteps=5)),
+        data=DataConfig(dataset="nuscenes", batch_size=8, data_root=_DATA_ROOTS["nuscenes"],
+                        crop_size=(256, 704)),
+        optim=OptimConfig(lr=5e-5, grad_clip=35.0, total_steps=42_000, schedule="cosine",
+                          warmup_steps=1000),
+        runtime=RuntimeConfig(total_iters=42_000, ckpt_interval=2000, eval_interval=2000),
+    ),
+    # the BEV end check (ddp_tpu/config.py:464-489): nano Swin, 48-d msda
+    # decoder of 5 layers (the default attention), the 6-camera synthetic
+    # rig at 32x64, a 20^2 output grid over +-8 m
+    "converge_bev": lambda: Config(
+        name="converge_bev",
+        model=ModelConfig(task="bev", backbone_type="swin", backbone_variant="nano",
+                          num_classes=3, embed_dims=48, decoder_layers=5, decoder_heads=8,
+                          decoder_ffn_dim=192, drop_path_rate=0.0, bit_scale=0.01,
+                          diffusion=DiffusionConfig(timesteps=3, randsteps=5),
+                          bev_image_size=(32, 64), bev_out_grid=20,
+                          bev_input_scope=((-8.0, 8.0, 1.0), (-8.0, 8.0, 1.0)),
+                          bev_output_scope=((-8.0, 8.0, 0.8), (-8.0, 8.0, 0.8)),
+                          bev_xbound=(-8.0, 8.0, 0.5), bev_ybound=(-8.0, 8.0, 0.5),
+                          bev_dbound=(1.0, 9.0, 1.0), bev_lss_channels=24,
+                          bev_blocks=((1, 32, 2), (1, 48, 1))),
+        data=DataConfig(dataset="synthetic", batch_size=16, crop_size=(32, 64)),
+        optim=OptimConfig(lr=1e-3, grad_clip=5.0, total_steps=2500, warmup_steps=100,
+                          schedule="cosine"),
+        runtime=RuntimeConfig(total_iters=2500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_bev"),
+    ),
+    # tiny CPU-runnable BEV preset (ddp_tpu/config.py:621-638): 2 cameras,
+    # a 32-d msda decoder of 1 layer, 2 DDIM steps, 2 randsteps
+    "smoke_bev": lambda: Config(
+        name="smoke_bev",
+        model=ModelConfig(task="bev", backbone_type="swin", backbone_variant="nano",
+                          num_classes=3, embed_dims=32, decoder_layers=1, decoder_heads=4,
+                          decoder_ffn_dim=64, drop_path_rate=0.0,
+                          diffusion=DiffusionConfig(timesteps=2, randsteps=2),
+                          bev_num_cams=2, bev_image_size=(32, 64), bev_out_grid=20,
+                          bev_input_scope=((-8.0, 8.0, 1.0), (-8.0, 8.0, 1.0)),
+                          bev_output_scope=((-8.0, 8.0, 0.8), (-8.0, 8.0, 0.8)),
+                          bev_xbound=(-8.0, 8.0, 0.5), bev_ybound=(-8.0, 8.0, 0.5),
+                          bev_dbound=(1.0, 9.0, 1.0), bev_lss_channels=16,
+                          bev_blocks=((1, 24, 2), (1, 32, 1))),
+        data=DataConfig(dataset="synthetic", batch_size=4, crop_size=(32, 64)),
+        optim=OptimConfig(lr=1e-3, total_steps=60, warmup_steps=5, grad_clip=5.0),
+        runtime=RuntimeConfig(total_iters=60, log_interval=10, ckpt_interval=30,
+                              eval_interval=1000, workdir="work_dirs/smoke_bev"),
+    ),
     # tiny CPU-runnable smoke preset (ddp_tpu/config.py:569-581): ConvNeXt
     # nano with the msda decoder (the JAX ModelConfig's default attention)
     "smoke": lambda: Config(
@@ -281,6 +390,13 @@ PRESETS: Dict[str, Callable[[], Config]] = {
     ),
 }
 
+
+# the ADE20K Swin family (configs/ade/ddp_swin_{t,s,b,l}_2x8_512x512_160k_ade20k.py
+# with the JAX package's shipped window decoder shape: 16x16 windows, 4 heads
+# of 64; ddp_tpu/config.py:248-252)
+for _v in ("tiny", "small", "base", "large"):
+    PRESETS[f"ade20k_swin_{_v[0]}"] = lambda v=_v: _seg(
+        f"ade20k_swin_{v[0]}", "swin", v, "ade20k", 150, (512, 512), 16, 0.01)
 
 # Cityscapes ConvNeXt and Swin families (configs/cityscapes/ddp_{convnext,swin}_*_
 # 4x4_512x1024_160k_cityscapes.py, as ddp_tpu/config.py:254-260 builds them)
@@ -339,7 +455,8 @@ def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0,
                 input_size: Optional[Tuple[int, int]] = None):
-    """DDPSegmentor (``task="seg"``) or DDPDepther (``task="depth"``) for
+    """DDPSegmentor (``task="seg"``), DDPDepther (``task="depth"``) or
+    DDPBEVCamera (``task="bev"``) for
     ``cfg`` on ``device`` (default "cuda"; raises without a GPU unless a
     device is named), weights drawn from ``seed``. ``input_size``: the image
     size the model is built for (the training crop), which sizes a
@@ -373,6 +490,22 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             drop_path_rate=cfg.drop_path_rate, decoder_layers=cfg.decoder_layers,
             decoder_heads=cfg.decoder_heads, decoder_ffn_dim=cfg.decoder_ffn_dim,
             head_variant=cfg.depth_head_variant, depth_act=cfg.depth_act, device=device)
+    elif cfg.task == "bev":
+        from .models.bev import DDPBEVCamera
+
+        # the JAX package's build_model passes no decoder_window here: the
+        # head keeps its default window of 8
+        model = DDPBEVCamera(
+            num_classes=cfg.num_classes, embed_dims=cfg.embed_dims, bit_scale=cfg.bit_scale,
+            diffusion=cfg.diffusion, backbone_variant=cfg.backbone_variant,
+            decoder_layers=cfg.decoder_layers, decoder_heads=cfg.decoder_heads,
+            decoder_ffn_dim=cfg.decoder_ffn_dim, decoder_attn=cfg.decoder_attn,
+            drop_path_rate=cfg.drop_path_rate, image_size=cfg.bev_image_size,
+            out_grid=cfg.bev_out_grid, input_scope=cfg.bev_input_scope,
+            output_scope=cfg.bev_output_scope, xbound=cfg.bev_xbound, ybound=cfg.bev_ybound,
+            zbound=cfg.bev_zbound, dbound=cfg.bev_dbound,
+            lss_out_channels=cfg.bev_lss_channels, depth_topk=cfg.bev_depth_topk,
+            bev_blocks=cfg.bev_blocks, device=device)
     else:
         raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
     if next(model.parameters()).device.type != "meta":

@@ -20,7 +20,11 @@ so the renames above map them. ConvNeXt's modules carry the flax names
 too: its depthwise kernel [7, 7, 1, C] takes the Conv rule to [C, 1, 7, 7],
 and its layer scale ``gamma`` keeps its name. So do the depther's (``down``,
 ``time_mlp``, ``decode_head/encoder``, ``conv_depth``, the 'upconv' head's
-``up_conv``). Leaves are numpy arrays (or
+``up_conv``), and the BEV camera model's (``camera_neck/{lateral,fpn}{i}``,
+``vtransform/{depthnet,down{i},down_bn{i}}``, ``bev_backbone/stage{s}_block{b}/
+{conv1,bn1,conv2,bn2,down_conv,down_bn}``, ``bev_neck/{fuse1,fuse2,up}``,
+``transform``, ``time_mlp``, ``embedding_table``, ``decode_head``); a named
+BatchNorm's inner flax ``BatchNorm_0`` is dropped. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """
@@ -38,6 +42,9 @@ from torch import nn
 _MODULE_RENAMES = (
     (("GroupNorm32_0", "GroupNorm_0"), ("norm",)),
     (("BatchNorm_0", "BatchNorm_0"), ("norm",)),
+    # a named BatchNorm wrapper (the BEV modules' ``down_bn0``, ``bn1``): its
+    # flax BatchNorm child is the torch module itself
+    (("BatchNorm_0",), ()),
     (("Conv_0",), ("conv",)),
     (("Dense_0",), ("fc1",)),
     (("Dense_1",), ("fc2",)),

@@ -1,8 +1,9 @@
 """Data layer: datasets, pipelines, batch iterators.
 
 ``make_train_iter(cfg)`` builds the train batch iterator of a config, as
-``ddp_tpu/data/__init__.py`` does (its ``task="depth"`` and ``task="seg"``
-branches, :98-130).
+``ddp_tpu/data/__init__.py`` does (its ``task="bev"``, ``task="depth"`` and
+``task="seg"`` branches, :73-130; the nuScenes camera reader comes with the
+fusion slice, ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -14,15 +15,33 @@ def make_train_iter(cfg):
     through ``seg_batch_iterator`` and the seg train pipeline. Depth: the
     procedural ``SyntheticDepthDataset`` or a nyu, kitti, sunrgbd or
     cityscapes split file under ``data.data_root`` (``DepthDataset``),
-    through ``depth_batch_iterator``. A tree whose train split holds nothing
-    raises FileNotFoundError. Under ``torch.distributed`` each process gets
-    its rank's slice of every global batch."""
+    through ``depth_batch_iterator``. BEV camera: the procedural 512-scene
+    ``SyntheticBEVDataset`` rig through ``bev_batch_iterator`` with the 3D
+    aug (as JAX's always augments); ``dataset="nuscenes"`` raises
+    NotImplementedError (its reader is not ported; nothing stands in for it).
+    A tree whose train split holds nothing raises FileNotFoundError. Under
+    ``torch.distributed`` each process gets its rank's slice of every global
+    batch."""
     import torch.distributed as dist
 
     rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
                    else (0, 1))
     d = cfg.data
-    if cfg.model.task == "depth":
+    m = cfg.model
+    if m.task == "bev":
+        if d.dataset != "synthetic":
+            raise NotImplementedError(
+                f"BEV data {d.dataset!r}: the port reads only the synthetic rig so far; "
+                "NuScenesBEVDataset comes with the BEV fusion slice (ROADMAP.md queue 1)")
+        from .bev_datasets import SyntheticBEVDataset, bev_batch_iterator
+
+        # 512 train scenes; the end check scores held-out indices
+        ds = SyntheticBEVDataset(num_cams=m.bev_num_cams, image_size=m.bev_image_size,
+                                 out_grid=m.bev_out_grid, num_classes=m.num_classes,
+                                 scope=m.bev_xbound[1], length=512)
+        return bev_batch_iterator(ds, d.batch_size, seed=cfg.runtime.seed, mean=d.mean,
+                                  std=d.std, rank=rank, world=world)
+    if m.task == "depth":
         from .depth_datasets import DepthDataset, SyntheticDepthDataset, depth_batch_iterator
 
         if d.dataset == "synthetic":

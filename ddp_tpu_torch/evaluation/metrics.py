@@ -1,8 +1,8 @@
-"""Segmentation and depth metrics (port of ``ddp_tpu/evaluation/metrics.py:
-22-91``), numpy on the host.
+"""Segmentation, depth and BEV metrics (port of ``ddp_tpu/evaluation/
+metrics.py:22-110``), numpy on the host.
 
-mmseg ``intersect_and_union`` / mIoU, aAcc, mAcc as numpy histograms, and
-the depth toolbox's nine metrics in float64.
+mmseg ``intersect_and_union`` / mIoU, aAcc, mAcc as numpy histograms, the
+depth toolbox's nine metrics in float64, and the nuScenes BEV map IoU.
 """
 from __future__ import annotations
 
@@ -80,3 +80,22 @@ def depth_metrics(pred: np.ndarray, gt: np.ndarray, mask: Optional[np.ndarray] =
         "log10": float(np.abs(np.log10(p) - np.log10(g)).mean()),
         "silog": float(np.sqrt((log_err ** 2).mean() - log_err.mean() ** 2) * 100.0),
     }
+
+
+def bev_map_iou(pred_scores: np.ndarray, gt_masks: np.ndarray,
+                thresholds=(0.35, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65)) -> Dict[str, float]:
+    """nuScenes BEV map IoU of sigmoid scores [N, K, H, W] against binary
+    masks [N, K, H, W]: per class the best IoU over the score thresholds
+    (``iou_class{k}``), and their mean (``mIoU``)."""
+    k = pred_scores.shape[1]
+    per_class = np.zeros((len(thresholds), k))
+    gt = gt_masks > 0.5
+    for ti, t in enumerate(thresholds):
+        p = pred_scores >= t
+        inter = (p & gt).sum(axis=(0, 2, 3))
+        union = (p | gt).sum(axis=(0, 2, 3))
+        per_class[ti] = inter / np.maximum(union, 1)
+    best = per_class.max(axis=0)
+    out = {f"iou_class{i}": float(best[i]) for i in range(k)}
+    out["mIoU"] = float(best.mean())
+    return out

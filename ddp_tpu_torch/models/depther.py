@@ -29,8 +29,8 @@ Mixed precision: the JAX package's bf16 policy gives the depther bf16
 weights, image and ground truth, but t and gamma stay float32, so the
 corrupted latent is float32 and JAX's type promotion runs the fusion conv,
 the time MLP and the decoder in float32 on the bf16-rounded weights. The
-port does the same (``_promoted``): those three modules run in the promoted
-type of their inputs and weights.
+port does the same (``nn/common.py: promoted``): those three modules run
+in the promoted type of their inputs and weights.
 """
 from __future__ import annotations
 
@@ -39,13 +39,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.func import functional_call
 
 from ..core import diffusion as diff
 from ..core.diffusion import DiffusionConfig
 from ..core.schedules import cosine_gamma, right_pad_dims_to
 from ..device import resolve_device
-from ..nn.common import ConvModule
+from ..nn.common import ConvModule, promoted
 from ..nn.convnext import ConvNeXt, convnext_variant
 from ..nn.fpn import FPN, MultiStageMerging
 from ..nn.heads import DeformableDepthHead
@@ -53,21 +52,6 @@ from ..nn.losses import sig_loss
 from ..nn.swin import SwinTransformer, swin_variant
 from ..nn.time_embed import TimeMLP
 from ..ops.resize import resize
-
-
-def _promoted(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
-    """``module(*args)`` computed in the promoted type of the float ``args``
-    and the module's parameters, as JAX promotes bf16 weights against
-    float32 activations: the inputs are cast to it, and the parameters too
-    (through ``functional_call``, so gradients reach them) where they differ."""
-    params = dict(module.named_parameters())
-    dtype = args[0].dtype
-    for a in list(args[1:]) + list(params.values()):
-        dtype = torch.promote_types(dtype, a.dtype)
-    args = tuple(a.to(dtype) for a in args)
-    if all(p.dtype == dtype for p in params.values()):
-        return module(*args)
-    return functional_call(module, {n: p.to(dtype) for n, p in params.items()}, args)
 
 
 class DDPDepther(nn.Module):
@@ -124,9 +108,9 @@ class DDPDepther(nn.Module):
         """Fuse the features with the noisy latent and decode metric depth
         [B, h, w, 1] ([B, 4h, 4w, 1] for the 'upconv' head)."""
         dtype = torch.promote_types(x.dtype, depth_t.dtype)
-        feat = _promoted(self.down, torch.cat([x.to(dtype), depth_t.to(dtype)], dim=-1))
-        t_emb = _promoted(self.time_mlp, t)  # the raw t (ddp.py:137)
-        return _promoted(self.decode_head, feat, t_emb)
+        feat = promoted(self.down, torch.cat([x.to(dtype), depth_t.to(dtype)], dim=-1))
+        t_emb = promoted(self.time_mlp, t)  # the raw t (ddp.py:137)
+        return promoted(self.decode_head, feat, t_emb)
 
     # --- training --------------------------------------------------------
     def forward(self, img: torch.Tensor, depth_gt: torch.Tensor,

@@ -61,7 +61,7 @@ class DDPSegmentor(nn.Module):
                  bit_scale: float = 0.01, diffusion: DiffusionConfig = DiffusionConfig(),
                  align_corners: bool = False, decoder_layers: int = 6,
                  decoder_heads: int = 8, decoder_ffn_dim: int = 1024,
-                 decoder_attn: str = "window", decoder_window: int = 8,
+                 decoder_attn: str = "msda", decoder_window: int = 8,
                  decoder_film: str = "v1", decoder_pos: str = "sine",
                  aux_weight: float = 0.4, drop_path_rate: float = 0.3,
                  self_aligned: bool = False, loss_at: str = "full",

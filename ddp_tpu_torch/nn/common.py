@@ -26,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +58,21 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         return x
     mask = _keep_mask(x.shape, rate, generator, x.device)
     return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def promoted(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
+    """``module(*args)`` computed in the promoted type of the float ``args``
+    and the module's parameters, as JAX promotes bf16 weights against
+    float32 activations: the inputs are cast to it, and the parameters too
+    (through ``functional_call``, so gradients reach them) where they differ."""
+    params = dict(module.named_parameters())
+    dtype = args[0].dtype
+    for a in list(args[1:]) + list(params.values()):
+        dtype = torch.promote_types(dtype, a.dtype)
+    args = tuple(a.to(dtype) for a in args)
+    if all(p.dtype == dtype for p in params.values()):
+        return module(*args)
+    return functional_call(module, {n: p.to(dtype) for n, p in params.items()}, args)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

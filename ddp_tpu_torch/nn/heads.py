@@ -40,7 +40,7 @@ class DeformableHeadWithTime(nn.Module):
     initialised on, ``ddp_tpu/nn/heads.py:40-44``); a larger grid raises."""
 
     def __init__(self, num_classes: int, embed_dims: int = 256, num_layers: int = 6,
-                 num_heads: int = 8, ffn_dim: int = 1024, attn_type: str = "window",
+                 num_heads: int = 8, ffn_dim: int = 1024, attn_type: str = "msda",
                  film: str = "v1", pos_type: str = "sine", window: int = 8,
                  pos_grid: Tuple[int, int] = (50, 50)):
         super().__init__()

@@ -1,4 +1,4 @@
-"""Segmentation and depth losses (port of ``ddp_tpu/nn/losses.py:19-206``).
+"""Segmentation, depth and BEV losses (port of ``ddp_tpu/nn/losses.py:19-206``).
 
   - ``cross_entropy_seg``: pixel CE with ignore_index and mmseg's historical
     averaging (the NLL summed over valid pixels / all pixels).
@@ -7,12 +7,15 @@
     without materialising it: the plain version of the fused upsample+CE
     kernel (``ops/upsample_ce.py``), computed phase by phase.
   - ``sig_loss``: the depther's scale-invariant log loss (SigLoss).
+  - ``sigmoid_focal_loss``: the BEV map head's per-class loss (mmcv's,
+    element-wise, no reduction).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.upsample_ce import upsample_ce_fwd_plain
 
@@ -63,3 +66,14 @@ def sig_loss(pred: torch.Tensor, gt: torch.Tensor, valid: Optional[torch.Tensor]
     g = torch.where(valid, g, 0.0)
     dg = (g * g).sum() / n - lam * (g.sum() / n) ** 2
     return torch.sqrt(torch.clamp(dg, min=1e-12))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-element sigmoid focal loss (mmcv semantics, alpha 0.25, gamma 2),
+    no reduction; ``targets`` in {0, 1}, the logits' shape."""
+    alpha = 0.25
+    p = torch.sigmoid(logits)
+    ce = -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits))
+    p_t = p * targets + (1.0 - p) * (1.0 - targets)
+    alpha_t = alpha * targets + (1.0 - alpha) * (1.0 - targets)
+    return alpha_t * ((1.0 - p_t) ** 2) * ce

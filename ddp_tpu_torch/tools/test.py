@@ -20,7 +20,8 @@ on the Eigen crop (nyu, sunrgbd) or the Garg crop (kitti, cityscapes), and
 the nine depth metrics are printed on one line; ``--uncertainty`` also
 prints the mean across-hypothesis standard deviation and the mean width of
 the 80 % interval (10th to 90th percentile), in metres. Runs on the card
-unless ``--device cpu``.
+unless ``--device cpu``. A BEV preset is refused, as the JAX tool has no BEV
+branch: ``evaluation/convergence.py: eval_bev`` scores a BEV model.
 """
 from __future__ import annotations
 
@@ -59,6 +60,9 @@ def main(argv=None) -> int:
     from ..evaluation.slide import slide_inference
 
     cfg = get_config(args.preset, dict(kv.split("=", 1) for kv in args.set))
+    if cfg.model.task == "bev":
+        raise SystemExit("task 'bev' has no test CLI (the JAX tools/test.py has no BEV "
+                         "branch); evaluation/convergence.py: eval_bev scores a BEV model")
     if cfg.model.task not in ("seg", "depth"):
         raise SystemExit(f"task {cfg.model.task!r} is not ported yet")
     rt = cfg.runtime

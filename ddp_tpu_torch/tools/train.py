@@ -6,8 +6,9 @@
 Builds the preset's config with the overrides, its train batch iterator
 (``data/__init__.py: make_train_iter``: synthetic data, an ADE20K or
 Cityscapes tree for a segmentor, a nyu, kitti, sunrgbd or cityscapes depth
-split for a depther such as ``nyu_swin_t``, under ``data.data_root``) and
-runs ``train/loop.py: train``
+split for a depther such as ``nyu_swin_t``, under ``data.data_root``; the
+synthetic camera rig for a BEV preset such as ``smoke_bev``) and runs
+``train/loop.py: train``
 on the card (``--device cpu`` for the CPU). The JAX tool's ``--yaml`` overlay
 and ``--distributed`` multi-device run are not ported (ROADMAP.md queue 1).
 """

@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Iterator, Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,15 @@ from ..device import resolve_device
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
 from .step import TrainState, make_chunked_train_step
+
+
+def batch_keys(task: str) -> Tuple[str, ...]:
+    """The batch values a task's model takes, in order."""
+    if task == "bev":
+        from ..data.bev_datasets import BEV_BATCH_KEYS
+
+        return BEV_BATCH_KEYS
+    return ("image", "label")
 
 
 class MetricLogger:
@@ -71,12 +80,14 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
           init_params: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
     """Run ``cfg.runtime.total_iters`` steps on ``device`` (default "cuda";
     raises without a GPU unless ``device="cpu"``), ``runtime.steps_per_dispatch``
-    per dispatch. ``data_iter`` yields host batches {'image': [B, H, W, 3],
-    'label': [B, H, W]} (int classes for a segmentor, float metric depth for
-    a depther); with ``resume`` it must yield the batches from the
-    restored step on. ``init_params``: a state_dict (parameters and BN
-    statistics) loaded strictly into the fresh model before the optimizer is
-    built, as the JAX loop's ``init_params`` replaces its init."""
+    per dispatch. ``data_iter`` yields host batches of the task's keys:
+    {'image': [B, H, W, 3], 'label': [B, H, W]} (int classes for a
+    segmentor, float metric depth for a depther), or ``BEV_BATCH_KEYS`` for
+    ``task="bev"`` (as ``ddp_tpu/train/loop.py:94-100`` picks them); with
+    ``resume`` it must yield the batches from the restored step on.
+    ``init_params``: a state_dict (parameters and BN statistics) loaded
+    strictly into the fresh model before the optimizer is built, as the JAX
+    loop's ``init_params`` replaces its init."""
     rt = cfg.runtime
     dev = resolve_device(device)
     model = build_model(cfg.model, device=dev, seed=rt.seed, input_size=cfg.data.crop_size)
@@ -118,13 +129,15 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
             print(f"[warn] runtime.{name}={interval} is not a multiple of "
                   f"steps_per_dispatch={spd}; the hook fires at the chunk-end step after "
                   "each crossing", flush=True)
-    chunk_fn = make_chunked_train_step(spd, mixed_precision=rt.mixed_precision)
+    keys = batch_keys(cfg.model.task)
+    chunk_fn = make_chunked_train_step(spd, mixed_precision=rt.mixed_precision,
+                                       batch_keys=keys)
     step = start_step
     while step < rt.total_iters:
         n = min(spd, rt.total_iters - step)
         chunk = [next(data_iter) for _ in range(n)]
         logs = chunk_fn(state, {k: torch.from_numpy(np.stack([c[k] for c in chunk]))
-                                for k in ("image", "label")})
+                                for k in keys})
         prev, step = step, step + n
         crossings = [s for s in range(prev + 1, step + 1) if s % rt.log_interval == 0]
         if prev == start_step and prev + 1 not in crossings:

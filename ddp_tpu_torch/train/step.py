@@ -7,16 +7,22 @@ statistics update inside the forward, chunk after chunk, as the JAX package
 threads them through its scan. Parameters, optimizer moments and BN
 statistics are updated in place (PyTorch's idiom; JAX returns a new state).
 
-The model is a ``DDPSegmentor`` ('label' an int map, 255 = ignore) or a
-``DDPDepther`` ('label' float metric depth, <= 0 = invalid); both take
-``(image, label, t=, noise=, generator=)`` and return ``(loss, logs)``.
+The model is called with the batch values named by ``batch_keys``,
+positionally and in order, as the JAX step calls its module
+(``ddp_tpu/train/state.py:54``), plus ``t=, noise=, generator=``, and returns
+``(loss, logs)``: ("image", "label") for a ``DDPSegmentor`` ('label' an int
+map, 255 = ignore) or a ``DDPDepther`` ('label' float metric depth, <= 0 =
+invalid), the rig tuple ``data/bev_datasets.py: BEV_BATCH_KEYS`` for a
+``DDPBEVCamera``.
 
 ``mixed_precision=True`` is the JAX package's bf16 policy: the forward and
-backward run on bf16 copies of the parameters and of the float inputs (the
-image, a depth label, the noise; ``torch.func.functional_call``), so the
-gradients land as float32 on the
-float32 master parameters; the optimizer state and the loss stay float32.
-No ``torch.autocast``: it chooses per-op types of its own.
+backward run on bf16 copies of the parameters and of every float32 batch
+value (the image, a depth label or BEV masks, the rig's rotations,
+translations and intrinsics, the noise; ``torch.func.functional_call``), so
+the gradients land as float32 on the float32 master parameters; the
+optimizer state and the loss stay float32. A given ``t`` stays float32 (JAX
+draws it in float32). No ``torch.autocast``: it chooses per-op types of its
+own.
 
 The step's random draws (t, the noise, dropout and drop-path masks) come
 from ``state.generator``; a batch may carry ``t`` [B] and ``noise``
@@ -50,10 +56,11 @@ def _to_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16) if x.dtype == torch.float32 else x
 
 
-def _chunk(batch: Dict[str, torch.Tensor], i: int, n: int) -> Dict[str, torch.Tensor]:
-    """The i-th of n equal chunks along the batch axis; ``noise`` given as
-    [B·h·w, C] rows is split by image."""
-    b = batch["image"].shape[0]
+def _chunk(batch: Dict[str, torch.Tensor], i: int, n: int,
+           lead: str) -> Dict[str, torch.Tensor]:
+    """The i-th of n equal chunks along the batch axis of ``batch[lead]``;
+    ``noise`` given as [B·h·w, C] rows is split by image."""
+    b = batch[lead].shape[0]
     size = b // n
     out = {}
     for key, v in batch.items():
@@ -70,28 +77,30 @@ class TrainStep:
     host synchronisation). ``grads(state, batch)`` is the forward and
     backward alone, for timing."""
 
-    def __init__(self, microbatch: int = 1, mixed_precision: bool = False):
+    def __init__(self, microbatch: int = 1, mixed_precision: bool = False,
+                 batch_keys: Tuple[str, ...] = ("image", "label")):
         if microbatch < 1:
             raise ValueError(f"microbatch must be >= 1, got {microbatch}")
         self.microbatch = microbatch
         self.mixed_precision = mixed_precision
+        self.batch_keys = tuple(batch_keys)
 
     def _loss(self, model: nn.Module, params: Dict[str, torch.Tensor],
               chunk: Dict[str, torch.Tensor], generator: torch.Generator):
         kwargs = {"t": chunk.get("t"), "noise": chunk.get("noise"), "generator": generator}
-        img, gt = chunk["image"], chunk["label"]
+        args = tuple(chunk[k] for k in self.batch_keys)
         if not self.mixed_precision:
-            return model(img, gt, **kwargs)
+            return model(*args, **kwargs)
         low = {name: p.to(torch.bfloat16) for name, p in params.items()}
         if kwargs["noise"] is not None:
             kwargs["noise"] = _to_bf16(kwargs["noise"])
-        return functional_call(model, low, (_to_bf16(img), _to_bf16(gt)), kwargs)
+        return functional_call(model, low, tuple(_to_bf16(a) for a in args), kwargs)
 
     def grads(self, state: TrainState, batch: Dict[str, torch.Tensor]
               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
         model = state.model
         model.train()
-        b = batch["image"].shape[0]
+        b = batch[self.batch_keys[0]].shape[0]
         if b % self.microbatch:
             raise ValueError(f"batch {b} does not split into {self.microbatch} chunks")
         params = dict(model.named_parameters())
@@ -99,7 +108,8 @@ class TrainStep:
         total: Optional[List[torch.Tensor]] = None
         chunk_logs = []
         for i in range(self.microbatch):
-            loss, logs = self._loss(model, params, _chunk(batch, i, self.microbatch),
+            loss, logs = self._loss(model, params,
+                                    _chunk(batch, i, self.microbatch, self.batch_keys[0]),
                                     state.generator)
             g = torch.autograd.grad(loss.float(), leaves, allow_unused=True)
             g = [torch.zeros_like(p) if x is None else x.float() for x, p in zip(g, leaves)]
@@ -119,12 +129,14 @@ class TrainStep:
         return logs
 
 
-def make_train_step(microbatch: int = 1, mixed_precision: bool = False) -> TrainStep:
+def make_train_step(microbatch: int = 1, mixed_precision: bool = False,
+                    batch_keys: Tuple[str, ...] = ("image", "label")) -> TrainStep:
     """The train step (``ddp_tpu.train.state.make_train_step``): batches are
-    dicts of tensors on the model's device, 'image' [B, H, W, 3] float and
-    'label' [B, H, W]: int classes (255 = ignore) for a segmentor, float
-    metric depth (<= 0 = invalid) for a depther."""
-    return TrainStep(microbatch, mixed_precision)
+    dicts of tensors on the model's device holding ``batch_keys``: 'image'
+    [B, H, W, 3] float and 'label' [B, H, W] (int classes, 255 = ignore, for
+    a segmentor; float metric depth, <= 0 = invalid, for a depther), or a BEV
+    batch's cameras, rig and masks (``BEV_BATCH_KEYS``)."""
+    return TrainStep(microbatch, mixed_precision, batch_keys)
 
 
 class _Captured(NamedTuple):
@@ -154,11 +166,12 @@ class ChunkedTrainStep:
     chunk and the capture, not the replays. A capture or replay that fails
     raises: there is no eager fallback. On the CPU (the tests) the same n steps run eagerly."""
 
-    def __init__(self, chunk: int, microbatch: int = 1, mixed_precision: bool = False):
+    def __init__(self, chunk: int, microbatch: int = 1, mixed_precision: bool = False,
+                 batch_keys: Tuple[str, ...] = ("image", "label")):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         self.chunk = chunk
-        self.step = TrainStep(microbatch, mixed_precision)
+        self.step = TrainStep(microbatch, mixed_precision, batch_keys)
         self.capture_s: Dict[int, float] = {}  # host seconds of each capture
         self._graphs: Dict[int, _Captured] = {}
         self._stream: Optional[torch.cuda.Stream] = None
@@ -173,7 +186,7 @@ class ChunkedTrainStep:
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         opt = state.optimizer
-        n = batches["image"].shape[0]
+        n = batches[self.step.batch_keys[0]].shape[0]
         if not 1 <= n <= self.chunk:
             raise ValueError(f"a chunk of {n} steps; this step takes 1 to {self.chunk}")
         sched = opt.schedule(n)
@@ -244,8 +257,9 @@ class ChunkedTrainStep:
         return {k: v.clone() for k, v in cap.logs.items()}
 
 
-def make_chunked_train_step(chunk: int, microbatch: int = 1,
-                            mixed_precision: bool = False) -> ChunkedTrainStep:
+def make_chunked_train_step(chunk: int, microbatch: int = 1, mixed_precision: bool = False,
+                            batch_keys: Tuple[str, ...] = ("image", "label")
+                            ) -> ChunkedTrainStep:
     """``chunk`` train steps per dispatch (``ddp_tpu.train.state.
     make_chunked_train_step``); see ``ChunkedTrainStep``."""
-    return ChunkedTrainStep(chunk, microbatch, mixed_precision)
+    return ChunkedTrainStep(chunk, microbatch, mixed_precision, batch_keys)

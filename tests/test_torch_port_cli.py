@@ -3,10 +3,12 @@ the CPU.
 
   - Presets field by field against ``ddp_tpu.config``: every preset the
     two packages share (the Cityscapes ConvNeXt and Swin families, the
-    aligned fine-tunes, ``smoke``, the ADE20K and end-check presets, the
-    NYUv2 and KITTI Swin depthers; the end checks' workdirs differ on
-    purpose, ``work_dirs/torch_*``); every
+    aligned fine-tunes, ``smoke``, the ADE20K Swin family, the end-check
+    presets, the NYUv2 and KITTI Swin depthers, the BEV camera presets; the
+    end checks' workdirs differ on purpose, ``work_dirs/torch_*``); every
     field of the port's dataclasses exists in the JAX package's.
+  - The dataclasses' defaults field by field: the same fields but those
+    still to port (named in ``NOT_PORTED``), the same values.
   - ``get_config`` overrides coerced as the JAX package coerces them
     (bools, ints, floats, tuples, nested dataclasses); an unknown key raises
     in both.
@@ -49,8 +51,11 @@ def test_presets_match_jax_field_by_field():
     assert {"cityscapes_convnext_t", "cityscapes_convnext_s", "cityscapes_convnext_b",
             "cityscapes_convnext_l", "cityscapes_swin_t", "cityscapes_swin_l",
             "cityscapes_convnext_t_aligned", "cityscapes_convnext_l_aligned", "smoke",
-            "ade20k_swin_t", "converge_seg_window", "converge_seg_msda", "converge_depth",
-            *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")} <= set(SHARED)
+            "ade20k_swin_t", "ade20k_swin_s", "ade20k_swin_b", "ade20k_swin_l",
+            "converge_seg_window", "converge_seg_msda", "converge_seg_quarter",
+            "converge_seg_w16h4", "converge_depth", "nuscenes_camera", "converge_bev",
+            "smoke_bev", *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")
+            } <= set(SHARED)
     for name in SHARED:
         port, ref = _fields(tconfig.get_config(name)), _fields(jconfig.get_config(name))
         missing = sorted(set(port) - set(ref))
@@ -63,6 +68,32 @@ def test_presets_match_jax_field_by_field():
     assert (city.model.num_classes, city.data.crop_size, city.data.batch_size,
             city.model.drop_path_rate, city.model.decoder_window,
             city.model.decoder_heads) == (19, (512, 1024), 16, 0.4, 16, 4)
+
+
+# the JAX fields whose slices are still to port (ROADMAP.md queue 1): the
+# lidar branch's and sparse conv's (BEV fusion), ControlNet's, and the data
+# loader's worker count (the host pipeline)
+NOT_PORTED = {
+    "ModelConfig": {"bev_lidar_channels", "bev_lidar_dense_hw", "bev_lidar_dense_z",
+                    "bev_sparse_shape", "bev_voxel_caps", "bev_voxel_size", "cn_size",
+                    "cn_image_size", "cn_scale_factor", "cn_vae_ch", "cn_vae_nrb",
+                    "cn_vae_mult"},
+    "DataConfig": {"num_workers"}, "OptimConfig": set(), "RuntimeConfig": set()}
+
+
+@pytest.mark.parametrize("cls", sorted(NOT_PORTED))
+def test_defaults_match_jax_field_by_field(cls):
+    """Each config dataclass built with no arguments in both packages: the
+    same fields but those still to port, each with the same default (the
+    port's decoder_attn is JAX's 'msda')."""
+    port, ref = getattr(tconfig, cls)(), getattr(jconfig, cls)()
+    pf, rf = _fields(port), _fields(ref)
+    skipped = {k for k in rf if k.split(".")[0] in NOT_PORTED[cls]}
+    assert skipped == NOT_PORTED[cls]  # each named field is a JAX field
+    assert set(pf) == set(rf) - skipped
+    assert {k: v for k, v in pf.items() if v != rf[k]} == {}
+    if cls == "ModelConfig":
+        assert port.decoder_attn == ref.decoder_attn == "msda"
 
 
 @pytest.mark.parametrize("key,value", [

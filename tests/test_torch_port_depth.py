@@ -384,8 +384,8 @@ def test_build_model_depth():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(mc)
-    with pytest.raises(NotImplementedError, match="bev"):
-        build_model(dataclasses.replace(mc, task="bev"), device="cpu")
+    with pytest.raises(NotImplementedError, match="bev_fusion"):
+        build_model(dataclasses.replace(mc, task="bev_fusion"), device="cpu")
 
 
 def _depth_batch(mc, b=2, seed=0):

@@ -116,7 +116,9 @@ def test_port_imports_no_jax():
             "ddp_tpu_torch.data.pipelines, ddp_tpu_torch.evaluation.convergence, "
             "ddp_tpu_torch.data.image_io, ddp_tpu_torch.nn.convnext, "
             "ddp_tpu_torch.evaluation.slide, ddp_tpu_torch.train.torch_import, "
-            "ddp_tpu_torch.tools.train, ddp_tpu_torch.tools.test; "
+            "ddp_tpu_torch.tools.train, ddp_tpu_torch.tools.test, ddp_tpu_torch.models.bev, "
+            "ddp_tpu_torch.nn.bev, ddp_tpu_torch.ops.bev_pool, ddp_tpu_torch.data.bev_datasets, "
+            "ddp_tpu_torch.data.transforms_3d, ddp_tpu_torch.models.depther; "
             # Pillow only inside read_image's JPEG branch, never at import
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu', 'PIL')); print(bad); "

@@ -12,10 +12,15 @@
     interceptor, which also makes ``nn.Dropout`` the identity), and the
     self-aligned branch's noise is captured from its first ``denoise_logits``
     call and handed to the port.
-  - The optimizer against ``make_optimizer``'s optax chain, the decay mask and
-    lr multipliers of every parameter of ``ade20k_swin_t``.
-  - microbatching, ``train()`` on SyntheticSegDataset, bit-exact resume, and
-    the statistics of dropout and drop path.
+  - The decay mask and lr multipliers of every parameter of
+    ``ade20k_swin_t``, the lr and momentum schedules, the statistics of
+    dropout and drop path, Swin's drop-path rates.
+
+The optimizer against optax and microbatching are in
+``test_torch_port_train_opt.py``, ``train()``'s loss curve and its default
+device in ``test_torch_port_train_loop.py``, the bit-exact resume in
+``test_torch_port_train_resume.py`` (files of their own, so that a parallel
+run spreads them); they import their helpers from here.
 """
 import dataclasses
 
@@ -23,7 +28,6 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -35,11 +39,8 @@ from ddp_tpu.ops.pallas.q_sample import fused_q_sample
 from ddp_tpu.train import optim as joptim
 from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.convert import load_flax, params_from_flax
-from ddp_tpu_torch.data.seg_datasets import SyntheticSegDataset
 from ddp_tpu_torch.nn.common import drop_path, dropout
 from ddp_tpu_torch.train import optim as toptim
-from ddp_tpu_torch.train.checkpoint import CheckpointManager
-from ddp_tpu_torch.train.loop import train
 from ddp_tpu_torch.train.step import TrainState, make_train_step
 
 MEAN = np.array([123.675, 116.28, 103.53], np.float32)
@@ -234,54 +235,6 @@ def test_bf16_train_step_matches_jax():
     assert np.median(rel) <= 2.0 ** -5, np.median(rel)
 
 
-def _opt_cases():
-    base = dict(lr=1e-3, total_steps=20, weight_decay=0.05)
-    return {
-        # grad_clip 0.5 is far below the random gradients' norm: clip active
-        "warmup_poly_clip": dict(base, warmup_steps=3, warmup_ratio=1e-3, grad_clip=0.5),
-        "cyclic": dict(base, schedule="cyclic", total_steps=8, grad_clip=100.0),
-        "layer_decay": dict(base, warmup_steps=0, grad_clip=100.0, layer_decay_rate=0.8),
-    }
-
-
-@pytest.mark.parametrize("case", sorted(_opt_cases()))
-def test_optimizer_matches_optax(case):
-    cfg_kw = _opt_cases()[case]
-    m = get_config("tiny_seg").model
-    jm = _jax_model(m, decoder_attn="window")
-    params = jax.jit(lambda: jm.init(
-        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1),
-         "dropout": jax.random.PRNGKey(2)},
-        jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64), jnp.int32), train=False))()["params"]
-    tx = joptim.make_optimizer(joptim.OptimConfig(**cfg_kw), params)
-    peak_lr = cfg_kw["lr"] * (10.0 if cfg_kw.get("schedule") == "cyclic" else 1.0)
-    opt_state = tx.init(params)
-    tm = build_model(m, device="cpu")
-    sd = params_from_flax(_np(params))
-    with torch.no_grad():
-        for name, p in tm.named_parameters():
-            p.copy_(sd[name])
-    topt = toptim.make_optimizer(toptim.OptimConfig(**cfg_kw), tm)
-    rng = np.random.RandomState(0)
-    update = jax.jit(lambda g, s, p: tx.update(g, s, p))
-    for _ in range(5):
-        grads = jax.tree_util.tree_map(
-            lambda a: jnp.asarray(rng.randn(*a.shape).astype(np.float32)), params)
-        upd, opt_state = update(grads, opt_state, params)
-        params = optax.apply_updates(params, upd)
-        tg = params_from_flax(_np(grads))
-        g_norm = topt.step([tg[name] for name in topt.names])
-        np.testing.assert_allclose(g_norm.item(), float(optax.global_norm(grads)), rtol=1e-6)
-    want = params_from_flax(_np(params))
-    for name, p in tm.named_parameters():
-        # atol 1e-5 x the peak lr: XLA's float32 pow makes optax's bias
-        # corrections (decay ** count) ~1e-6 relative off the correctly
-        # rounded value (measured), which moves each step by ~lr * 1e-6; rtol
-        # cannot hold that for parameters near 0
-        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=1e-6,
-                                   atol=1e-5 * peak_lr, err_msg=name)
-
-
 @pytest.mark.parametrize("layer_decay", [None, 0.9])
 def test_decay_mask_and_lr_mults_match_jax(layer_decay):
     """Every parameter of ade20k_swin_t: the port's (lr_mult, decay) from its
@@ -330,78 +283,6 @@ def test_lr_schedules_match_jax():
         np.testing.assert_allclose(tmom(step), float(jm(step)), rtol=1e-6)
 
 
-def _tiny_state(seed=0, **model_kw):
-    cfg = get_config("tiny_seg")
-    model = _no_dropout(build_model(dataclasses.replace(cfg.model, drop_path_rate=0.0,
-                                                        **model_kw), device="cpu", seed=seed))
-    return TrainState(model, toptim.make_optimizer(cfg.optim, model),
-                      torch.Generator().manual_seed(seed))
-
-
-def test_microbatch_matches_full_batch():
-    """Fixed t and noise; aux_weight 0 takes BatchNorm (whose statistics are
-    per chunk) off the path, so the two chunkings give the same gradients."""
-    img, gt = _batch((64, 64), b=4)
-    rng = np.random.RandomState(2)
-    batch = {"image": torch.from_numpy(img), "label": torch.from_numpy(gt),
-             "t": torch.from_numpy(rng.uniform(0, 0.999, 4).astype(np.float32)),
-             "noise": torch.from_numpy(rng.randn(4 * 16 * 16, 64).astype(np.float32))}
-    got = {}
-    for mb in (1, 2):
-        state = _tiny_state(aux_weight=0.0)
-        got[mb] = make_train_step(microbatch=mb).grads(state, batch)
-    (g1, l1), (g2, l2) = got[1], got[2]
-    np.testing.assert_allclose(l1["loss"].item(), l2["loss"].item(), rtol=1e-5)
-    for a, b in zip(g1, g2):
-        assert (a - b).abs().max().item() <= 1e-5 * a.abs().max().item() + 1e-7
-
-
-def _batches(ds, batch_size, start=0):
-    i = start * batch_size
-    while True:
-        items = [ds.load(j % len(ds)) for j in range(i, i + batch_size)]
-        i += batch_size
-        yield {"image": np.stack([(it["image"] - MEAN) / STD for it in items]),
-               "label": np.stack([it["label"] for it in items])}
-
-
-def _loop_cfg(tmp_path, total, **rt):
-    cfg = get_config("tiny_seg")
-    return dataclasses.replace(
-        cfg,
-        optim=dataclasses.replace(cfg.optim, schedule="constant", lr=1e-3, grad_clip=1.0),
-        runtime=dataclasses.replace(cfg.runtime, total_iters=total, log_interval=1,
-                                    ckpt_interval=total, workdir=str(tmp_path),
-                                    mixed_precision=False, tensorboard=False, **rt))
-
-
-def test_train_loop_loss_falls(tmp_path):
-    ds = SyntheticSegDataset(num_classes=7, size=(64, 64), length=64)
-    cfg = _loop_cfg(tmp_path, 20)
-    train(cfg, _batches(ds, 2), device="cpu")
-    import json
-
-    with open(tmp_path / "train_log.jsonl") as f:
-        losses = [json.loads(line)["loss"] for line in f]
-    assert len(losses) == 20 and np.isfinite(losses).all()
-    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
-    assert CheckpointManager(str(tmp_path)).latest_step() == 20
-
-
-def test_resume_is_bit_exact(tmp_path):
-    """6 steps straight vs 3 steps, a checkpoint, and a resumed 3 more."""
-    ds = SyntheticSegDataset(num_classes=7, size=(64, 64), length=64)
-    full = train(_loop_cfg(tmp_path / "a", 6), _batches(ds, 2), device="cpu")
-    train(_loop_cfg(tmp_path / "b", 3), _batches(ds, 2), device="cpu")
-    resumed = train(_loop_cfg(tmp_path / "b", 6), _batches(ds, 2, start=3), resume=True,
-                    device="cpu")
-    assert resumed.step == full.step == 6
-    a, b = full.model.state_dict(), resumed.model.state_dict()
-    for name in a:
-        assert torch.equal(a[name], b[name]), name
-    assert torch.equal(full.generator.get_state(), resumed.generator.get_state())
-
-
 def test_dropout_and_drop_path_statistics():
     g = torch.Generator().manual_seed(0)
     x = torch.ones(20000, 8)
@@ -425,10 +306,3 @@ def test_swin_drop_path_rates_match_jax():
              if name.startswith("stage")]
     np.testing.assert_allclose(rates, np.linspace(0, 0.3, 12))
     assert model.aux_head.dropout == 0.1
-
-
-def test_train_defaults_to_cuda(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is visible: the default device is valid here")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        train(_loop_cfg(tmp_path, 1), iter(()))
