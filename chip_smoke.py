@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases build,converge_msda     # the msda end checks
     python3 chip_smoke.py --phases build,converge_depth    # the depth end check
     python3 chip_smoke.py --phases build,converge_bev      # the BEV end check
+    python3 chip_smoke.py --phases build,converge_bev_fusion   # the fusion end check
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A busy share is the union of the intervals of the kernels and copies that
@@ -157,31 +158,60 @@ ms_deform_attn range and by the backward nodes made there.
                memory, no kernel launched), graph against eager on 2 scenes
                with deterministic algorithms on; the host's batch of 8 with
                the 3D aug; python -m ddp_tpu_torch.tools.train smoke_bev.
- 23. converge - (only when named) the end check: converge_seg_window's 1500
+ 23. fusion_reference - smoke_fusion (2 cameras of 32 x 64, a 24-channel
+               lidar branch) on the card and on the CPU from the same weights
+               and batch (rulebooks included): the loss with fixed t and noise
+               (1e-5 relative) and sample()'s scores (1e-4); the gather-GEMM
+               Function against its plain version on the card at
+               nuscenes_fusion's capacities (a dense cloud fills them):
+               forward 1e-5, both gradients 1e-4 of their max, with ms; the
+               host's voxelize and rulebook ms for that cloud.
+ 24. fusion_main - serving nuscenes_fusion at full width (the camera model
+               of bev_main plus the lidar branch: 12 sparse conv layers on a
+               1024 x 1024 x 41 voxel grid at capacities 120,000 / 60,000 /
+               30,000 / 15,000 / 15,000, a 128^2 x 256 lidar BEV, the
+               ConvFuser) on one scene of the synthetic fusion rig: scores in
+               [0, 1], no kernel launched, sample() and
+               sample_with_uncertainty() ms, scenes/s, busy share (profiled
+               and unprofiled), peak memory, extract_lidar_dense's and
+               extract_bev_feat's ms, the host's ms per scene.
+ 25. fusion_train - nuscenes_fusion at the preset's batch of 8 scenes (f32 at
+               the largest that fits, with the peak and error of those that
+               do not): f32 and bf16 through the bev_train case (eager, graph
+               against eager on 2 scenes with deterministic algorithms on, a
+               graphed chunk of 5 steps), the host's batch of 8.
+ 26. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 24. graph_grads - (only when named) where the graphed and the eager step
+ 27. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 25. replay_records - (only when named) how often a profile of one
+ 28. replay_records - (only when named) how often a profile of one
                CUDA-graph replay (ade20k_swin_t_msda, 10 bf16 steps) lacks
                kernel records, with and without the pauses after the
                profile starts and before it stops that every other phase
                takes.
- 26. converge_msda - (only when named) the msda end checks:
+ 29. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
- 27. converge_depth - (only when named) the depth end check: converge_depth's
+ 30. converge_depth - (only when named) the depth end check: converge_depth's
                1500 iterations through train() and eval_depth's abs_rel,
                rmse and a1 at 1, 3 and 10 DDIM steps beside
                work_dirs/converge_depth/result.json of the JAX package.
- 28. converge_bev - (only when named) the BEV end check: converge_bev's 2500
+ 31. converge_bev - (only when named) the BEV end check: converge_bev's 2500
                iterations through train() and eval_bev's map mIoU at 1, 3 and
                10 DDIM steps beside work_dirs/converge_bev/result.json of the
                JAX package.
+ 32. converge_bev_fusion - (only when named) the fusion end check:
+               converge_bev_fusion's 2500 iterations through train() and
+               eval_bev_fusion's map mIoU at 1 and 3 DDIM steps beside
+               work_dirs/converge_bev_fusion/result.json of the JAX package.
+ 33. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
+               iterations (the CE on the quarter-scale logits) and eval_seg
+               beside work_dirs/converge_seg_quarter/result.json.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -190,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
@@ -314,12 +345,16 @@ def phase_device():
 
 
 def phase_build():
+    from ddp_tpu_torch import native
     from ddp_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": _build.library_path()})
+    t1 = time.perf_counter()
+    native.load_library()  # the lidar branch's host C++ (g++)
+    emit({"phase": "build", "seconds": round(t1 - t0, 3), "library": _build.library_path(),
+          "host_ops_seconds": round(time.perf_counter() - t1, 3),
+          "host_ops_library": native.library_path()})
 
 
 # --- kernels ----------------------------------------------------------------
@@ -1012,7 +1047,8 @@ def profile_call(fn, path=None, header=""):
     """(busy, launches of the port's kernels) of one profiled call of
     ``fn``; where the call ran the MSDA op or ``bev_pool`` eagerly, busy
     also gives its kernels' device ms (forward and backward) and their share
-    of the device's busy time. The per-kernel table is written to ``path``
+    of the device's busy time, as for the fusion model's ``lidar_branch``
+    range (models/bev_fusion.py). The per-kernel table is written to ``path``
     when given."""
     p, wall_ms = profiled(fn, timed=True)
     if path:
@@ -1024,10 +1060,11 @@ def profile_call(fn, path=None, header=""):
     if msda:
         line.update(msda_op_device_ms=sum(msda), msda_op_backward_device_ms=msda[1],
                     msda_op_share_of_device=sum(msda) / line["device_busy_ms"])
-    pool = msda_op_ms(p, "bev_pool")
-    if pool:
-        line.update(bev_pool_device_ms=sum(pool), bev_pool_backward_device_ms=pool[1],
-                    bev_pool_share_of_device=sum(pool) / line["device_busy_ms"])
+    for name in ("bev_pool", "lidar_branch"):
+        op = msda_op_ms(p, name)
+        if op:
+            line.update({f"{name}_device_ms": sum(op), f"{name}_backward_device_ms": op[1],
+                         f"{name}_share_of_device": sum(op) / line["device_busy_ms"]})
     return line, kernel_launches(p)
 
 
@@ -1347,7 +1384,9 @@ def restore(state, snap):
 
 
 def stacked(batch, n):
-    return {k: torch.stack([v] * n) for k, v in batch.items()}
+    from ddp_tpu_torch.train.step import tree_map
+
+    return {k: tree_map(lambda x: torch.stack([x] * n), v) for k, v in batch.items()}
 
 
 # a graphed step's or a resumed run's parameters against the reference's:
@@ -2386,7 +2425,9 @@ def converge_case(preset: str, smi: str):
     ref_dir = os.path.join("work_dirs", preset)
     with open(os.path.join(ref_dir, "result.json")) as f:
         ref = json.load(f)
-    ref_loss = _log_steps(ref_dir)[-1]
+    # the JAX run's last logged loss, where it kept its train log
+    has_log = os.path.exists(os.path.join(ref_dir, "train_log.jsonl"))
+    ref_loss = _log_steps(ref_dir)[-1] if has_log else {"loss": None, "step": None}
     t0 = time.perf_counter()
     result = run(preset)
     wall = time.perf_counter() - t0
@@ -2964,33 +3005,40 @@ def bev_pool_cost(batch, model) -> dict:
     return out
 
 
-def fit_batch(cfg, want: int):
+def fit_batch(cfg, want: int, scenes=None, keys=BEV_KEYS, phase: str = "bev_train"):
     """The largest of want, want/2, ... scenes whose eager f32 step fits on
-    the card: (b, batch on the device)."""
+    the card: (b, batch on the device, the errors of the batches that did
+    not fit, with the peak memory each reached). ``scenes(cfg, b)``: the
+    batch maker (default ``bev_scenes`` with the aug)."""
     from ddp_tpu_torch.config import build_model
     from ddp_tpu_torch.train.optim import make_optimizer
     from ddp_tpu_torch.train.step import TrainState, make_train_step
 
-    b = want
+    scenes = scenes or (lambda cfg, b: bev_scenes(cfg, b, seed=6))
+    b, misses = want, []
     while b >= 1:
-        batch = bev_scenes(cfg, b, seed=6)
+        batch = scenes(cfg, b)
         model = build_model(cfg.model, device="cuda", seed=0)
         state = TrainState(model, make_optimizer(cfg.optim, model),
                            torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
         try:
-            make_train_step(batch_keys=BEV_KEYS)(state, batch)
+            make_train_step(batch_keys=keys)(state, batch)
             torch.cuda.synchronize()
-            return b, batch
-        except torch.cuda.OutOfMemoryError:
+            return b, batch, misses
+        except torch.cuda.OutOfMemoryError as e:
+            misses.append({"batch": b, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "error": str(e).splitlines()[0][:300]})
             b //= 2
         finally:
             del model, state
             torch.cuda.empty_cache()
-    raise AssertionError("bev_train: not even one scene's step fits on the card")
+    raise AssertionError(f"{phase}: not even one scene's step fits on the card")
 
 
 def bev_graph_case(cfg, mixed: bool, batch, check_batch, smi: str, profile: str = None,
-                   n: int = 10):
+                   n: int = 10, keys=BEV_KEYS, phase: str = "bev_train",
+                   stage_from_host: bool = False):
     """The BEV train step at ``batch``: eager (wall ms, launches, peak
     memory), graph against eager on ``check_batch`` (a 2-step chunk,
     deterministic algorithms on, graph_vs_eager's limits: it runs eager steps
@@ -2998,10 +3046,16 @@ def bev_graph_case(cfg, mixed: bool, batch, check_batch, smi: str, profile: str 
     fit beside a graph in 80 GB), and a graphed chunk of ``n`` steps at
     ``batch``: wall ms per step (one replay), scenes/s, the busy share and
     the launches of one profiled replay, peak memory and what was live
-    before, capture s."""
+    before, capture s; the device ms of one profiled eager step, with the
+    share of it that the ``bev_pool`` and ``lidar_branch`` ranges take.
+    ``stage_from_host``: the capture reads the chunk's batches from the host,
+    so that the graph's static inputs are the only copy on the card while it
+    is captured; the timed replays then copy a device copy of them in, as
+    the other cases' replays do."""
     from ddp_tpu_torch.config import build_model
     from ddp_tpu_torch.train.optim import make_optimizer
-    from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
+    from ddp_tpu_torch.train.step import (TrainState, make_chunked_train_step, make_train_step,
+                                          tree_map)
 
     b = batch["image"].shape[0]
     model = build_model(cfg.model, device="cuda", seed=0)
@@ -3009,50 +3063,62 @@ def bev_graph_case(cfg, mixed: bool, batch, check_batch, smi: str, profile: str 
                        torch.Generator(device="cuda").manual_seed(0))
     state.optimizer.count = cfg.optim.warmup_steps  # as graph_case: lr past the warm-up
     tag = "bf16" if mixed else "f32"
-    eager = make_train_step(mixed_precision=mixed, batch_keys=BEV_KEYS)
+    eager = make_train_step(mixed_precision=mixed, batch_keys=keys)
     eager(state, batch)
     reset_all_launches()
     loss = eager(state, batch)["loss"].item()
     eager_launches = all_launches()
     if eager_launches != NO_KERNELS or not 0 < loss < float("inf"):
-        raise AssertionError(f"bev_train {tag}: launches {eager_launches}, loss {loss}")
+        raise AssertionError(f"{phase} {tag}: launches {eager_launches}, loss {loss}")
     torch.cuda.reset_peak_memory_stats()
     eager_s = wall_s(lambda: eager(state, batch), reps=1, warmup=0)
     eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_busy, _ = profile_call(lambda: eager(state, batch))
     with deterministic_algorithms(True) as warned:
-        held = make_chunked_train_step(2, mixed_precision=mixed, batch_keys=BEV_KEYS)
+        held = make_chunked_train_step(2, mixed_precision=mixed, batch_keys=keys)
         held(state, stacked(check_batch, 2))
         check = graph_vs_eager(state, held, eager, check_batch, 2)
     del held
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     live = torch.cuda.memory_allocated() / 1e9
-    chunk = make_chunked_train_step(n, mixed_precision=mixed, batch_keys=BEV_KEYS)
+    chunk = make_chunked_train_step(n, mixed_precision=mixed, batch_keys=keys)
     chunk_batch = stacked(batch, n)
+    if stage_from_host:
+        chunk_batch = tree_map(lambda x: x.cpu(), chunk_batch)
+    line = {"phase": phase, "preset": cfg.name, "batch": [b, 6, 256, 704, 3],
+            "dtype": "bf16 forward/backward, f32 master weights (the rig and masks cast to "
+                     "bf16, the geometry float32)" if mixed else "float32, tf32 off",
+            "eager": {"wall_ms_per_step": eager_s * 1e3, "launches": eager_launches,
+                      "peak_mem_gb": eager_peak, "profiled": eager_busy},
+            "graph_vs_eager_n2_deterministic_algorithms": dict(
+                check, batch=list(check_batch["image"].shape)),
+            "deterministic_algorithms_warnings": warned, "card": smi}
     chunk(state, chunk_batch)  # n eager steps on the capture stream, then the capture
+    if stage_from_host:
+        chunk_batch = tree_map(lambda x: x.cuda(), chunk_batch)
     sec = wall_s(lambda: chunk(state, chunk_batch), reps=1, warmup=0) / n
     peak = torch.cuda.max_memory_allocated() / 1e9
     replay_busy, launched = profile_call(
-        lambda: chunk(state, chunk_batch), profile and f"{profile}.bev_{tag}_n{n}",
-        f"# one replay of {n} graphed nuscenes_camera {tag} train steps, {smi}\n")
+        lambda: chunk(state, chunk_batch), profile and f"{profile}.{phase}_{tag}_n{n}",
+        f"# one replay of {n} graphed {cfg.name} {tag} train steps, {smi}\n")
     replayed = {k: v / n for k, v in launched.items()}
     if replayed != NO_KERNELS:
-        raise AssertionError(f"bev_train {tag}: the card ran {launched} in one replay")
-    emit({"phase": "bev_train", "preset": cfg.name, "batch": [b, 6, 256, 704, 3],
-          "dtype": "bf16 forward/backward, f32 master weights (the rig and masks cast to "
-                   "bf16, the geometry float32)" if mixed else "float32, tf32 off",
-          "eager": {"wall_ms_per_step": eager_s * 1e3, "launches": eager_launches,
-                    "peak_mem_gb": eager_peak},
-          f"graph_n{n}": {"wall_ms_per_step": sec * 1e3, "scenes_per_s": b / sec,
-                          "img_per_s": b * cfg.model.bev_num_cams / sec,
-                          "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
-                          "busy_share": replay_busy["busy_share"],
-                          "launches_per_replayed_step": replayed,
-                          "capture_s": chunk.capture_s[n], "live_before_gb": live,
-                          "peak_mem_gb": peak},
-          "graph_vs_eager_n2_deterministic_algorithms": dict(
-              check, batch=list(check_batch["image"].shape)),
-          "deterministic_algorithms_warnings": warned, "card": smi})
+        raise AssertionError(f"{phase} {tag}: the card ran {launched} in one replay")
+    line[f"graph_n{n}"] = {"wall_ms_per_step": sec * 1e3, "scenes_per_s": b / sec,
+                           "img_per_s": b * cfg.model.bev_num_cams / sec,
+                           "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
+                           "busy_share": replay_busy["busy_share"],
+                           "launches_per_replayed_step": replayed,
+                           "capture_s": chunk.capture_s[n], "live_before_gb": live,
+                           "peak_mem_gb": peak,
+                           "batch_copy": "each replay copies its batch into the graph's "
+                                         "inputs, card to card"}
+    for name in ("bev_pool", "lidar_branch"):  # the eager step's range, the replay's kernels
+        if f"{name}_device_ms" in eager_busy:
+            line[f"graph_n{n}"][f"{name}_share_of_replayed_step"] = (
+                eager_busy[f"{name}_device_ms"] / (replay_busy["device_busy_ms"] / n))
+    emit(line)
     del chunk, model, state
     torch.cuda.empty_cache()
     return replayed
@@ -3073,7 +3139,7 @@ def phase_bev_train(smi: str, profile: str = None):
 
     cfg = get_config("nuscenes_camera")
     want = cfg.data.batch_size
-    b, batch = fit_batch(cfg, want)
+    b, batch, _ = fit_batch(cfg, want)
     pool = bev_pool_cost(batch, build_model(cfg.model, device="meta"))
     check_batch = {k: v[:2] for k, v in batch.items()}
     graphed = bev_graph_case(cfg, False, batch, check_batch, smi, profile)
@@ -3149,13 +3215,367 @@ def phase_converge_bev(smi: str):
         raise AssertionError(f"converge_bev: did not learn ({result})")
 
 
+# --- BEV fusion (camera + lidar) -----------------------------------------------------
+
+FUSION_KEYS = ("image", "cam2lidar_rots", "cam2lidar_trans", "intrins", "post_rots",
+               "post_trans", "voxel_feats", "rulebooks", "label")
+
+
+def fusion_dataset(cfg, length: int = 8, cls=None):
+    """The synthetic fusion rig at cfg's cameras, grid, voxels and capacities
+    (``cls``: a subclass of SyntheticFusionDataset)."""
+    from ddp_tpu_torch.data.bev_datasets import SyntheticFusionDataset
+
+    mc = cfg.model
+    return (cls or SyntheticFusionDataset)(sparse_shape=mc.bev_sparse_shape, caps=mc.bev_voxel_caps,
+                                  voxel_size=mc.bev_voxel_size, num_cams=mc.bev_num_cams,
+                                  image_size=mc.bev_image_size, out_grid=mc.bev_out_grid,
+                                  num_classes=mc.num_classes, scope=mc.bev_xbound[1],
+                                  length=length)
+
+
+def fusion_scenes(cfg, b: int, seed: int = 0, device="cuda"):
+    """A fusion_batch_iterator batch of b scenes (rulebooks included) as
+    tensors on ``device``."""
+    from ddp_tpu_torch.data.bev_datasets import fusion_batch_iterator
+    from ddp_tpu_torch.train.step import tree_map
+
+    batch = next(fusion_batch_iterator(fusion_dataset(cfg, max(b, 8)), b, seed=seed,
+                                       mean=cfg.data.mean, std=cfg.data.std))
+    return {k: tree_map(lambda x: torch.from_numpy(x).to(device), v) for k, v in batch.items()}
+
+
+def dense_cloud(mc, n: int = 400_000, seed=0):
+    """n points (from ``default_rng(seed)``) spread over mc's voxel range (x, y uniform in the scope, z
+    over the 8.2 m of the grid; intensity and lag uniform): enough that every
+    level of the nuScenes rulebooks fills to its capacity."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s, nz = mc.bev_xbound[1], mc.bev_sparse_shape[2] * mc.bev_voxel_size[2]
+    pts = rng.uniform(0.0, 1.0, (n, 5)).astype(np.float32)
+    pts[:, :2] = pts[:, :2] * 2 * s - s
+    pts[:, 2] = pts[:, 2] * nz - 5.0
+    return pts, (-s, -s, -5.0, s, s, nz - 5.0)
+
+
+def fusion_dense_dataset(cfg, length: int):
+    """fusion_dataset(cfg) with each scene's sweep replaced by dense_cloud's
+    (seeded by the scene and the epoch), voxelized at 10 points a voxel as
+    the nuScenes reader does: every level of the rulebooks fills to its
+    capacity."""
+    from ddp_tpu_torch.data.bev_datasets import (SyntheticBEVDataset, SyntheticFusionDataset,
+                                                 lidar_inputs)
+
+    class DenseClouds(SyntheticFusionDataset):
+        def load(self, idx, noise_seed=None):
+            pts, _ = dense_cloud(cfg.model, seed=(idx, noise_seed or 0))
+            return lidar_inputs(SyntheticBEVDataset.load(self, idx), pts, self.pc_range,
+                                self.voxel_size, 10, self.sparse_shape, self.caps)
+
+    return fusion_dataset(cfg, length, DenseClouds)
+
+
+def host_lidar_ms(mc, pts, pc_range, reps: int = 3) -> dict:
+    """Median host ms of hard_voxelize and of the encoder's rulebooks for one
+    cloud, with the voxels and active sites per level."""
+    from ddp_tpu_torch import native
+    from ddp_tpu_torch.nn.sparse_conv import build_sparse_encoder_rulebooks
+
+    caps = mc.bev_voxel_caps
+    vox = _host_ms(lambda: native.hard_voxelize(pts, pc_range, mc.bev_voxel_size, 10,
+                                                caps[0]), reps)
+    _, coords, _, nv = native.hard_voxelize(pts, pc_range, mc.bev_voxel_size, 10, caps[0])
+    rb_ms = _host_ms(lambda: build_sparse_encoder_rulebooks(coords, nv, mc.bev_sparse_shape,
+                                                            caps), reps)
+    rb = build_sparse_encoder_rulebooks(coords, nv, mc.bev_sparse_shape, caps)
+    active = {k: int((rb[k] >= 0).any(axis=0).sum()) for k in
+              ("subm1", "subm2", "subm3", "subm4", "down")}
+    return {"points": len(pts), "voxelize_ms": vox, "rulebooks_ms": rb_ms,
+            "voxels": nv, "active_sites": active, "caps": list(caps)}, rb
+
+
+def check_gather_gemm(mc, rb) -> list:
+    """The gather-GEMM Function against its plain version on the card at the
+    preset's capacities (one scene's rulebooks, filled by a dense cloud):
+    the forward within 1e-5 of its max, the features' and the weight's
+    gradients within 1e-4·max|g|; forward and forward + backward ms."""
+    from ddp_tpu_torch.nn import sparse_conv as S
+
+    caps = mc.bev_voxel_caps
+    cases = [("subm1", caps[0], 5, 16), ("spconv2", caps[0], 16, 32),
+             ("subm2", caps[1], 32, 32), ("spconv4", caps[2], 64, 64),
+             ("subm4", caps[3], 64, 64), ("down", caps[3], 64, mc.bev_lidar_channels)]
+    g = _gen(61)
+    rows = []
+    for key, v_in, cin, cout in cases:
+        gather = torch.from_numpy(rb[key]).cuda()
+        feats = torch.randn(v_in, cin, generator=g).cuda()
+        weight = (torch.randn(gather.shape[0], cin, cout, generator=g)
+                  / (gather.shape[0] * cin) ** 0.5).cuda()
+        cot = torch.randn(gather.shape[1], cout, generator=g).cuda()
+        res = {}
+        for name, fn in (("function", S.sparse_conv_gather_gemm),
+                         ("plain", S.sparse_conv_gather_gemm_plain)):
+            f, w = feats.clone().requires_grad_(True), weight.clone().requires_grad_(True)
+            out = fn(f, gather, w)
+            df, dw = torch.autograd.grad(out, (f, w), cot)
+            res[name] = (out.detach(), df, dw)
+            reps = 10 if name == "function" else 3  # the plain backward takes ~0.2-0.8 s
+            fwd = time_ms(lambda: fn(feats, gather, weight), reps=reps)
+            both = time_ms(lambda: torch.autograd.grad(fn(f, gather, w), (f, w), cot),
+                           reps=reps)
+            res[name + "_ms"] = (fwd, both)
+        (o, df, dw), (op, dfp, dwp) = res["function"], res["plain"]
+        errs = {"out": (o - op).abs().max().item() / op.abs().max().item(),
+                "dfeats": (df - dfp).abs().max().item() / dfp.abs().max().item(),
+                "dweight": (dw - dwp).abs().max().item() / dwp.abs().max().item()}
+        row = {"rulebook": key, "feats": [v_in, cin], "gather": list(gather.shape),
+               "cout": cout, "valid_entries": int((gather >= 0).sum().item()),
+               "rel_err": errs, "function_fwd_ms": res["function_ms"][0],
+               "function_fwd_bwd_ms": res["function_ms"][1], "plain_fwd_ms": res["plain_ms"][0],
+               "plain_fwd_bwd_ms": res["plain_ms"][1]}
+        rows.append(row)
+        if not (errs["out"] <= 1e-5 and errs["dfeats"] <= 1e-4 and errs["dweight"] <= 1e-4):
+            raise AssertionError(f"fusion_reference: gather-GEMM {key} vs plain {errs}")
+        del feats, weight, cot, res, o, df, dw, op, dfp, dwp
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fusion_reference(smi: str):
+    """smoke_fusion (2 cameras of 32 x 64, a 24-channel lidar branch, a 32-d
+    msda decoder) on the card and on the CPU from the same weights and the
+    same batch (rulebooks included), t and noise: the loss within 1e-5
+    relative and sample()'s scores within 1e-4. Then the gather-GEMM
+    Function against its plain version on the card at nuscenes_fusion's
+    capacities (check_gather_gemm)."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.train.step import tree_map
+
+    cfg = get_config("smoke_fusion")
+    mc = cfg.model
+    batch = fusion_scenes(cfg, 2, seed=1, device="cpu")
+    g = _gen(57)
+    t = torch.rand(2, generator=g) * 0.999
+    noise = torch.randn(2, 16, 16, mc.embed_dims, generator=g)
+    init = torch.randn(mc.diffusion.randsteps * 2, 16, 16, mc.embed_dims, generator=g)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(mc, device=dev, seed=0).train()
+        on = {k: tree_map(lambda x: x.to(dev), v) for k, v in batch.items()}
+        loss, _ = model(*(on[k] for k in FUSION_KEYS), t=t.to(dev), noise=noise.to(dev))
+        s = model.eval().sample(*(on[k] for k in FUSION_KEYS[:-1]), noise=init.to(dev))
+        check_scores(s, (2, mc.bev_out_grid, mc.bev_out_grid, mc.num_classes),
+                     f"fusion_reference {dev}")
+        res[dev] = (loss.item(), s.cpu())
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    diff = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+    big = get_config("nuscenes_fusion").model
+    pts, pc_range = dense_cloud(big)
+    host, rb = host_lidar_ms(big, pts, pc_range)
+    gemm = check_gather_gemm(big, rb)
+    out = {"phase": "fusion_reference", "preset": cfg.name, "cameras": [2, 32, 64],
+           "loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0], "loss_rel_diff": rel,
+           "sample_max_abs_diff": diff, "limits": "loss 1e-5 relative, scores 1e-4; "
+           "gather-GEMM vs plain: out 1e-5, gradients 1e-4 of their max",
+           "gather_gemm_at_nuscenes_fusion_caps": gemm, "dense_cloud_host": host, "card": smi}
+    emit(out)
+    if not (rel <= 1e-5 and diff <= 1e-4):
+        raise AssertionError(f"fusion_reference: card vs CPU loss rel {rel}, scores {diff}")
+
+
+def phase_fusion_main(smi: str, profile: str = None):
+    """Serving nuscenes_fusion at full width (6 cameras of 256 x 704, Swin-T,
+    LSS; the lidar branch on a 1024 x 1024 x 41 voxel grid at capacities
+    120,000 / 60,000 / 30,000 / 15,000 / 15,000, a 128^2 x 256-channel lidar
+    BEV; the ConvFuser, 5 window-decoder layers on the 200^2 grid, 3 DDIM
+    steps x 5 randsteps; random weights, seed 0) on one scene of the
+    synthetic fusion rig: scores in [0, 1], no kernel launched, sample() and
+    sample_with_uncertainty() wall ms (median of 5), scenes/s, busy share
+    (profiled and unprofiled), peak memory, extract_lidar_dense's and
+    extract_bev_feat's ms, and the host's ms for the scene (load with and
+    without the lidar part; fusion_reference times a dense cloud that fills
+    the capacities)."""
+    import numpy as np
+
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.data.bev_datasets import SyntheticBEVDataset
+    from ddp_tpu_torch.train.step import tree_map
+
+    cfg = get_config("nuscenes_fusion")
+    mc = cfg.model
+    model = build_model(mc, device="cuda", seed=0)
+    ds = fusion_dataset(cfg)
+    scene = ds.load(3)
+    mean, std = np.asarray(cfg.data.mean, np.float32), np.asarray(cfg.data.std, np.float32)
+    scene["image"] = (scene["image"] - mean) / std
+    args = [tree_map(lambda x: torch.from_numpy(np.asarray(x)[None]).cuda(), scene[k])
+            for k in FUSION_KEYS[:-1]]
+    r = mc.diffusion.randsteps
+    noise = torch.randn(r, 128, 128, mc.embed_dims, generator=_gen(59)).cuda()
+    shape = (1, mc.bev_out_grid, mc.bev_out_grid, mc.num_classes)
+    reset_all_launches()
+    scores = model.sample(*args, noise=noise)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != NO_KERNELS:
+        raise AssertionError(f"fusion_main: kernels launched on the fusion path: {launches}")
+    check_scores(scores, shape, "fusion_main")
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    sec = wall_s(lambda: model.sample(*args, noise=noise))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy_line, card_launches = profile_call(
+        lambda: model.sample(*args, noise=noise), profile and f"{profile}.fusion_sample",
+        f"# one nuscenes_fusion sample(), 6 x 256x704 + lidar, {smi}\n")
+    if card_launches != NO_KERNELS:
+        raise AssertionError(f"fusion_main: the card ran {card_launches}")
+    with torch.no_grad():
+        lidar_ms = wall_s(lambda: model.extract_lidar_dense(args[6], args[7])) * 1e3
+        enc_ms = wall_s(lambda: model.extract_bev_feat(*args)) * 1e3
+    unc_s = wall_s(lambda: model.sample_with_uncertainty(*args, noise=noise))
+    s2, unc = model.sample_with_uncertainty(*args, noise=noise)
+    check_scores(s2, shape, "fusion_main uncertainty")
+    if not ((unc["variance"] >= 0).all() and torch.isfinite(unc["variance"]).all()):
+        raise AssertionError("fusion_main: invalid variance map")
+    load_ms = _host_ms(lambda: ds.load(5), 3)
+    camera_ms = _host_ms(lambda: SyntheticBEVDataset.load(ds, 5), 3)
+    rb = scene["rulebooks"]
+    emit({"phase": "fusion_main", "preset": cfg.name, "cameras": [6, 256, 704],
+          "voxel_caps": list(mc.bev_voxel_caps), "sparse_shape": list(mc.bev_sparse_shape),
+          "scene_voxels": int((rb["subm1"][13] >= 0).sum()),
+          "scene_active_down": int(rb["down_valid"].sum()),
+          "bev_latent": [128, 128, mc.embed_dims], "out_grid": mc.bev_out_grid,
+          "decoder": f"{mc.decoder_attn}, {mc.decoder_layers} layers",
+          "timesteps": mc.diffusion.timesteps, "randsteps": r, "dtype": "float32, tf32 off",
+          "sample_ms": sec * 1e3, "scenes_per_s": 1 / sec, **busy_line,
+          "busy_share_unprofiled": busy_line["device_busy_ms"] / (sec * 1e3),
+          "live_before_gb": live, "peak_mem_gb": peak, "extract_lidar_dense_ms": lidar_ms,
+          "extract_bev_feat_ms": enc_ms, "sample_with_uncertainty_ms": unc_s * 1e3,
+          "mean_variance": unc["variance"].mean().item(),
+          "host_scene_load_ms": load_ms, "host_scene_camera_part_ms": camera_ms,
+          "host_scene_voxelize_rulebooks_ms": load_ms - camera_ms,
+          "launches": launches, "card": smi})
+    del model, args, noise
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_fusion_train(smi: str, profile: str = None):
+    """Training nuscenes_fusion at the preset's batch of 8 scenes of the
+    synthetic fusion rig (the largest power-of-two batch whose f32 step fits,
+    with the measured peak and error of those that did not): f32 (TF32 off)
+    and bf16 through bev_graph_case (the eager step, graph against eager on
+    2 scenes with deterministic algorithms on, a graphed chunk of 5 steps:
+    ms, scenes/s, busy share, peak memory, capture s, no kernel launched);
+    the host's fusion_batch_iterator batch of 8."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data.bev_datasets import fusion_batch_iterator
+
+    cfg = get_config("nuscenes_fusion")
+    want = cfg.data.batch_size
+    b, batch, misses = fit_batch(cfg, want, lambda cfg, b: fusion_scenes(cfg, b, seed=6),
+                                 FUSION_KEYS, "fusion_train")
+
+    def head(bt, m):
+        return {k: (v[:m] if k != "rulebooks" else {kk: x[:m] for kk, x in v.items()})
+                for k, v in bt.items()}
+
+    check_batch = head(batch, 2)
+    if b < want:
+        batch = fusion_scenes(cfg, want, seed=6)
+    bev_graph_case(cfg, True, batch, check_batch, smi, profile, n=5, keys=FUSION_KEYS,
+                   phase="fusion_train", stage_from_host=True)
+    # f32 at the preset's batch where its eager step fits, else (or where its
+    # graph does not fit) at the largest batch that does
+    graphed, f32_batch = None, b
+    while graphed is None:
+        try:
+            graphed = bev_graph_case(cfg, False, head(batch, f32_batch), check_batch, smi,
+                                     profile, n=5, keys=FUSION_KEYS, phase="fusion_train",
+                                     stage_from_host=True)
+        except torch.cuda.OutOfMemoryError as e:
+            misses.append({"batch": f32_batch, "graph": "the graphed f32 chunk did not fit",
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "error": str(e).splitlines()[0][:400]})
+        if graphed is None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            f32_batch //= 2
+            if f32_batch < 1:
+                raise AssertionError(f"fusion_train: no graphed f32 step fits: {misses}")
+    b = f32_batch
+    host = {}
+    for what, ds in (("synthetic_rig", fusion_dataset(cfg, 512)),
+                     ("dense_clouds", fusion_dense_dataset(cfg, 512))):
+        it = fusion_batch_iterator(ds, want, seed=0)
+        host[what] = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            next(it)
+            host[what].append(time.perf_counter() - t0)
+    emit({"phase": "fusion_train", "preset": cfg.name, "batch_wanted": want, "batch_run_f32": b,
+          "batch_note": "the preset's batch" if b == want else
+          f"the preset's batch of {want} does not fit in f32: {b} is the largest that does",
+          "f32_batches_that_did_not_fit": misses, "host_batch_s": host,
+          "host_batch": f"fusion_batch_iterator, {want} scenes of 6 x 256x704 + lidar "
+                        "(voxelized, rulebooks; the first includes the iterator's start): "
+                        "the rig's 800-point sweeps, and dense_cloud's 400,000 points a scene "
+                        "at 10 a voxel (every level filled to its capacity)",
+          "card": smi})
+    return graphed
+
+
+def phase_converge_bev_fusion(smi: str):
+    """The fusion end check: converge_bev_fusion's 2500 iterations through
+    train() and eval_bev_fusion's map mIoU at 1 and 3 DDIM steps beside the
+    JAX package's work_dirs/converge_bev_fusion/result.json. The target
+    (within 0.02 of JAX at each horizon, 3 steps >= 1 step) is reported, not
+    enforced; the phase fails only on a run that did not learn (mIoU@3 below
+    0.2)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.evaluation.convergence import run
+
+    ref_dir = os.path.join("work_dirs", "converge_bev_fusion")
+    with open(os.path.join(ref_dir, "result.json")) as f:
+        ref = json.load(f)
+    ref_logs = _log_steps(ref_dir)
+    t0 = time.perf_counter()
+    result = run("converge_bev_fusion")
+    wall = time.perf_counter() - t0
+    own = _log_steps(get_config("converge_bev_fusion").runtime.workdir)
+    miou = {f"{t}step": {"port": result[f"map_mIoU@{t}step"], "jax": ref[f"map_mIoU@{t}step"],
+                         "diff": result[f"map_mIoU@{t}step"] - ref[f"map_mIoU@{t}step"],
+                         "port_std": result[f"map_mIoU@{t}step_std"],
+                         "jax_std": ref[f"map_mIoU@{t}step_std"]} for t in (1, 3)}
+    emit({"phase": "converge_bev_fusion", "iters": result["total_iters"], "map_mIoU": miou,
+          "within_0.02_of_jax": all(abs(v["diff"]) <= 0.02 for v in miou.values()),
+          "3step_at_least_1step": result["map_mIoU@3step"] >= result["map_mIoU@1step"],
+          "iou_class": {k: v for k, v in result.items() if k.startswith("iou_")},
+          "loss_curve": {"port": [[r["step"], r["loss"]] for r in own],
+                         "jax": [[r["step"], r["loss"]] for r in ref_logs]},
+          "steps_per_s_logged": [r["steps_per_s"] for r in own], "wall_s": wall, "card": smi})
+    if own[-1]["step"] != result["total_iters"] or not result["map_mIoU@3step"] >= 0.2:
+        raise AssertionError(f"converge_bev_fusion: did not learn ({result})")
+
+
+def phase_converge_seg_quarter(smi: str):
+    """The quarter-resolution CE end check: converge_seg_quarter's 1500
+    iterations (the loss on the 1/4-scale logits, the msda decoder) and
+    eval_seg's mIoU at 1, 3 and 10 steps beside the JAX package's
+    work_dirs/converge_seg_quarter/result.json (target: each within 0.01)."""
+    converge_case("converge_seg_quarter", smi)
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
-          "bev_reference", "bev_main", "bev_train", "converge", "graph_grads",
-          "replay_records", "converge_msda", "converge_depth", "converge_bev")
+          "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
+          "fusion_train", "converge", "graph_grads", "replay_records", "converge_msda",
+          "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter")
 ON_REQUEST = ("converge", "graph_grads", "replay_records", "converge_msda", "converge_depth",
-              "converge_bev")
+              "converge_bev", "converge_bev_fusion", "converge_seg_quarter")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
@@ -3165,8 +3585,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
                          "but converge, graph_grads, replay_records, converge_msda, "
-                         "converge_depth and "
-                         "converge_bev; serve needs main)")
+                         "converge_depth, converge_bev, converge_bev_fusion and "
+                         "converge_seg_quarter; serve needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -3219,10 +3639,20 @@ def main(argv=None) -> int:
         launches["bev_serve"] = phase_bev_main(smi, args.profile)
     if "bev_train" in phases:
         launches["bev_graph"] = phase_bev_train(smi, args.profile)
+    if "fusion_reference" in phases:
+        phase_fusion_reference(smi)
+    if "fusion_main" in phases:
+        launches["fusion_serve"] = phase_fusion_main(smi, args.profile)
+    if "fusion_train" in phases:
+        launches["fusion_graph"] = phase_fusion_train(smi, args.profile)
     if "converge_depth" in phases:
         phase_converge_depth(smi)
     if "converge_bev" in phases:
         phase_converge_bev(smi)
+    if "converge_bev_fusion" in phases:
+        phase_converge_bev_fusion(smi)
+    if "converge_seg_quarter" in phases:
+        phase_converge_seg_quarter(smi)
     if "converge" in phases:
         phase_converge(smi)
     if "converge_msda" in phases:
@@ -3267,7 +3697,10 @@ def main(argv=None) -> int:
                                 "2 x 416x544), profiled"),
                 ("bev_serve", "sample() of one 6-camera 256x704 scene, nuscenes_camera (BEV)"),
                 ("bev_graph", "replayed step of a 10-step CUDA graph (nuscenes_camera, BEV, "
-                              "the bev_train batch), profiled"))
+                              "the bev_train batch), profiled"),
+                ("fusion_serve", "sample() of one scene, nuscenes_fusion (camera + lidar BEV)"),
+                ("fusion_graph", "replayed step of a 5-step CUDA graph (nuscenes_fusion, f32, "
+                                 "the fusion_train batch), profiled"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -16,5 +16,7 @@ upsample + cross-entropy forward and backward, on hand-written CUDA kernels),
 with Swin or ConvNeXt backbones (the ADE20K and Cityscapes presets), the
 window or msda decoder, mmseg checkpoint import, slide inference, the
 ADE20K/Cityscapes datasets and the train/test entry points
-(``python -m ddp_tpu_torch.tools.train`` / ``tools.test``).
+(``python -m ddp_tpu_torch.tools.train`` / ``tools.test``); the NYUv2/KITTI
+depthers; camera-only and camera + lidar BEV map segmentation (the lidar
+branch's host C++ is built with g++ at first use, ``ddp_tpu_torch/native``).
 """

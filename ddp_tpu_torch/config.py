@@ -1,20 +1,21 @@
 """Configuration of the port (from ``ddp_tpu/config.py:19-172,206-294,334-347,
-447-463,569-581,640-673,746-763``).
+447-521,569-638,640-673,700-763``).
 
-Holds the segmentation, depth and BEV-camera fields of ``ModelConfig`` (the
-lidar, sparse-conv and ControlNet fields wait for their slices), the data
-fields, the ``OptimConfig`` and the ``RuntimeConfig`` fields the training
-loop and the test CLI read, the dotted-path overrides (``--set
+Holds the segmentation, depth, BEV-camera and BEV-fusion (lidar branch)
+fields of ``ModelConfig`` (the ControlNet fields wait for their slice), the
+data fields, the ``OptimConfig`` and the ``RuntimeConfig`` fields the
+training loop and the test CLI read, the dotted-path overrides (``--set
 model.bit_scale=0.1``), the ADE20K Swin family (``ade20k_swin_{t,s,b,l}``,
 window decoder) and ``ade20k_swin_t_msda`` (the reference's msda decoder),
 the Cityscapes ConvNeXt and Swin families
 (``cityscapes_{convnext,swin}_{t,s,b,l}``, ``cityscapes_convnext_{t,l}_aligned``),
 the NYUv2 and KITTI Swin depthers (``nyu_swin_{t,s,b,l}``,
-``kitti_swin_{t,s,b,l}``), the nuScenes camera-only BEV map segmentor
-(``nuscenes_camera``), the end checks ``converge_seg_window``,
-``converge_seg_msda``, ``converge_seg_aligned_msda``, ``converge_seg_quarter``,
-``converge_seg_w16h4``, ``converge_depth`` and ``converge_bev``, the test
-presets ``tiny_seg``, ``smoke`` and ``smoke_bev``, and ``build_model``. The
+``kitti_swin_{t,s,b,l}``), the nuScenes camera-only and camera+lidar BEV map
+segmentors (``nuscenes_camera``, ``nuscenes_fusion``), the end checks
+``converge_seg_window``, ``converge_seg_msda``, ``converge_seg_aligned_msda``,
+``converge_seg_quarter``, ``converge_seg_w16h4``, ``converge_depth``,
+``converge_bev`` and ``converge_bev_fusion``, the test presets ``tiny_seg``,
+``smoke``, ``smoke_bev`` and ``smoke_fusion``, and ``build_model``. The
 defaults are the JAX package's (``decoder_attn="msda"`` among them). The JAX
 package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
 queue 1).
@@ -84,6 +85,16 @@ class ModelConfig:
     bev_lss_channels: int = 80
     bev_depth_topk: int = 0
     bev_blocks: Tuple = ((2, 160, 2), (2, 320, 2), (2, 640, 1))
+    # BEV fusion's lidar branch (task='bev_fusion'): the sparse encoder's
+    # output channels, the dense lidar BEV's side and z planes, the voxel
+    # grid's shape, the voxel capacities of its levels (full, /2, /4, /8,
+    # down) and the voxel size in metres
+    bev_lidar_channels: int = 128
+    bev_lidar_dense_hw: int = 128
+    bev_lidar_dense_z: int = 2
+    bev_sparse_shape: Tuple[int, int, int] = (1024, 1024, 41)
+    bev_voxel_caps: Tuple = (120_000, 60_000, 30_000, 15_000, 15_000)
+    bev_voxel_size: Tuple[float, float, float] = (0.1, 0.1, 0.2)
 
 
 @dataclass(frozen=True)
@@ -341,6 +352,73 @@ PRESETS: Dict[str, Callable[[], Config]] = {
                               eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
                               workdir="work_dirs/torch_converge_bev"),
     ),
+    # the BEV fusion end check (ddp_tpu/config.py:492-521): converge_bev's
+    # camera model plus a 32-channel lidar branch on a 128 x 128 x 41 voxel
+    # grid of 0.125 m, capacities 1024/512/256/128/128, a 16^2 lidar BEV
+    "converge_bev_fusion": lambda: Config(
+        name="converge_bev_fusion",
+        model=ModelConfig(task="bev_fusion", backbone_type="swin", backbone_variant="nano",
+                          num_classes=3, embed_dims=48, decoder_layers=5, decoder_heads=8,
+                          decoder_ffn_dim=192, drop_path_rate=0.0, bit_scale=0.01,
+                          diffusion=DiffusionConfig(timesteps=3, randsteps=5),
+                          bev_image_size=(32, 64), bev_out_grid=20,
+                          bev_input_scope=((-8.0, 8.0, 1.0), (-8.0, 8.0, 1.0)),
+                          bev_output_scope=((-8.0, 8.0, 0.8), (-8.0, 8.0, 0.8)),
+                          bev_xbound=(-8.0, 8.0, 0.5), bev_ybound=(-8.0, 8.0, 0.5),
+                          bev_dbound=(1.0, 9.0, 1.0), bev_lss_channels=24,
+                          bev_blocks=((1, 32, 2), (1, 48, 1)),
+                          bev_lidar_channels=32, bev_lidar_dense_hw=16, bev_lidar_dense_z=2,
+                          bev_sparse_shape=(128, 128, 41),
+                          bev_voxel_caps=(1024, 512, 256, 128, 128),
+                          bev_voxel_size=(0.125, 0.125, 0.2)),
+        data=DataConfig(dataset="synthetic", batch_size=16, crop_size=(32, 64)),
+        optim=OptimConfig(lr=1e-3, grad_clip=5.0, total_steps=2500, warmup_steps=100,
+                          schedule="cosine"),
+        runtime=RuntimeConfig(total_iters=2500, log_interval=100, ckpt_interval=500,
+                              eval_interval=10_000, max_keep_ckpts=1, steps_per_dispatch=10,
+                              workdir="work_dirs/torch_converge_bev_fusion"),
+    ),
+    # nuScenes camera + lidar BEV map segmentation (bev/configs/nuscenes/seg/
+    # ddp-fusion-bev256d2-lss-scale001-d5-lr5e-5.yaml, as ddp_tpu/config.py:
+    # 584-596 builds it): nuscenes_camera plus the lidar branch at its
+    # defaults (0.1 x 0.1 x 0.2 m voxels in a 1024 x 1024 x 41 grid, a 128^2
+    # x 256-channel lidar BEV)
+    "nuscenes_fusion": lambda: Config(
+        name="nuscenes_fusion",
+        model=ModelConfig(task="bev_fusion", backbone_type="swin", backbone_variant="tiny",
+                          num_classes=6, bit_scale=0.01, decoder_layers=5,
+                          decoder_attn="window",
+                          diffusion=DiffusionConfig(timesteps=3, randsteps=5)),
+        data=DataConfig(dataset="nuscenes", batch_size=8, data_root=_DATA_ROOTS["nuscenes"],
+                        crop_size=(256, 704)),
+        optim=OptimConfig(lr=5e-5, grad_clip=35.0, total_steps=42_000, schedule="cosine",
+                          warmup_steps=1000),
+        runtime=RuntimeConfig(total_iters=42_000, ckpt_interval=2000, eval_interval=2000),
+    ),
+    # tiny CPU-runnable fusion preset (ddp_tpu/config.py:598-620): 2
+    # cameras, a 32-d msda decoder of 1 layer, 2 DDIM steps, 1 randstep, a
+    # 24-channel lidar branch at capacities 512/256/128/96/96
+    "smoke_fusion": lambda: Config(
+        name="smoke_fusion",
+        model=ModelConfig(task="bev_fusion", backbone_type="swin", backbone_variant="nano",
+                          num_classes=3, embed_dims=32, decoder_layers=1, decoder_heads=4,
+                          decoder_ffn_dim=64, drop_path_rate=0.0,
+                          diffusion=DiffusionConfig(timesteps=2, randsteps=1),
+                          bev_num_cams=2, bev_image_size=(32, 64), bev_out_grid=20,
+                          bev_input_scope=((-8.0, 8.0, 1.0), (-8.0, 8.0, 1.0)),
+                          bev_output_scope=((-8.0, 8.0, 0.8), (-8.0, 8.0, 0.8)),
+                          bev_xbound=(-8.0, 8.0, 0.5), bev_ybound=(-8.0, 8.0, 0.5),
+                          bev_dbound=(1.0, 9.0, 1.0), bev_lss_channels=16,
+                          bev_blocks=((1, 24, 2), (1, 32, 1)),
+                          bev_lidar_channels=24, bev_lidar_dense_hw=16, bev_lidar_dense_z=2,
+                          bev_sparse_shape=(128, 128, 41),
+                          bev_voxel_caps=(512, 256, 128, 96, 96),
+                          bev_voxel_size=(0.125, 0.125, 0.2)),
+        data=DataConfig(dataset="synthetic", batch_size=4, crop_size=(32, 64)),
+        optim=OptimConfig(lr=1e-3, total_steps=40, warmup_steps=5, grad_clip=5.0),
+        runtime=RuntimeConfig(total_iters=40, log_interval=10, ckpt_interval=40,
+                              eval_interval=1000, workdir="work_dirs/smoke_fusion"),
+    ),
     # tiny CPU-runnable BEV preset (ddp_tpu/config.py:621-638): 2 cameras,
     # a 32-d msda decoder of 1 layer, 2 DDIM steps, 2 randsteps
     "smoke_bev": lambda: Config(
@@ -455,8 +533,8 @@ def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0,
                 input_size: Optional[Tuple[int, int]] = None):
-    """DDPSegmentor (``task="seg"``), DDPDepther (``task="depth"``) or
-    DDPBEVCamera (``task="bev"``) for
+    """DDPSegmentor (``task="seg"``), DDPDepther (``task="depth"``),
+    DDPBEVCamera (``task="bev"``) or DDPBEVFusion (``task="bev_fusion"``) for
     ``cfg`` on ``device`` (default "cuda"; raises without a GPU unless a
     device is named), weights drawn from ``seed``. ``input_size``: the image
     size the model is built for (the training crop), which sizes a
@@ -490,12 +568,10 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             drop_path_rate=cfg.drop_path_rate, decoder_layers=cfg.decoder_layers,
             decoder_heads=cfg.decoder_heads, decoder_ffn_dim=cfg.decoder_ffn_dim,
             head_variant=cfg.depth_head_variant, depth_act=cfg.depth_act, device=device)
-    elif cfg.task == "bev":
-        from .models.bev import DDPBEVCamera
-
+    elif cfg.task in ("bev", "bev_fusion"):
         # the JAX package's build_model passes no decoder_window here: the
         # head keeps its default window of 8
-        model = DDPBEVCamera(
+        kw = dict(
             num_classes=cfg.num_classes, embed_dims=cfg.embed_dims, bit_scale=cfg.bit_scale,
             diffusion=cfg.diffusion, backbone_variant=cfg.backbone_variant,
             decoder_layers=cfg.decoder_layers, decoder_heads=cfg.decoder_heads,
@@ -506,6 +582,16 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             zbound=cfg.bev_zbound, dbound=cfg.bev_dbound,
             lss_out_channels=cfg.bev_lss_channels, depth_topk=cfg.bev_depth_topk,
             bev_blocks=cfg.bev_blocks, device=device)
+        if cfg.task == "bev":
+            from .models.bev import DDPBEVCamera
+
+            model = DDPBEVCamera(**kw)
+        else:
+            from .models.bev_fusion import DDPBEVFusion
+
+            model = DDPBEVFusion(lidar_channels=cfg.bev_lidar_channels,
+                                 lidar_dense_hw=cfg.bev_lidar_dense_hw,
+                                 lidar_dense_z=cfg.bev_lidar_dense_z, **kw)
     else:
         raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
     if next(model.parameters()).device.type != "meta":

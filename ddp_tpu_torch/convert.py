@@ -24,7 +24,11 @@ and its layer scale ``gamma`` keeps its name. So do the depther's (``down``,
 ``vtransform/{depthnet,down{i},down_bn{i}}``, ``bev_backbone/stage{s}_block{b}/
 {conv1,bn1,conv2,bn2,down_conv,down_bn}``, ``bev_neck/{fuse1,fuse2,up}``,
 ``transform``, ``time_mlp``, ``embedding_table``, ``decode_head``); a named
-BatchNorm's inner flax ``BatchNorm_0`` is dropped. Leaves are numpy arrays (or
+BatchNorm's inner flax ``BatchNorm_0`` is dropped; the fusion model's
+camera and head modules are the BEV camera model's, and its ``fuser_conv``
+is a ConvModule. Its sparse conv layers (``lidar_*``) keep flax's leaf names
+and layouts (``kernel`` [K, Cin, Cout], ``bn/{scale, bias}``, ``bn/{mean,
+var}``), so their leaves map as they are. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """
@@ -55,6 +59,8 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  "bias": "bias", "weights": "weights", "gamma": "gamma",
                  "relative_position_bias_table": "relative_position_bias_table"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+# top-level modules whose leaves keep their flax names and layouts
+_VERBATIM_PREFIX = "lidar_"
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -92,18 +98,36 @@ def _to_torch(leaf_name: str, value) -> torch.Tensor:
         return torch.from_numpy(a)
 
 
+def _verbatim(path: Tuple[str, ...], value) -> Optional[Tuple[str, torch.Tensor]]:
+    """A leaf of a module that carries flax's names and layouts (the fusion
+    model's sparse conv layers, ``lidar_*``: ``kernel`` [K, Cin, Cout],
+    ``bn/{scale, bias}``, batch stats ``bn/{mean, var}``): its dotted path
+    and the leaf as it is; None for every other leaf."""
+    if not path[0].startswith(_VERBATIM_PREFIX):
+        return None
+    return ".".join(path), _to_torch("", value)
+
+
 def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
                      ) -> Dict[str, torch.Tensor]:
     """Flax ``params`` (+ ``batch_stats``) -> torch state_dict. Raises on any
     flax leaf that no rule maps."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _walk(params):
+        same = _verbatim(path, value)
+        if same is not None:
+            sd[same[0]] = same[1]
+            continue
         *mod, leaf = path
         if leaf not in _PARAM_LEAVES:
             raise KeyError(f"no rule for flax leaf {'/'.join(path)}")
         key = ".".join(_module_path(tuple(mod)) + (_PARAM_LEAVES[leaf],))
         sd[key] = _to_torch(leaf, value)
     for path, value in _walk(batch_stats or {}):
+        same = _verbatim(path, value)
+        if same is not None:
+            sd[same[0]] = same[1]
+            continue
         *mod, leaf = path
         if leaf not in _STAT_LEAVES:
             raise KeyError(f"no rule for flax batch stat {'/'.join(path)}")

@@ -1,9 +1,8 @@
 """Data layer: datasets, pipelines, batch iterators.
 
 ``make_train_iter(cfg)`` builds the train batch iterator of a config, as
-``ddp_tpu/data/__init__.py`` does (its ``task="bev"``, ``task="depth"`` and
-``task="seg"`` branches, :73-130; the nuScenes camera reader comes with the
-fusion slice, ROADMAP.md queue 1).
+``ddp_tpu/data/__init__.py`` does (its ``task="bev_fusion"``, ``task="bev"``,
+``task="depth"`` and ``task="seg"`` branches, :40-130).
 """
 from __future__ import annotations
 
@@ -16,29 +15,50 @@ def make_train_iter(cfg):
     procedural ``SyntheticDepthDataset`` or a nyu, kitti, sunrgbd or
     cityscapes split file under ``data.data_root`` (``DepthDataset``),
     through ``depth_batch_iterator``. BEV camera: the procedural 512-scene
-    ``SyntheticBEVDataset`` rig through ``bev_batch_iterator`` with the 3D
-    aug (as JAX's always augments); ``dataset="nuscenes"`` raises
-    NotImplementedError (its reader is not ported; nothing stands in for it).
-    A tree whose train split holds nothing raises FileNotFoundError. Under
-    ``torch.distributed`` each process gets its rank's slice of every global
-    batch."""
+    ``SyntheticBEVDataset`` rig or a preprocessed nuScenes tree
+    (``NuScenesBEVDataset``, ``data.crop_size`` images) through
+    ``bev_batch_iterator`` with the 3D aug (as JAX's always augments). BEV
+    fusion: the 512-scene ``SyntheticFusionDataset`` or ``NuScenesFusionDataset``
+    at the model's voxel grid and capacities, through
+    ``fusion_batch_iterator``. A tree whose train split holds nothing raises
+    FileNotFoundError. Under ``torch.distributed`` each process gets its
+    rank's slice of every global batch."""
     import torch.distributed as dist
 
     rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
                    else (0, 1))
     d = cfg.data
     m = cfg.model
-    if m.task == "bev":
-        if d.dataset != "synthetic":
-            raise NotImplementedError(
-                f"BEV data {d.dataset!r}: the port reads only the synthetic rig so far; "
-                "NuScenesBEVDataset comes with the BEV fusion slice (ROADMAP.md queue 1)")
-        from .bev_datasets import SyntheticBEVDataset, bev_batch_iterator
+    if m.task == "bev_fusion":
+        from .bev_datasets import (NuScenesFusionDataset, SyntheticFusionDataset,
+                                   fusion_batch_iterator)
 
-        # 512 train scenes; the end check scores held-out indices
-        ds = SyntheticBEVDataset(num_cams=m.bev_num_cams, image_size=m.bev_image_size,
-                                 out_grid=m.bev_out_grid, num_classes=m.num_classes,
-                                 scope=m.bev_xbound[1], length=512)
+        lidar = dict(sparse_shape=m.bev_sparse_shape, caps=m.bev_voxel_caps,
+                     voxel_size=m.bev_voxel_size)
+        if d.dataset == "synthetic":
+            ds = SyntheticFusionDataset(num_cams=m.bev_num_cams, image_size=m.bev_image_size,
+                                        out_grid=m.bev_out_grid, num_classes=m.num_classes,
+                                        scope=m.bev_xbound[1], length=512, **lidar)
+        else:
+            ds = NuScenesFusionDataset(d.data_root, "train", image_size=d.crop_size,
+                                       out_grid=m.bev_out_grid, scope=m.bev_xbound[1], **lidar)
+            if len(ds) == 0:
+                raise FileNotFoundError(f"no nuScenes infos under {d.data_root}")
+        return fusion_batch_iterator(ds, d.batch_size, seed=cfg.runtime.seed, mean=d.mean,
+                                     std=d.std, rank=rank, world=world)
+    if m.task == "bev":
+        from .bev_datasets import NuScenesBEVDataset, SyntheticBEVDataset, bev_batch_iterator
+
+        if d.dataset == "synthetic":
+            # 512 train scenes; the end check scores held-out indices
+            ds = SyntheticBEVDataset(num_cams=m.bev_num_cams, image_size=m.bev_image_size,
+                                     out_grid=m.bev_out_grid, num_classes=m.num_classes,
+                                     scope=m.bev_xbound[1], length=512)
+        else:
+            ds = NuScenesBEVDataset(d.data_root, "train", image_size=d.crop_size,
+                                    out_grid=m.bev_out_grid)
+            if len(ds) == 0:
+                raise FileNotFoundError(f"no nuScenes infos under {d.data_root}")
         return bev_batch_iterator(ds, d.batch_size, seed=cfg.runtime.seed, mean=d.mean,
                                   std=d.std, rank=rank, world=world)
     if m.task == "depth":

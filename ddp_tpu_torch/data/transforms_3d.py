@@ -13,8 +13,10 @@ bev/mmdet3d/datasets/pipelines/transforms_3d.py).
 Every draw comes from the ``np.random.Generator`` passed in. Images are
 float32 [H, W, 3]; the sub-pixel resize and rotate go through Pillow's 'F'
 mode one channel at a time, as the JAX package's do (bitwise the same
-output); without Pillow they raise a named ImportError. The multi-sweep
-lidar aggregation comes with the fusion slice (ROADMAP.md queue 1).
+output); without Pillow they raise a named ImportError. The JAX package's
+multi-sweep lidar aggregation (``multi_sweep_points``) has no caller there
+and waits with the compat zoo (ROADMAP.md queue 1 item 3); the nuScenes
+fusion reader loads its sweeps itself (``data/bev_datasets.py``).
 """
 from __future__ import annotations
 

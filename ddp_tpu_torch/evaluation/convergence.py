@@ -1,6 +1,6 @@
-"""The end check of training: the segmentation, depth and BEV camera parts
-of the JAX package's convergence harness (``tools/run_convergence.py:43-46,
-102-262,589-720``).
+"""The end check of training: the segmentation, depth, BEV camera and BEV
+fusion parts of the JAX package's convergence harness
+(``tools/run_convergence.py:43-46,102-340,589-720``).
 
 A preset is trained through the real ``train()`` on its synthetic data
 (from scratch, or for ``converge_seg_aligned_msda`` fine-tuned from
@@ -10,17 +10,21 @@ rollout at T = 1, 3 and 10 over 32 held-out synthetic images (indices from
 100,000; training draws from [0, 256)), in batches of 8, averaged over 3
 seeds of the rollout noise: a segmentor by ``eval_seg`` (mIoU), a depther by
 ``eval_depth`` (abs_rel, rmse and a1), a BEV camera model by ``eval_bev``
-(map mIoU over 32 held-out synthetic scenes of its rig). The result is
-written to ``<workdir>/result.json`` in the JAX harness's format::
+(map mIoU over 32 held-out synthetic scenes of its rig), a camera + lidar
+model by ``eval_bev_fusion`` (the same over its fusion rig, at T = 1 and 3
+only, as the JAX harness). The result is written to
+``<workdir>/result.json`` in the JAX harness's format::
 
     python -m ddp_tpu_torch.evaluation.convergence converge_seg_window
     python -m ddp_tpu_torch.evaluation.convergence converge_depth
     python -m ddp_tpu_torch.evaluation.convergence converge_bev
+    python -m ddp_tpu_torch.evaluation.convergence converge_bev_fusion
 
 The JAX package's results are ``work_dirs/converge_seg_window``,
 ``work_dirs/converge_seg_msda``, ``work_dirs/converge_seg_aligned_msda``,
-``work_dirs/converge_depth`` and ``work_dirs/converge_bev``
-(``result.json``); the port's presets write under ``work_dirs/torch_*``.
+``work_dirs/converge_depth``, ``work_dirs/converge_bev`` and
+``work_dirs/converge_bev_fusion`` (``result.json``); the port's presets
+write under ``work_dirs/torch_*``.
 """
 from __future__ import annotations
 
@@ -36,12 +40,14 @@ import torch
 
 from ..config import build_model, get_config
 from ..data import make_train_iter
-from ..data.bev_datasets import BEV_BATCH_KEYS, SyntheticBEVDataset
+from ..data.bev_datasets import (BEV_BATCH_KEYS, FUSION_BATCH_KEYS, SyntheticBEVDataset,
+                                 SyntheticFusionDataset)
 from ..data.depth_datasets import SyntheticDepthDataset
 from ..data.pipelines import normalize
 from ..data.seg_datasets import SyntheticSegDataset
 from ..train.checkpoint import read_model
-from ..train.loop import train
+from ..train.loop import stack_batches, train
+from ..train.step import tree_map
 from .metrics import SegMetricAccumulator, bev_map_iou, depth_metrics
 
 N_EVAL = 32
@@ -171,6 +177,50 @@ def heldout_bev_batches(mc) -> List[Dict[str, np.ndarray]]:
     return out
 
 
+def heldout_fusion_batches(mc) -> List[Dict]:
+    """The held-out batches of the BEV fusion end check, in order: 8 scenes
+    each of the model's synthetic fusion rig (``FUSION_BATCH_KEYS``, images
+    normalised, the lidar pattern of each index's own seed, no aug)."""
+    ds = SyntheticFusionDataset(sparse_shape=mc.bev_sparse_shape, caps=mc.bev_voxel_caps,
+                                voxel_size=mc.bev_voxel_size, num_cams=mc.bev_num_cams,
+                                image_size=mc.bev_image_size, out_grid=mc.bev_out_grid,
+                                num_classes=mc.num_classes, scope=mc.bev_xbound[1])
+    mean, std = np.asarray(MEAN, np.float32), np.asarray(STD, np.float32)
+    out = []
+    for s0 in range(0, N_EVAL, EVAL_BATCH):
+        samples = [ds.load(HELDOUT_BASE + i) for i in range(s0, s0 + EVAL_BATCH)]
+        for smp in samples:
+            smp["image"] = (smp["image"] - mean) / std
+        out.append({k: stack_batches([smp[k] for smp in samples]) for k in FUSION_BATCH_KEYS})
+    return out
+
+
+def _eval_map(model, mc, batches, arg_keys, timesteps_list, seeds, what: str
+              ) -> Dict[str, float]:
+    device = next(model.parameters()).device
+    out = {}
+    for steps in timesteps_list:
+        m_t = build_model(_with_timesteps(mc, steps), device=device)
+        m_t.load_state_dict(model.state_dict())
+        mious = []
+        for seed in seeds:
+            scores = [m_t.sample(*(tree_map(lambda x: torch.as_tensor(x).to(device), b[k])
+                                   for k in arg_keys),
+                                 generator=rollout_generator(seed, i * EVAL_BATCH, device))
+                      .cpu().numpy() for i, b in enumerate(batches)]
+            m = bev_map_iou(np.concatenate(scores).transpose(0, 3, 1, 2),
+                            np.concatenate([np.asarray(b["label"]) for b in batches]
+                                           ).transpose(0, 3, 1, 2))
+            mious.append(m["mIoU"])
+        out[f"map_mIoU@{steps}step"] = round(float(np.mean(mious)), 4)
+        out[f"map_mIoU@{steps}step_std"] = round(float(np.std(mious)), 4)
+        if steps == timesteps_list[-1]:
+            out.update({k: v for k, v in m.items() if k.startswith("iou_")})
+        print(f"  {what} {steps}-step: map mIoU {out[f'map_mIoU@{steps}step']:.4f} "
+              f"± {out[f'map_mIoU@{steps}step_std']:.4f}", flush=True)
+    return out
+
+
 @torch.no_grad()
 def eval_bev(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, float]:
     """Seed-averaged BEV map IoU (``bev_map_iou``: the best threshold per
@@ -179,31 +229,21 @@ def eval_bev(model, mc, timesteps_list=(1, 3, 10), seeds=SEEDS) -> Dict[str, flo
     ``eval_bev``): ``map_mIoU@{T}step`` and its standard deviation over the
     seeds, rounded to 4 places, and the last horizon's last seed's
     ``iou_class{k}``."""
-    device = next(model.parameters()).device
-    batches = heldout_bev_batches(mc)
-    out = {}
-    for steps in timesteps_list:
-        m_t = build_model(_with_timesteps(mc, steps), device=device)
-        m_t.load_state_dict(model.state_dict())
-        mious = []
-        for seed in seeds:
-            scores = [m_t.sample(*(torch.from_numpy(b[k]).to(device)
-                                   for k in BEV_BATCH_KEYS[:-1]),
-                                 generator=rollout_generator(seed, i * EVAL_BATCH, device))
-                      .cpu().numpy() for i, b in enumerate(batches)]
-            m = bev_map_iou(np.concatenate(scores).transpose(0, 3, 1, 2),
-                            np.concatenate([b["label"] for b in batches]).transpose(0, 3, 1, 2))
-            mious.append(m["mIoU"])
-        out[f"map_mIoU@{steps}step"] = round(float(np.mean(mious)), 4)
-        out[f"map_mIoU@{steps}step_std"] = round(float(np.std(mious)), 4)
-        if steps == timesteps_list[-1]:
-            out.update({k: v for k, v in m.items() if k.startswith("iou_")})
-        print(f"  bev {steps}-step: map mIoU {out[f'map_mIoU@{steps}step']:.4f} "
-              f"± {out[f'map_mIoU@{steps}step_std']:.4f}", flush=True)
-    return out
+    return _eval_map(model, mc, heldout_bev_batches(mc), BEV_BATCH_KEYS[:-1], timesteps_list,
+                     seeds, "bev")
 
 
-SCORERS = {"seg": eval_seg, "depth": eval_depth, "bev": eval_bev}
+@torch.no_grad()
+def eval_bev_fusion(model, mc, timesteps_list=(1, 3), seeds=SEEDS) -> Dict[str, float]:
+    """``eval_bev`` for a camera + lidar model, on the held-out synthetic
+    fusion scenes (``heldout_fusion_batches``), at 1 and 3 DDIM steps (the
+    JAX harness's ``eval_bev_fusion``, ``tools/run_convergence.py:264-340``)."""
+    return _eval_map(model, mc, heldout_fusion_batches(mc), FUSION_BATCH_KEYS[:-1],
+                     timesteps_list, seeds, "bev_fusion")
+
+
+SCORERS = {"seg": eval_seg, "depth": eval_depth, "bev": eval_bev,
+           "bev_fusion": eval_bev_fusion}
 
 
 def run(preset: str = "converge_seg_window", iters: Optional[int] = None,
@@ -212,7 +252,8 @@ def run(preset: str = "converge_seg_window", iters: Optional[int] = None,
     train log kept as ``.prev``), from scratch or, for a preset of
     ``FINE_TUNE_FROM``, from its base's latest checkpoint (refused when there
     is none), score it with ``eval_seg`` (a depth preset: ``eval_depth``, a
-    BEV preset: ``eval_bev``) and write ``<workdir>/result.json``. ``iters``
+    BEV preset: ``eval_bev``, a fusion preset: ``eval_bev_fusion``) and write
+    ``<workdir>/result.json``. ``iters``
     cuts the run (and its lr schedule) to that many steps."""
     cfg = get_config(preset)
     init_params = None

@@ -72,7 +72,8 @@ class DDPBEVCamera(nn.Module):
                  lss_out_channels: int = 80, depth_topk: int = 0,
                  bev_blocks=((2, 160, 2), (2, 320, 2), (2, 640, 1)),
                  decoder_layers: int = 5, decoder_heads: int = 8, decoder_ffn_dim: int = 1024,
-                 decoder_attn: str = "msda", drop_path_rate: float = 0.3, device=None):
+                 decoder_attn: str = "msda", drop_path_rate: float = 0.3,
+                 bev_in_channels: Optional[int] = None, device=None):
         super().__init__()
         if num_classes > len(MAP_CLASSES):
             raise ValueError(f"at most {len(MAP_CLASSES)} map classes, got {num_classes}")
@@ -93,8 +94,9 @@ class DDPBEVCamera(nn.Module):
                 embed_dims, lss_out_channels, image_size,
                 (image_size[0] // 8, image_size[1] // 8), xbound, ybound, zbound, dbound,
                 depth_topk=depth_topk)
-            nz = self.vtransform.nx[2]
-            self.bev_backbone = GeneralizedResNet(lss_out_channels * nz, bev_blocks)
+            # the BEV ResNet reads the LSS output (a fusion model: the fuser's)
+            self.bev_backbone = GeneralizedResNet(
+                bev_in_channels or lss_out_channels * self.vtransform.nx[2], bev_blocks)
             self.bev_neck = LSSFPN((bev_blocks[-1][1], bev_blocks[0][1]), embed_dims)
             self.decode_head = DeformableHeadWithTime(
                 num_classes, embed_dims, num_layers=decoder_layers, num_heads=decoder_heads,
@@ -110,10 +112,15 @@ class DDPBEVCamera(nn.Module):
         """Cameras [B, N, H, W, 3] and the rig (cam2lidar rots [B, N, 3, 3],
         trans [B, N, 3], intrins [B, N, 3, 3], post rots, post trans) -> the
         BEV features [B, G, G, C]."""
+        return self.bev_neck(self.bev_backbone(self.extract_camera(img, *rig,
+                                                                   generator=generator)))
+
+    def extract_camera(self, img: torch.Tensor, *rig: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The LSS output [B, G', G', nz·C_lss] (before the BEV ResNet)."""
         b, n, h, w, _ = img.shape
         feats = self.camera_neck(self.backbone(img.reshape(b * n, h, w, 3), generator))
-        f0 = feats[0].reshape(b, n, *feats[0].shape[1:])
-        return self.bev_neck(self.bev_backbone(self.vtransform(f0, *rig)))
+        return self.vtransform(feats[0].reshape(b, n, *feats[0].shape[1:]), *rig)
 
     # --- latent codec ----------------------------------------------------
     def encode_masks(self, masks: torch.Tensor) -> torch.Tensor:
@@ -146,6 +153,13 @@ class DDPBEVCamera(nn.Module):
         Drop path acts as the module's mode says."""
         x = self.extract_bev_feat(img, cam2lidar_rots, cam2lidar_trans, intrins, post_rots,
                                   post_trans, generator=generator)
+        return self._train_loss(x, gt_masks, t, noise, generator)
+
+    def _train_loss(self, x: torch.Tensor, gt_masks: torch.Tensor, t: Optional[torch.Tensor],
+                    noise: Optional[torch.Tensor], generator: Optional[torch.Generator]
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss and logs of the BEV features x [B, G, G, C] (``forward``
+        after the encoder)."""
         b, g = x.shape[:2]
         latent = self.encode_masks(resize(gt_masks.float(), (g, g), mode="nearest"))
         if t is None:
@@ -176,7 +190,8 @@ class DDPBEVCamera(nn.Module):
                             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The DDIM rollout with step accumulation, the randsteps hypotheses
         kept apart: sigmoid scores [r, B, outG, outG, K]. ``noise`` [r·B, G,
-        G, C] is the initial latent, drawn from ``generator`` when None."""
+        G, C] is the initial latent, drawn from ``generator`` when None. ``rig``:
+        the rest of ``extract_bev_feat``'s inputs."""
         x = self.extract_bev_feat(img, *rig)
         b, g, _, c = x.shape
         r = self.diffusion.randsteps
@@ -222,8 +237,13 @@ class DDPBEVCamera(nn.Module):
         outG]: ``variance``, the class mean of the hypotheses' (population)
         variance (0 at randsteps 1), and ``entropy``, the class mean of the
         Bernoulli entropy (nats) of the mean score."""
-        hyp = self._rollout_hypotheses(img, cam2lidar_rots, cam2lidar_trans, intrins,
-                                       post_rots, post_trans, generator=generator, noise=noise)
+        return self._uncertainty(self._rollout_hypotheses(
+            img, cam2lidar_rots, cam2lidar_trans, intrins, post_rots, post_trans,
+            generator=generator, noise=noise))
+
+    @staticmethod
+    def _uncertainty(hyp: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The scores and uncertainty maps of the hypotheses [r, B, outG, outG, K]."""
         scores = hyp.mean(dim=0)
         var = hyp.var(dim=0, correction=0).mean(dim=-1)
         p = torch.clamp(scores, 1e-12, 1.0 - 1e-12)

@@ -160,7 +160,9 @@ def init_params_(module: nn.Module, seed: int) -> None:
     position tables U(0, 1). ConvNeXt's layer scales ``gamma`` keep their
     block's ``layer_scale_init`` (1e-6, as the JAX package's init). The depth
     head's ``conv_depth`` bias starts at 0.5 (``ddp_tpu/nn/heads.py:142,145``),
-    so that a fresh head's output is above zero, where relu passes gradients."""
+    so that a fresh head's output is above zero, where relu passes gradients.
+    A sparse conv's ``kernel`` [K, Cin, Cout] is N(0, 1/(K·Cin)), flax's
+    fan-in of that shape."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -185,6 +187,8 @@ def init_params_(module: nn.Module, seed: int) -> None:
                 val = torch.full(p.shape, module.get_submodule(owner).layer_scale_init)
             elif p.ndim == 1:
                 val = torch.ones(p.shape)
+            elif leaf == "kernel":  # a sparse conv's [K, Cin, Cout]
+                val = torch.randn(p.shape, generator=gen) / (p.shape[0] * p.shape[1]) ** 0.5
             else:
                 fan_in = p[0].numel()
                 val = torch.randn(p.shape, generator=gen) / fan_in ** 0.5

@@ -21,7 +21,8 @@ the nine depth metrics are printed on one line; ``--uncertainty`` also
 prints the mean across-hypothesis standard deviation and the mean width of
 the 80 % interval (10th to 90th percentile), in metres. Runs on the card
 unless ``--device cpu``. A BEV preset is refused, as the JAX tool has no BEV
-branch: ``evaluation/convergence.py: eval_bev`` scores a BEV model.
+branch: ``evaluation/convergence.py: eval_bev`` scores a BEV model,
+``eval_bev_fusion`` a camera + lidar one.
 """
 from __future__ import annotations
 
@@ -60,9 +61,11 @@ def main(argv=None) -> int:
     from ..evaluation.slide import slide_inference
 
     cfg = get_config(args.preset, dict(kv.split("=", 1) for kv in args.set))
-    if cfg.model.task == "bev":
-        raise SystemExit("task 'bev' has no test CLI (the JAX tools/test.py has no BEV "
-                         "branch); evaluation/convergence.py: eval_bev scores a BEV model")
+    if cfg.model.task in ("bev", "bev_fusion"):
+        scorer = "eval_bev" if cfg.model.task == "bev" else "eval_bev_fusion"
+        raise SystemExit(f"task {cfg.model.task!r} has no test CLI (the JAX tools/test.py "
+                         f"has no BEV branch); evaluation/convergence.py: {scorer} scores a "
+                         "BEV model")
     if cfg.model.task not in ("seg", "depth"):
         raise SystemExit(f"task {cfg.model.task!r} is not ported yet")
     rt = cfg.runtime

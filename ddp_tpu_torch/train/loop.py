@@ -37,7 +37,19 @@ def batch_keys(task: str) -> Tuple[str, ...]:
         from ..data.bev_datasets import BEV_BATCH_KEYS
 
         return BEV_BATCH_KEYS
+    if task == "bev_fusion":
+        from ..data.bev_datasets import FUSION_BATCH_KEYS
+
+        return FUSION_BATCH_KEYS
     return ("image", "label")
+
+
+def stack_batches(values: list):
+    """One batch value of each of n host batches -> [n, ...] tensors, a dict
+    of values stacked key by key (``ddp_tpu/train/loop.py:193-196``)."""
+    if isinstance(values[0], dict):
+        return {k: stack_batches([v[k] for v in values]) for k in values[0]}
+    return torch.from_numpy(np.stack(values))
 
 
 class MetricLogger:
@@ -82,8 +94,9 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     raises without a GPU unless ``device="cpu"``), ``runtime.steps_per_dispatch``
     per dispatch. ``data_iter`` yields host batches of the task's keys:
     {'image': [B, H, W, 3], 'label': [B, H, W]} (int classes for a
-    segmentor, float metric depth for a depther), or ``BEV_BATCH_KEYS`` for
-    ``task="bev"`` (as ``ddp_tpu/train/loop.py:94-100`` picks them); with
+    segmentor, float metric depth for a depther), ``BEV_BATCH_KEYS`` for
+    ``task="bev"``, ``FUSION_BATCH_KEYS`` for ``task="bev_fusion"`` (as
+    ``ddp_tpu/train/loop.py:94-100`` picks them); with
     ``resume`` it must yield the batches from the restored step on.
     ``init_params``: a state_dict (parameters and BN statistics) loaded
     strictly into the fresh model before the optimizer is built, as the JAX
@@ -136,8 +149,7 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     while step < rt.total_iters:
         n = min(spd, rt.total_iters - step)
         chunk = [next(data_iter) for _ in range(n)]
-        logs = chunk_fn(state, {k: torch.from_numpy(np.stack([c[k] for c in chunk]))
-                                for k in keys})
+        logs = chunk_fn(state, {k: stack_batches([c[k] for c in chunk]) for k in keys})
         prev, step = step, step + n
         crossings = [s for s in range(prev + 1, step + 1) if s % rt.log_interval == 0]
         if prev == start_step and prev + 1 not in crossings:

@@ -13,12 +13,16 @@ positionally and in order, as the JAX step calls its module
 ``(loss, logs)``: ("image", "label") for a ``DDPSegmentor`` ('label' an int
 map, 255 = ignore) or a ``DDPDepther`` ('label' float metric depth, <= 0 =
 invalid), the rig tuple ``data/bev_datasets.py: BEV_BATCH_KEYS`` for a
-``DDPBEVCamera``.
+``DDPBEVCamera``, ``FUSION_BATCH_KEYS`` for a ``DDPBEVFusion``. A batch value
+may be a dict of tensors (the fusion batch's ``rulebooks``, int32): chunking,
+the bf16 cast, the CUDA graph's static inputs and the loop's stacking walk
+it leaf by leaf, as JAX's tree maps do.
 
 ``mixed_precision=True`` is the JAX package's bf16 policy: the forward and
 backward run on bf16 copies of the parameters and of every float32 batch
 value (the image, a depth label or BEV masks, the rig's rotations,
-translations and intrinsics, the noise; ``torch.func.functional_call``), so
+translations and intrinsics, a fusion batch's voxel features, the noise;
+``torch.func.functional_call``), so
 the gradients land as float32 on the float32 master parameters; the
 optimizer state and the loss stay float32. A given ``t`` stays float32 (JAX
 draws it in float32). No ``torch.autocast``: it chooses per-op types of its
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,8 +60,24 @@ def _to_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16) if x.dtype == torch.float32 else x
 
 
-def _chunk(batch: Dict[str, torch.Tensor], i: int, n: int,
-           lead: str) -> Dict[str, torch.Tensor]:
+def tree_map(fn: Callable[[torch.Tensor], Any], value):
+    """``fn`` over the tensors of a batch value: a tensor, or a dict of batch
+    values (the fusion batch's ``rulebooks``), as JAX maps over its leaves."""
+    if isinstance(value, dict):
+        return {k: tree_map(fn, v) for k, v in value.items()}
+    return fn(value)
+
+
+def _leaves(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every tensor of a batch, nested dicts walked."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _chunk(batch: Dict[str, Any], i: int, n: int, lead: str) -> Dict[str, Any]:
     """The i-th of n equal chunks along the batch axis of ``batch[lead]``;
     ``noise`` given as [B·h·w, C] rows is split by image."""
     b = batch[lead].shape[0]
@@ -68,7 +88,7 @@ def _chunk(batch: Dict[str, torch.Tensor], i: int, n: int,
             v = v.reshape(b, -1, v.shape[-1])
             out[key] = v[i * size:(i + 1) * size].reshape(-1, v.shape[-1])
         else:
-            out[key] = v[i * size:(i + 1) * size]
+            out[key] = tree_map(lambda x: x[i * size:(i + 1) * size], v)
     return out
 
 
@@ -94,7 +114,7 @@ class TrainStep:
         low = {name: p.to(torch.bfloat16) for name, p in params.items()}
         if kwargs["noise"] is not None:
             kwargs["noise"] = _to_bf16(kwargs["noise"])
-        return functional_call(model, low, tuple(_to_bf16(a) for a in args), kwargs)
+        return functional_call(model, low, tuple(tree_map(_to_bf16, a) for a in args), kwargs)
 
     def grads(self, state: TrainState, batch: Dict[str, torch.Tensor]
               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -141,7 +161,7 @@ def make_train_step(microbatch: int = 1, mixed_precision: bool = False,
 
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    inputs: Dict[str, torch.Tensor]  # static [n, B, ...] batch buffers
+    inputs: Dict[str, Any]           # static [n, B, ...] batch buffers (nested dicts)
     sched: torch.Tensor              # static [n, 5] schedule rows
     logs: Dict[str, torch.Tensor]    # static [n] log outputs
 
@@ -179,7 +199,8 @@ class ChunkedTrainStep:
     def _steps(self, state: TrainState, batches: Dict[str, torch.Tensor],
                sched: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Step i on batches[:, i] with schedule row i; logs stacked."""
-        logs = [self.step(state, {k: v[i] for k, v in batches.items()}, sched[i])
+        logs = [self.step(state, {k: tree_map(lambda x: x[i], v) for k, v in batches.items()},
+                          sched[i])
                 for i in range(sched.shape[0])]
         return {k: torch.stack([step_logs[k] for step_logs in logs]) for k in logs[0]}
 
@@ -208,7 +229,8 @@ class ChunkedTrainStep:
         """The first chunk: its steps, eagerly on the capture stream, then
         the capture of their graph for the chunks to come."""
         self._stream = torch.cuda.Stream(device)
-        inputs = {k: v.to(device, copy=True) for k, v in batches.items()}
+        inputs = {k: tree_map(lambda x: x.to(device, copy=True), v)
+                  for k, v in batches.items()}
         rows = sched.to(device)
         self._stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(self._stream):
@@ -222,7 +244,8 @@ class ChunkedTrainStep:
         """Capture the n steps on ``batches`` (kept as the static inputs when
         they are on the device) and schedule rows; runs no step."""
         device = state.optimizer.params[0].device
-        inputs = {k: v if v.device == device else v.to(device) for k, v in batches.items()}
+        inputs = {k: tree_map(lambda x: x if x.device == device else x.to(device), v)
+                  for k, v in batches.items()}
         rows = sched if sched.device == device else sched.to(device)
         graph = torch.cuda.CUDAGraph()
         if not hasattr(graph, "register_generator_state"):
@@ -243,14 +266,16 @@ class ChunkedTrainStep:
 
     def _replay(self, state: TrainState, cap: _Captured, batches: Dict[str, torch.Tensor],
                 sched: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if set(batches) != set(cap.inputs):
-            raise ValueError(f"batch keys {sorted(batches)} != captured {sorted(cap.inputs)}")
-        for k, v in batches.items():
-            if v.shape != cap.inputs[k].shape or v.dtype != cap.inputs[k].dtype:
+        given, captured = dict(_leaves(batches)), dict(_leaves(cap.inputs))
+        if set(given) != set(captured):
+            raise ValueError(f"batch keys {sorted(given)} != captured {sorted(captured)}")
+        for k, v in given.items():
+            into = captured[k]
+            if v.shape != into.shape or v.dtype != into.dtype:
                 raise ValueError(f"batch {k!r} {v.dtype} {tuple(v.shape)} != captured "
-                                 f"{cap.inputs[k].dtype} {tuple(cap.inputs[k].shape)}")
-            if v.data_ptr() != cap.inputs[k].data_ptr():
-                cap.inputs[k].copy_(v, non_blocking=True)
+                                 f"{into.dtype} {tuple(into.shape)}")
+            if v.data_ptr() != into.data_ptr():
+                into.copy_(v, non_blocking=True)
         cap.sched.copy_(sched, non_blocking=True)
         cap.graph.replay()
         state.step += cap.sched.shape[0]

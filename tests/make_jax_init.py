@@ -1,6 +1,7 @@
 """Write the JAX package's initial weights of a preset as a port state_dict.
 
     python tests/make_jax_init.py converge_bev OUT.pt [SEED]
+    python tests/make_jax_init.py converge_bev_fusion OUT.pt [SEED]
 
 The weights are those ``ddp_tpu.train.loop.train`` starts from (``init``,
 not jitted as the loop calls it, on the first batch of ``make_train_iter``,
@@ -33,13 +34,14 @@ def main(preset: str, out: str, seed: str = "") -> None:
     if seed:
         jcfg = jconfig.get_config(preset, {"runtime.seed": int(seed)})
     model = jconfig.build_model(jcfg.model)
-    keys = {"bev": ("image", "cam2lidar_rots", "cam2lidar_trans", "intrins", "post_rots",
-                    "post_trans", "label")}.get(jcfg.model.task, ("image", "label"))
+    rig = ("image", "cam2lidar_rots", "cam2lidar_trans", "intrins", "post_rots", "post_trans")
+    keys = {"bev": rig + ("label",), "bev_fusion": rig + ("voxel_feats", "rulebooks", "label")
+            }.get(jcfg.model.task, ("image", "label"))
     init_rng, _ = jax.random.split(jax.random.PRNGKey(jcfg.runtime.seed))
     batch0 = next(make_train_iter(jcfg))
+    first = [jax.tree_util.tree_map(lambda x: jnp.asarray(x[:1]), batch0[k]) for k in keys]
     variables = model.init({"params": init_rng, "diffusion": jax.random.PRNGKey(1),
-                            "dropout": jax.random.PRNGKey(2)},
-                           *[jnp.asarray(batch0[k][:1]) for k in keys], train=False)
+                            "dropout": jax.random.PRNGKey(2)}, *first, train=False)
     variables = jax.tree_util.tree_map(np.asarray, variables)
     port = build_model(get_config(preset).model, device="cpu")
     load_flax(port, variables["params"], variables.get("batch_stats"))

@@ -6,7 +6,8 @@
     Pillow a named ImportError.
   - ``SyntheticBEVDataset`` (2- and 6-camera rigs), ``bev_batch_iterator``
     (with the 3D aug; one process, and one rank of two) and ``make_train_iter``'s
-    BEV branch: bitwise; a nuScenes preset's data raises NotImplementedError.
+    BEV branch: bitwise; a nuScenes preset without its files raises
+    FileNotFoundError.
   - ``build_model`` builds the JAX package's BEV heads (msda on the smoke
     and end-check presets, the window decoder with JAX's default window of
     8 on ``nuscenes_camera``) on the card unless told otherwise.
@@ -139,12 +140,14 @@ def test_make_train_iter_bev_matches_jax(name):
 
 
 def test_make_train_iter_refuses_nuscenes():
-    """No nuScenes reader in the port yet: a named error, and no synthetic
-    stand-in."""
-    with pytest.raises(NotImplementedError, match="fusion slice"):
+    """nuScenes data without its files (no infos under ``data.data_root``,
+    the preset's ``data/nuscenes`` or an empty tree): a named error, and no
+    synthetic stand-in. The reader itself is in test_torch_port_fusion_data.py."""
+    with pytest.raises(FileNotFoundError, match="no nuScenes infos under data/nuscenes"):
         make_train_iter(get_config("nuscenes_camera"))
-    with pytest.raises(NotImplementedError, match="NuScenesBEVDataset"):
-        make_train_iter(get_config("smoke_bev", {"data.dataset": "nuscenes"}))
+    with pytest.raises(FileNotFoundError, match="no nuScenes infos"):
+        make_train_iter(get_config("smoke_bev", {"data.dataset": "nuscenes",
+                                                 "data.data_root": "tests/data/nuscenes_none"}))
 
 
 # --- build_model ----------------------------------------------------------------------------

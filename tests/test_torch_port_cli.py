@@ -54,7 +54,8 @@ def test_presets_match_jax_field_by_field():
             "ade20k_swin_t", "ade20k_swin_s", "ade20k_swin_b", "ade20k_swin_l",
             "converge_seg_window", "converge_seg_msda", "converge_seg_quarter",
             "converge_seg_w16h4", "converge_depth", "nuscenes_camera", "converge_bev",
-            "smoke_bev", *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")
+            "smoke_bev", "nuscenes_fusion", "converge_bev_fusion", "smoke_fusion",
+            *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")
             } <= set(SHARED)
     for name in SHARED:
         port, ref = _fields(tconfig.get_config(name)), _fields(jconfig.get_config(name))
@@ -70,13 +71,10 @@ def test_presets_match_jax_field_by_field():
             city.model.decoder_heads) == (19, (512, 1024), 16, 0.4, 16, 4)
 
 
-# the JAX fields whose slices are still to port (ROADMAP.md queue 1): the
-# lidar branch's and sparse conv's (BEV fusion), ControlNet's, and the data
-# loader's worker count (the host pipeline)
+# the JAX fields whose slices are still to port (ROADMAP.md queue 1):
+# ControlNet's, and the data loader's worker count (the host pipeline)
 NOT_PORTED = {
-    "ModelConfig": {"bev_lidar_channels", "bev_lidar_dense_hw", "bev_lidar_dense_z",
-                    "bev_sparse_shape", "bev_voxel_caps", "bev_voxel_size", "cn_size",
-                    "cn_image_size", "cn_scale_factor", "cn_vae_ch", "cn_vae_nrb",
+    "ModelConfig": {"cn_size", "cn_image_size", "cn_scale_factor", "cn_vae_ch", "cn_vae_nrb",
                     "cn_vae_mult"},
     "DataConfig": {"num_workers"}, "OptimConfig": set(), "RuntimeConfig": set()}
 
