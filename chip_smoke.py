@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases build,converge_depth    # the depth end check
     python3 chip_smoke.py --phases build,converge_bev      # the BEV end check
     python3 chip_smoke.py --phases build,converge_bev_fusion   # the fusion end check
+    python3 chip_smoke.py --phases build,converge_controlnet   # the ControlNet end check
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A busy share is the union of the intervals of the kernels and copies that
@@ -180,38 +181,64 @@ ms_deform_attn range and by the backward nodes made there.
                do not): f32 and bf16 through the bev_train case (eager, graph
                against eager on 2 scenes with deterministic algorithms on, a
                graphed chunk of 5 steps), the host's batch of 8.
- 26. converge - (only when named) the end check: converge_seg_window's 1500
+ 26. cn_reference - a tiny ControlLDM (converge_controlnet with
+               model.cn_size=tiny) on the card and on the CPU from the same
+               weights, batch, t and noises: the loss (1e-5 relative) and eps
+               (1e-4), and a 3-step DDIM + CFG sample from the same initial
+               latent (images 1e-4).
+ 27. cn_main - serving controlnet_sd15 at full width (SD 1.5 UNet + ControlNet,
+               VAE, CLIP-L: 1.43 B parameters, random weights, seed 0):
+               ControlLDM.sample at 512^2, 20 DDIM steps, guidance 9, batch 1
+               and 4 (f32): s per image, images/s, busy share of a 5-step
+               call (profiled and unprofiled), device ms by kernel family and
+               SDPA backend, peak memory, no kernel launched;
+               tools.control_demo as a subprocess (exit 0, a PNG).
+ 28. cn_train - controlnet_sd15 at 4 x 512^2 on synthetic fill50k: eager f32
+               and bf16 steps (s, forward / backward / optimizer s, img/s,
+               peak memory), the frozen parts bitwise unchanged and the
+               ControlNet changed, graphed bf16 and f32 chunks (f32 at the
+               largest batch that fits, the misses recorded), graph against
+               eager at batch 1 with deterministic algorithms on; no kernel
+               launched.
+ 29. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 27. graph_grads - (only when named) where the graphed and the eager step
+ 30. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 28. replay_records - (only when named) how often a profile of one
+ 31. replay_records - (only when named) how often a profile of one
                CUDA-graph replay (ade20k_swin_t_msda, 10 bf16 steps) lacks
                kernel records, with and without the pauses after the
                profile starts and before it stops that every other phase
                takes.
- 29. converge_msda - (only when named) the msda end checks:
+ 32. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
- 30. converge_depth - (only when named) the depth end check: converge_depth's
+ 33. converge_depth - (only when named) the depth end check: converge_depth's
                1500 iterations through train() and eval_depth's abs_rel,
                rmse and a1 at 1, 3 and 10 DDIM steps beside
                work_dirs/converge_depth/result.json of the JAX package.
- 31. converge_bev - (only when named) the BEV end check: converge_bev's 2500
+ 34. converge_bev - (only when named) the BEV end check: converge_bev's 2500
                iterations through train() and eval_bev's map mIoU at 1, 3 and
                10 DDIM steps beside work_dirs/converge_bev/result.json of the
                JAX package.
- 32. converge_bev_fusion - (only when named) the fusion end check:
+ 35. converge_bev_fusion - (only when named) the fusion end check:
                converge_bev_fusion's 2500 iterations through train() and
                eval_bev_fusion's map mIoU at 1 and 3 DDIM steps beside
                work_dirs/converge_bev_fusion/result.json of the JAX package.
- 33. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
+ 36. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
                iterations (the CE on the quarter-scale logits) and eval_seg
                beside work_dirs/converge_seg_quarter/result.json.
+
+ 37. converge_controlnet - (only when named) the ControlNet end check:
+               converge_controlnet through run() (the VAE pretrained and its
+               latent scale measured, 40,000 steps on batches rendered on the
+               card, PSNR and MAE of 8 held-out hints at 20 DDIM steps and
+               guidance 1.0) beside work_dirs/converge_controlnet/result.json;
+               on a miss two more starts (runtime.seed 1, 2).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -224,11 +251,13 @@ import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BIT_SCALE = 0.01
@@ -1363,11 +1392,18 @@ PER_STEP = {"q_sample": 1, "dtable": 1, "upsample_ce_fwd": 2, "upsample_ce_bwd":
             "encode_map": 0}
 
 
-def snapshot(state):
+def snapshot(state, keep=None):
     """What a step changes: parameters and buffers, the optimizer's moments
-    and count, the step and the generator's state."""
-    return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
-            [m.clone() for m in state.optimizer.mu], [m.clone() for m in state.optimizer.nu],
+    and count, the step and the generator's state. ``keep(name)``: only
+    those tensors (and moments) are kept, e.g. the ones a step can change
+    where the rest are frozen by lr_mult 0 (their moments then drift, which
+    moves nothing)."""
+    kept = (lambda name: True) if keep is None else keep
+    return ({k: v.detach().clone() for k, v in state.model.state_dict().items() if kept(k)},
+            [m.clone() if kept(n) else None for n, m in zip(state.optimizer.names,
+                                                            state.optimizer.mu)],
+            [m.clone() if kept(n) else None for n, m in zip(state.optimizer.names,
+                                                            state.optimizer.nu)],
             state.optimizer.count, state.step, state.generator.get_state())
 
 
@@ -1376,9 +1412,11 @@ def restore(state, snap):
     sd, mu, nu, count, step, gen = snap
     with torch.no_grad():
         for k, v in state.model.state_dict().items():
-            v.copy_(sd[k])
+            if k in sd:
+                v.copy_(sd[k])
         for dst, src in zip(state.optimizer.mu + state.optimizer.nu, mu + nu):
-            dst.copy_(src)
+            if src is not None:
+                dst.copy_(src)
     state.optimizer.count, state.step = count, step
     state.generator.set_state(gen)
 
@@ -1424,29 +1462,31 @@ def check_by_tensor(ref: dict, other: dict, before: dict, noise: dict):
                  "runs of the reference"}
 
 
-def params_of(state) -> dict:
-    return {k: p.detach().clone() for k, p in state.model.named_parameters()}
+def params_of(state, keep=None) -> dict:
+    return {k: p.detach().clone() for k, p in state.model.named_parameters()
+            if keep is None or keep(k)}
 
 
-def graph_vs_eager(state, chunk_fn, eager, batch, n):
+def graph_vs_eager(state, chunk_fn, eager, batch, n, keep=None):
     """n graphed steps (one replay) and n eager steps from one snapshot of
     the state, and n eager steps once more from it: the first step's loss
     (one state, one batch, the same draws) within 1e-5 relative, each later
     step's within 1e-5 relative plus 3x the largest difference between the
     two eager runs' losses (their states drift apart step by step), the same
     generator state after all three (the replay drew what the eager steps
-    drew), and every parameter tensor within ``check_by_tensor``'s limit."""
-    before = snapshot(state)
-    params_0 = {k: before[0][k] for k, _ in state.model.named_parameters()}
+    drew), and every parameter tensor within ``check_by_tensor``'s limit.
+    ``keep``: snapshot and compare only these tensors (``snapshot``)."""
+    before = snapshot(state, keep)
+    params_0 = {k: before[0][k] for k, _ in state.model.named_parameters() if k in before[0]}
     logs_g = chunk_fn(state, stacked(batch, n))
-    params_g = params_of(state)
+    params_g = params_of(state, keep)
     gen_g = state.generator.get_state()
     restore(state, before)
     logs_e2 = [eager(state, batch) for _ in range(n)]
-    params_e2 = params_of(state)
+    params_e2 = params_of(state, keep)
     restore(state, before)
     logs_e = [eager(state, batch) for _ in range(n)]
-    params_e = params_of(state)
+    params_e = params_of(state, keep)
     loss_g = logs_g["loss"].tolist()
     loss_e = [logs["loss"].item() for logs in logs_e]
     loss_e2 = [logs["loss"].item() for logs in logs_e2]
@@ -3568,14 +3608,467 @@ def phase_converge_seg_quarter(smi: str):
     converge_case("converge_seg_quarter", smi)
 
 
+# --- ControlNet: SD 1.5 UNet + ControlNet, VAE, CLIP text (controlnet_sd15) ----------
+
+CN_DIR = os.path.join("work_dirs", "chip_smoke_cn")
+CN_KEYS = ("image", "hint", "ids")
+CN_PARTS = ("diffusion_model", "control_model", "first_stage_model", "cond_stage_model")
+CN_FROZEN = ("diffusion_model", "first_stage_model", "cond_stage_model")
+
+
+def cn_signal_(model, seed: int = 1) -> None:
+    """Draw the zero-initialised layers (the UNet's out convs, proj_outs and
+    the ControlNet's zero convs, as at JAX's init) N(0, 0.01^2) from a CPU
+    generator, so that every part carries signal and gradient, as trained SD
+    weights do (at init the UNet's out_conv is 0: eps is 0 and no gradient
+    reaches the ControlNet)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner = name.rpartition(".")[0]
+            if getattr(model.get_submodule(owner), "zero_init", False):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+
+
+def cn_inputs(b: int, size: int, seed: int = 0, device="cuda"):
+    """(hint, ids, uncond ids) of the synthetic fill50k pairs seed .. seed+b-1
+    at ``size``, on ``device``."""
+    from ddp_tpu_torch.data.controlnet_data import SyntheticFill50k, tokenize
+
+    ds = SyntheticFill50k(size=size)
+    pairs = [ds.load(seed + i) for i in range(b)]
+    hint = torch.from_numpy(np.stack([p["hint"] for p in pairs])).to(device)
+    ids = torch.from_numpy(np.stack([p["ids"] for p in pairs])).to(device)
+    uncond = torch.from_numpy(np.stack([tokenize("")] * b)).to(device)
+    return hint, ids, uncond
+
+
+# kernel families of a ControlLDM profile, matched on the kernel's name
+CN_FAMILIES = (("attention (sdpa)", r"fmha|flash|attention|efficient"),
+               ("convolution", r"conv|implicit|cudnn|winograd|fprop|dgrad|wgrad|xmma"),
+               ("gemm", r"gemm|sgemm|cutlass|matmul"),
+               ("norm", r"group_norm|layer_norm|GroupNorm|LayerNorm|welford|batch_norm|"
+                        r"RowwiseMoments|ComputeFusedParams|GammaBeta"),
+               ("optimizer (_foreach)", r"foreach|multi_tensor"))
+
+
+def cn_breakdown(p, n_top: int = 10) -> dict:
+    """Device ms of a profile by kernel family (the first family whose
+    pattern a kernel's name matches; the rest as 'other: elementwise,
+    copies, reductions'), the top kernels, and the SDPA kernels by backend."""
+    kernels = device_kernels(p)
+    fam = {name: 0.0 for name, _ in CN_FAMILIES}
+    fam["other: elementwise, copies, reductions"] = 0.0
+    sdpa = {}
+    for e in kernels:
+        ms = e.self_device_time_total / 1e3
+        for name, pat in CN_FAMILIES:
+            if re.search(pat, e.key, re.I):
+                fam[name] += ms
+                break
+        else:
+            fam["other: elementwise, copies, reductions"] += ms
+        if re.search(CN_FAMILIES[0][1], e.key, re.I):
+            backend = ("flash" if re.search("flash", e.key, re.I) else
+                       "memory-efficient (cutlass fmha)" if re.search("fmha|efficient", e.key, re.I)
+                       else "other")
+            sdpa[backend] = sdpa.get(backend, 0) + e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n_top]
+    return {"device_ms_by_family": fam, "sdpa_kernel_launches_by_backend": sdpa,
+            "top_kernels_ms": [(e.key[:90], e.self_device_time_total / 1e3, e.count)
+                               for e in top]}
+
+
+def _cn_reference_eps(model, img, hint, ids, t, noise, post):
+    """ε of the model at the fixed draws (the p_losses path through the public
+    methods)."""
+    z = model.encode_first_stage(img, posterior_noise=post)
+    ctx = model.get_learned_conditioning(ids)
+    a = model.sqrt_alphas_cumprod[t][:, None, None, None]
+    s = model.sqrt_one_minus_alphas_cumprod[t][:, None, None, None]
+    return model.apply_model(a * z + s * noise, t, ctx, hint)
+
+
+def phase_cn_reference(smi: str):
+    """A tiny ControlLDM (converge_controlnet, model.cn_size=tiny: a 4x VAE,
+    64^2 images, 16^2 latents) on the card and on the CPU from the same
+    weights (zero-initialised layers drawn, cn_signal_), batch, t and noises:
+    the loss within 1e-5 relative and eps within 1e-4; a 3-step DDIM + CFG
+    (guidance 9) sample from the same initial latent, images within 1e-4."""
+    from ddp_tpu_torch.config import build_model, get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config("converge_controlnet", {"model.cn_size": "tiny"})
+    mc = cfg.model
+    g = _gen(61)
+    s, ls = mc.cn_image_size, mc.cn_image_size // 4
+    hint, ids, uncond = cn_inputs(2, s, seed=5, device="cpu")
+    img = torch.rand(2, s, s, 3, generator=g) * 2 - 1
+    t = torch.tensor([17, 803])
+    noise, post, x_t = (torch.randn(2, ls, ls, 4, generator=g) for _ in range(3))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(mc, device="cpu", seed=0)
+        cn_signal_(model)
+        model = model.to(dev)
+        args = [x.to(dev) for x in (img, hint, ids, t, noise, post)]
+        with torch.no_grad():
+            loss = model.p_losses(*args[:3], t=args[3], noise=args[4],
+                                  posterior_noise=args[5])["loss"]
+            eps = _cn_reference_eps(model, *args)
+            out = model.sample(hint.to(dev), ids.to(dev), uncond.to(dev), steps=3,
+                               guidance_scale=9.0, x_T=x_t.to(dev))
+        if not torch.isfinite(out).all() or tuple(out.shape) != (2, s, s, 3):
+            raise AssertionError(f"cn_reference {dev}: sample {tuple(out.shape)} not finite")
+        res[dev] = (loss.item(), eps.cpu(), out.cpu())
+    rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    eps_diff = (res["cuda"][1] - res["cpu"][1]).abs().max().item()
+    img_diff = (res["cuda"][2] - res["cpu"][2]).abs().max().item()
+    out = {"phase": "cn_reference", "preset": "converge_controlnet (cn_size=tiny)",
+           "images": [2, s, s, 3], "loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0],
+           "loss_rel_diff": rel, "eps_max_abs_diff": eps_diff,
+           "sample_3_steps_max_abs_diff": img_diff,
+           "limits": "loss 1e-5 relative, eps 1e-4, images 1e-4",
+           "wall_s": time.perf_counter() - t0, "card": smi}
+    emit(out)
+    if not (rel <= 1e-5 and eps_diff <= 1e-4 and img_diff <= 1e-4):
+        raise AssertionError(f"cn_reference: card vs CPU {out}")
+
+
+def cn_model(cfg):
+    """controlnet_sd15's ControlLDM on the card, seed 0, zero-initialised
+    layers drawn (cn_signal_); (model, build s)."""
+    from ddp_tpu_torch.config import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg.model, device="cuda", seed=0)
+    cn_signal_(model)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def phase_cn_main(smi: str):
+    """Serving controlnet_sd15 at full width (1.43 B parameters, random
+    weights, seed 0): ControlLDM.sample at 512^2, 20 DDIM steps, guidance 9,
+    at batch 1 and 4 (f32, TF32 off): finite images in about [-1, 1], s per
+    image and images/s, the busy share of a 5-step batch-1 call (profiled,
+    and its profiled device ms over its unprofiled wall time), the device ms
+    by kernel family and the SDPA backend of that call, peak memory, 0
+    launches of the five kernels; python -m ddp_tpu_torch.tools.control_demo
+    on the card (a new process: build, 4 samples, a PNG). Returns (model,
+    launches)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.models.controlnet import part_sizes
+
+    t_phase = time.perf_counter()
+    cfg = get_config("controlnet_sd15")
+    model, build_s = cn_model(cfg)
+    model.eval()
+    sizes = dict(part_sizes(model))
+    line = {"phase": "cn_main", "preset": cfg.name, "parameters": sizes,
+            "parameters_total": sum(sizes.values()), "build_s": build_s,
+            "dtype": "float32, tf32 off", "sampler": "DDIM 20 steps, CFG 9.0 (batch 2N)"}
+    launches = None
+    for b in (1, 4):
+        hint, ids, uncond = cn_inputs(b, 512, seed=b)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def call():
+            return model.sample(hint, ids, uncond, steps=20, guidance_scale=9.0, generator=gen)
+
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() / 1e9
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counted = all_launches()
+        if b == 1:
+            launches = counted
+        if (counted != NO_KERNELS or tuple(out.shape) != (b, 512, 512, 3)
+                or not torch.isfinite(out).all()):
+            raise AssertionError(f"cn_main b={b}: launches {counted}, {tuple(out.shape)}, "
+                                 f"finite {bool(torch.isfinite(out).all())}")
+        # batch 4: the first call is timed (the batch-1 calls loaded every kernel)
+        sec = wall_s(call, reps=1, warmup=0) if b == 1 else first_s
+        case = {"s_per_call": sec, "s_per_image": sec / b, "images_per_s": b / sec,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "live_before_gb": live,
+                "image_range": [out.min().item(), out.max().item()], "launches": counted}
+        if b == 1:
+            # a 5-step call profiled (each step the same work; a 20-step trace
+            # takes the profiler tens of seconds to read back)
+            p, wall_ms = profiled(lambda: model.sample(hint, ids, uncond, steps=5,
+                                                       guidance_scale=9.0, generator=gen),
+                                  timed=True)
+            case["profiled_5_steps"] = busy(p, wall_ms)
+            five_s = wall_s(lambda: model.sample(hint, ids, uncond, steps=5,
+                                                 guidance_scale=9.0, generator=gen),
+                            reps=1, warmup=0)
+            case["busy_share_unprofiled_5_steps"] = (
+                case["profiled_5_steps"]["device_busy_ms"] / (five_s * 1e3))
+            case.update(cn_breakdown(p))
+            del p
+        line[f"batch_{b}"] = case
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(os.path.join(root, CN_DIR), ignore_errors=True)
+    png = os.path.join(root, CN_DIR, "demo.png")
+    os.makedirs(os.path.dirname(png), exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.tools.control_demo", "--preset",
+                           "controlnet_sd15", "--workdir", os.path.join(root, CN_DIR, "none"),
+                           "--index", "3", "--num-samples", "4", "--steps", "20", "--scale",
+                           "9.0", "--out", png], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    demo_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(png):
+        raise AssertionError(f"cn_main: control_demo exit {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    from PIL import Image
+
+    line["control_demo"] = {"exit": proc.returncode, "wall_s": demo_s,
+                            "png_shape": list(np.asarray(Image.open(png)).shape),
+                            "stdout_tail": proc.stdout.strip().splitlines()[-2:]}
+    shutil.rmtree(os.path.join(root, CN_DIR), ignore_errors=True)
+    line.update(wall_s=time.perf_counter() - t_phase, card=smi)
+    emit(line)
+    return model, launches
+
+
+def cn_batch(cfg, b: int, device="cuda"):
+    """The first batch of make_train_iter (synthetic fill50k at 512^2) cut to b."""
+    from ddp_tpu_torch.data import make_train_iter
+
+    host = next(make_train_iter(cfg))
+    return {k: torch.from_numpy(v[:b]).to(device) for k, v in host.items()}
+
+
+def cn_step_case(state, batch, mixed: bool) -> dict:
+    """One eager step's s (after one warm-up), forward / backward / optimizer
+    s, img/s, peak memory, the loss; 0 launches of the five kernels."""
+    from ddp_tpu_torch.train.step import make_train_step
+
+    step = make_train_step(mixed_precision=mixed, batch_keys=CN_KEYS)
+    b = batch["image"].shape[0]
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    logs = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counted = all_launches()
+    loss = logs["loss"].item()
+    if counted != NO_KERNELS or not 0 < loss < float("inf"):
+        raise AssertionError(f"cn_train: launches {counted}, loss {loss}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    def forward():
+        with torch.no_grad():
+            step._loss(state.model, dict(state.model.named_parameters()), batch,
+                       state.generator)
+    fwd_s = wall_s(forward, reps=1, warmup=0)
+    t0 = time.perf_counter()
+    grads, _ = step.grads(state, batch)
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t0
+    opt_s = wall_s(lambda: state.optimizer.step(grads), reps=1, warmup=0)
+    del grads
+    return {"step_s": step_s, "img_per_s": b / step_s, "forward_s_no_grad": fwd_s,
+            "forward_backward_s": fwd_bwd_s, "optimizer_s": opt_s, "peak_mem_gb": peak,
+            "loss": loss, "grad_norm": logs["grad_norm"].item(), "launches": counted}
+
+
+def cn_graph_case(state, batch, mixed: bool, n: int) -> dict:
+    """A graphed chunk of n steps at ``batch``: wall ms per step (one replay),
+    img/s, busy share and launches of one profiled replay, capture s, peak."""
+    from ddp_tpu_torch.train.step import make_chunked_train_step
+
+    b = batch["image"].shape[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    chunk = make_chunked_train_step(n, mixed_precision=mixed, batch_keys=CN_KEYS)
+    batches = stacked(batch, n)
+    try:
+        chunk(state, batches)  # n eager steps on the capture stream, then the capture
+        sec = wall_s(lambda: chunk(state, batches), reps=1, warmup=0) / n
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        replay_busy, launched = profile_call(lambda: chunk(state, batches))
+        replayed = {k: v / n for k, v in launched.items()}
+        if replayed != NO_KERNELS:
+            raise AssertionError(f"cn_train: the card ran {launched} in one replay")
+        return {"batch": b, "n": n, "wall_ms_per_step": sec * 1e3, "img_per_s": b / sec,
+                "busy_share": replay_busy["busy_share"],
+                "device_busy_ms_per_step": replay_busy["device_busy_ms"] / n,
+                "launches_per_replayed_step": replayed, "capture_s": chunk.capture_s[n],
+                "live_before_gb": live, "peak_mem_gb": peak}
+    finally:
+        del chunk, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_cn_train(smi: str, model=None, profile: str = None):
+    """Training controlnet_sd15 at its batch of 4 x 512^2 on synthetic fill50k
+    (data.dataset=synthetic; the SD UNet, VAE and CLIP frozen by lr_mult 0,
+    their gradients taken): one eager f32 and one eager bf16 step (s, forward /
+    backward / optimizer s, img/s, peak memory; the device ms by family and
+    SDPA backend of one profiled f32 step); the frozen parts' tensors bitwise
+    unchanged after every step and the ControlNet's changed; a graphed bf16
+    chunk and a graphed f32 one (at the largest batch whose graph fits, with
+    the recorded out-of-memory errors of those that do not); graph against
+    eager at batch 1 with deterministic algorithms on (graph_vs_eager's
+    limits, f32 and bf16), with the deterministic-algorithm warnings; 0
+    launches of the five kernels. Returns the launches of one eager step."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("controlnet_sd15", {"data.dataset": "synthetic"})
+    if model is None:
+        model, _ = cn_model(cfg)
+    model.train()
+    frozen = {k: v.detach().cpu() for k, v in model.named_parameters() if k.startswith(CN_FROZEN)}
+    control = {k: v.detach().cpu() for k, v in model.named_parameters()
+               if k.startswith("control_model")}
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    b = cfg.data.batch_size
+    batch = cn_batch(cfg, b)
+    line = {"phase": "cn_train", "preset": cfg.name, "batch": [b, 512, 512, 3],
+            "frozen": "diffusion_model, first_stage_model, cond_stage_model by lr_mult 0"}
+    line["eager_f32"] = cn_step_case(state, batch, False)
+    p, wall_ms = profiled(lambda: make_train_step(batch_keys=CN_KEYS)(state, batch), timed=True)
+    line["eager_f32"]["profiled"] = busy(p, wall_ms)
+    line["eager_f32"].update(cn_breakdown(p))
+    if profile:
+        with open(profile + ".cn_train", "w") as f:
+            f.write(f"# one controlnet_sd15 f32 train step at {b}x512x512, {smi}\n")
+            f.write(p.key_averages().table(sort_by="cuda_time_total", row_limit=60))
+    del p
+    line["eager_bf16"] = cn_step_case(state, batch, True)
+    launches = line["eager_f32"]["launches"]
+    line["graph_bf16"] = cn_graph_case(state, batch, True, 2)
+    f32_graph, misses, gb = None, [], b
+    while f32_graph is None and gb >= 1:
+        try:
+            f32_graph = cn_graph_case(state, {k: v[:gb] for k, v in batch.items()}, False, 2)
+        except torch.cuda.OutOfMemoryError as e:
+            misses.append({"batch": gb, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "error": str(e).splitlines()[0][:400]})
+            gb //= 2
+    if f32_graph is None:
+        raise AssertionError(f"cn_train: no graphed f32 step fits: {misses}")
+    line["graph_f32"] = dict(f32_graph, batches_that_did_not_fit=misses)
+    one = {k: v[:1] for k, v in batch.items()}
+    for mixed in (False, True):
+        tag = "bf16" if mixed else "f32"
+        eager = make_train_step(mixed_precision=mixed, batch_keys=CN_KEYS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with deterministic_algorithms(True) as warned:
+            from ddp_tpu_torch.train.step import make_chunked_train_step
+
+            held = make_chunked_train_step(2, mixed_precision=mixed, batch_keys=CN_KEYS)
+            held(state, stacked(one, 2))
+            # the frozen parts cannot move (lr_mult 0, checked below): a snapshot
+            # of all 1.43 B parameters three times over does not fit beside the graph
+            check = graph_vs_eager(state, held, eager, one, 2,
+                                   keep=lambda k: k.startswith("control_model"))
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+        line[f"graph_vs_eager_b1_{tag}"] = dict(check, deterministic_algorithms_warnings=warned,
+                                                compared="control_model's tensors and moments")
+    changed_frozen = [k for k, v in model.named_parameters()
+                      if k.startswith(CN_FROZEN) and not torch.equal(v.detach().cpu(), frozen[k])]
+    control_changed = sum(not torch.equal(v.detach().cpu(), control[k])
+                          for k, v in model.named_parameters() if k.startswith("control_model"))
+    line["frozen_bitwise_unchanged"] = {"tensors": len(frozen), "changed": changed_frozen[:10],
+                                        "steps_taken": state.optimizer.count}
+    line["control_model_tensors_changed"] = f"{control_changed} of {len(control)}"
+    line.update(wall_s=time.perf_counter() - t_phase, card=smi)
+    emit(line)
+    if changed_frozen or control_changed == 0:
+        raise AssertionError(f"cn_train: frozen tensors changed {changed_frozen[:10]}, "
+                             f"control tensors changed {control_changed}")
+    del state, model, frozen, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+CN_TARGET = {"psnr_db": 27.33, "mae": 0.0488}
+
+
+def phase_converge_controlnet(smi: str):
+    """The ControlNet end check: converge_controlnet through run() (the VAE
+    pretrained 2500 iterations, its latent scale measured; 40,000 steps on
+    batches rendered on the card; 8 held-out hints, 20 DDIM steps, guidance
+    1.0) beside the JAX package's work_dirs/converge_controlnet/result.json
+    (27.33 dB, MAE 0.0488; scale.json 0.22795). The target (within 1.0 dB
+    and 0.01) is reported, not enforced; on a miss two more starts run
+    (runtime.seed 1 and 2) and the spread is reported. The phase fails only
+    on a run that did not learn (PSNR below 15 dB)."""
+    import dataclasses
+
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.evaluation.convergence import run, run_controlnet
+
+    ref_dir = os.path.join("work_dirs", "converge_controlnet")
+    with open(os.path.join(ref_dir, "result.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(ref_dir, "scale.json")) as f:
+        ref_scale = json.load(f)["cn_scale_factor"]
+
+    def within(r):
+        return (abs(r["psnr_db"] - ref["psnr_db"]) <= 1.0 and abs(r["mae"] - ref["mae"]) <= 0.01)
+
+    t0 = time.perf_counter()
+    result = run("converge_controlnet")
+    wall = time.perf_counter() - t0
+    cfg = get_config("converge_controlnet")
+    own = _log_steps(cfg.runtime.workdir)
+    starts = [dict(seed=0, psnr_db=result["psnr_db"], mae=result["mae"],
+                   cn_scale_factor=result["cn_scale_factor"], wall_s=wall)]
+    if not within(result):
+        for seed in (1, 2):
+            c = dataclasses.replace(cfg, runtime=dataclasses.replace(
+                cfg.runtime, seed=seed, workdir=f"{cfg.runtime.workdir}_seed{seed}"))
+            os.makedirs(c.runtime.workdir, exist_ok=True)
+            t1 = time.perf_counter()
+            r = run_controlnet(c)
+            starts.append(dict(seed=seed, psnr_db=r["psnr_db"], mae=r["mae"],
+                               cn_scale_factor=r["cn_scale_factor"],
+                               wall_s=time.perf_counter() - t1))
+    emit({"phase": "converge_controlnet", "iters": result["total_iters"],
+          "psnr_db": {"port": result["psnr_db"], "jax": ref["psnr_db"],
+                      "diff": result["psnr_db"] - ref["psnr_db"]},
+          "mae": {"port": result["mae"], "jax": ref["mae"], "diff": result["mae"] - ref["mae"]},
+          "cn_scale_factor": {"port": result["cn_scale_factor"], "jax": ref_scale},
+          "within_1db_and_0.01_of_jax": within(result), "starts": starts,
+          "loss_curve": [[r["step"], r["loss_chunk_mean"]] for r in own[::100]] +
+          [[own[-1]["step"], own[-1]["loss_chunk_mean"]]],
+          "steps_per_s_logged_median": statistics.median(r["steps_per_s"] for r in own),
+          "wall_s": wall, "card": smi})
+    if own[-1]["step"] != result["total_iters"] or not result["psnr_db"] >= 15.0:
+        raise AssertionError(f"converge_controlnet: did not learn ({result})")
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
-          "fusion_train", "converge", "graph_grads", "replay_records", "converge_msda",
-          "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter")
+          "fusion_train", "cn_reference", "cn_main", "cn_train", "converge", "graph_grads",
+          "replay_records", "converge_msda", "converge_depth", "converge_bev",
+          "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
 ON_REQUEST = ("converge", "graph_grads", "replay_records", "converge_msda", "converge_depth",
-              "converge_bev", "converge_bev_fusion", "converge_seg_quarter")
+              "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
+              "converge_controlnet")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
@@ -3585,8 +4078,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
                          "but converge, graph_grads, replay_records, converge_msda, "
-                         "converge_depth, converge_bev, converge_bev_fusion and "
-                         "converge_seg_quarter; serve needs main)")
+                         "converge_depth, converge_bev, converge_bev_fusion, "
+                         "converge_seg_quarter and converge_controlnet; serve needs main)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
@@ -3645,6 +4138,18 @@ def main(argv=None) -> int:
         launches["fusion_serve"] = phase_fusion_main(smi, args.profile)
     if "fusion_train" in phases:
         launches["fusion_graph"] = phase_fusion_train(smi, args.profile)
+    if "cn_reference" in phases:
+        phase_cn_reference(smi)
+    cn = None
+    if "cn_main" in phases:
+        cn, launches["cn_serve"] = phase_cn_main(smi)
+    if "cn_train" in phases:
+        launches["cn_train"] = phase_cn_train(smi, cn, args.profile)
+    del cn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "converge_controlnet" in phases:
+        phase_converge_controlnet(smi)
     if "converge_depth" in phases:
         phase_converge_depth(smi)
     if "converge_bev" in phases:
@@ -3700,7 +4205,10 @@ def main(argv=None) -> int:
                               "the bev_train batch), profiled"),
                 ("fusion_serve", "sample() of one scene, nuscenes_fusion (camera + lidar BEV)"),
                 ("fusion_graph", "replayed step of a 5-step CUDA graph (nuscenes_fusion, f32, "
-                                 "the fusion_train batch), profiled"))
+                                 "the fusion_train batch), profiled"),
+                ("cn_serve", "sample() of one 512^2 image, controlnet_sd15 (20 DDIM steps, "
+                             "CFG)"),
+                ("cn_train", "eager f32 train step of controlnet_sd15, 4 x 512^2"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

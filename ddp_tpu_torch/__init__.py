@@ -18,5 +18,7 @@ window or msda decoder, mmseg checkpoint import, slide inference, the
 ADE20K/Cityscapes datasets and the train/test entry points
 (``python -m ddp_tpu_torch.tools.train`` / ``tools.test``); the NYUv2/KITTI
 depthers; camera-only and camera + lidar BEV map segmentation (the lidar
-branch's host C++ is built with g++ at first use, ``ddp_tpu_torch/native``).
+branch's host C++ is built with g++ at first use, ``ddp_tpu_torch/native``);
+mask-conditioned generation (``models/controlnet.py``: SD 1.5 with a
+ControlNet, DDIM with classifier-free guidance, ``tools/control_demo.py``).
 """

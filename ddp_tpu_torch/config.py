@@ -1,8 +1,8 @@
 """Configuration of the port (from ``ddp_tpu/config.py:19-172,206-294,334-347,
 447-521,569-638,640-673,700-763``).
 
-Holds the segmentation, depth, BEV-camera and BEV-fusion (lidar branch)
-fields of ``ModelConfig`` (the ControlNet fields wait for their slice), the
+Holds the segmentation, depth, BEV-camera, BEV-fusion (lidar branch) and
+ControlNet fields of ``ModelConfig``, the
 data fields, the ``OptimConfig`` and the ``RuntimeConfig`` fields the
 training loop and the test CLI read, the dotted-path overrides (``--set
 model.bit_scale=0.1``), the ADE20K Swin family (``ade20k_swin_{t,s,b,l}``,
@@ -14,7 +14,8 @@ the NYUv2 and KITTI Swin depthers (``nyu_swin_{t,s,b,l}``,
 segmentors (``nuscenes_camera``, ``nuscenes_fusion``), the end checks
 ``converge_seg_window``, ``converge_seg_msda``, ``converge_seg_aligned_msda``,
 ``converge_seg_quarter``, ``converge_seg_w16h4``, ``converge_depth``,
-``converge_bev`` and ``converge_bev_fusion``, the test presets ``tiny_seg``,
+``converge_bev``, ``converge_bev_fusion`` and ``converge_controlnet``, the SD
+1.5 ControlNet fine-tune ``controlnet_sd15``, the test presets ``tiny_seg``,
 ``smoke``, ``smoke_bev`` and ``smoke_fusion``, and ``build_model``. The
 defaults are the JAX package's (``decoder_attn="msda"`` among them). The JAX
 package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
@@ -67,6 +68,17 @@ class ModelConfig:
     depth_act: str = "relu"
     max_depth: float = 10.0
     min_depth: float = 1e-3
+    # ControlNet (task='controlnet'; SD 1.5 defaults, 'tiny' and 'small' scales
+    # for the synthetic runs): the latent scale (SD's 0.18215; a from-scratch
+    # VAE's is measured, 1 / std of its sampled latents, and saved in
+    # scale.json), and the small stacks' VAE width, res blocks and levels
+    # (len - 1 stride-2 levels: (1, 2, 4) gives a 4x-reduced latent)
+    cn_size: str = "sd15"  # 'sd15' | 'small' | 'tiny'
+    cn_image_size: int = 512
+    cn_scale_factor: float = 0.18215
+    cn_vae_ch: int = 16
+    cn_vae_nrb: int = 1
+    cn_vae_mult: tuple = (1, 2, 2, 4)
     # BEV camera (task='bev'; the defaults are the reference's camera-bev256d2
     # geometry): the rig's camera count and image size, the head's output
     # grid, the metric scopes bev_grid_transform resamples between, the LSS
@@ -395,6 +407,37 @@ PRESETS: Dict[str, Callable[[], Config]] = {
                           warmup_steps=1000),
         runtime=RuntimeConfig(total_iters=42_000, ckpt_interval=2000, eval_interval=2000),
     ),
+    # the ControlNet end check (ddp_tpu/config.py:523-550): the 'small' stack
+    # at 64², a 4x-reduced latent (VAE levels (1, 2, 4)), the VAE pretrained
+    # first (evaluation/convergence.py: pretrain_vae) and frozen by lr_mult 0,
+    # 40k steps of 16 on the card's procedural fill50k
+    "converge_controlnet": lambda: Config(
+        name="converge_controlnet",
+        model=ModelConfig(task="controlnet", cn_size="small", cn_image_size=64,
+                          cn_vae_mult=(1, 2, 4)),
+        data=DataConfig(dataset="synthetic", crop_size=(64, 64), batch_size=16),
+        optim=OptimConfig(lr=2e-4, grad_clip=1.0, total_steps=40_000, warmup_steps=100,
+                          schedule="cosine",
+                          custom_keys=(("first_stage_model", (0.0, 0.0)),)),
+        runtime=RuntimeConfig(total_iters=40_000, log_interval=200, ckpt_interval=2000,
+                              eval_interval=100_000, max_keep_ckpts=1, steps_per_dispatch=20,
+                              workdir="work_dirs/torch_converge_controlnet"),
+    ),
+    # the SD 1.5 ControlNet fine-tune (tutorial_train.py: lr 1e-5, the SD
+    # stack locked, here by lr_mult 0 rules; ddp_tpu/config.py:553-566)
+    "controlnet_sd15": lambda: Config(
+        name="controlnet_sd15",
+        model=ModelConfig(task="controlnet", cn_size="sd15", cn_image_size=512),
+        data=DataConfig(dataset="fill50k", data_root="data/fill50k", crop_size=(512, 512),
+                        batch_size=4),
+        optim=OptimConfig(lr=1e-5, grad_clip=1.0, total_steps=100_000, schedule="constant",
+                          warmup_steps=0,
+                          custom_keys=(("diffusion_model", (0.0, 0.0)),
+                                       ("first_stage_model", (0.0, 0.0)),
+                                       ("cond_stage_model", (0.0, 0.0)))),
+        runtime=RuntimeConfig(total_iters=100_000, ckpt_interval=5000,
+                              eval_interval=1_000_000, workdir="work_dirs/controlnet_sd15"),
+    ),
     # tiny CPU-runnable fusion preset (ddp_tpu/config.py:598-620): 2
     # cameras, a 32-d msda decoder of 1 layer, 2 DDIM steps, 1 randstep, a
     # 24-channel lidar branch at capacities 512/256/128/96/96
@@ -531,10 +574,28 @@ def get_config(name: str, overrides: Optional[Dict[str, Any]] = None) -> Config:
     return cfg
 
 
+def build_controlnet(cfg: ModelConfig, device=None):
+    """The ``ControlNetTrainer`` of ``cfg`` (``ddp_tpu/config.py:729-744``):
+    SD 1.5 widths, or the 'tiny' / 'small' UNet with a 64-wide, 2-layer CLIP
+    of 512 tokens and the ``cn_vae_*`` VAE."""
+    from .models.controlnet import ControlNetTrainer
+    from .nn.unet import UNetConfig
+
+    if cfg.cn_size in ("tiny", "small"):
+        unet = UNetConfig().tiny() if cfg.cn_size == "tiny" else UNetConfig().small()
+        return ControlNetTrainer(unet=unet, clip_width=64, clip_layers=2, clip_vocab=512,
+                                 vae_ch=cfg.cn_vae_ch, vae_ch_mult=tuple(cfg.cn_vae_mult),
+                                 vae_nrb=cfg.cn_vae_nrb, scale_factor=cfg.cn_scale_factor,
+                                 device=device)
+    return ControlNetTrainer(unet=UNetConfig(), scale_factor=cfg.cn_scale_factor,
+                             device=device)
+
+
 def build_model(cfg: ModelConfig, device=None, seed: int = 0,
                 input_size: Optional[Tuple[int, int]] = None):
     """DDPSegmentor (``task="seg"``), DDPDepther (``task="depth"``),
-    DDPBEVCamera (``task="bev"``) or DDPBEVFusion (``task="bev_fusion"``) for
+    DDPBEVCamera (``task="bev"``), DDPBEVFusion (``task="bev_fusion"``) or a
+    ControlNetTrainer (``task="controlnet"``, ``build_controlnet``) for
     ``cfg`` on ``device`` (default "cuda"; raises without a GPU unless a
     device is named), weights drawn from ``seed``. ``input_size``: the image
     size the model is built for (the training crop), which sizes a
@@ -592,8 +653,10 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             model = DDPBEVFusion(lidar_channels=cfg.bev_lidar_channels,
                                  lidar_dense_hw=cfg.bev_lidar_dense_hw,
                                  lidar_dense_z=cfg.bev_lidar_dense_z, **kw)
+    elif cfg.task == "controlnet":
+        model = build_controlnet(cfg, device)
     else:
-        raise NotImplementedError(f"task {cfg.task!r} is not ported yet")
+        raise ValueError(f"unknown task {cfg.task!r}")
     if next(model.parameters()).device.type != "meta":
         init_params_(model, seed)
     return model

@@ -26,7 +26,11 @@ and its layer scale ``gamma`` keeps its name. So do the depther's (``down``,
 ``transform``, ``time_mlp``, ``embedding_table``, ``decode_head``); a named
 BatchNorm's inner flax ``BatchNorm_0`` is dropped; the fusion model's
 camera and head modules are the BEV camera model's, and its ``fuser_conv``
-is a ConvModule. Its sparse conv layers (``lidar_*``) keep flax's leaf names
+is a ConvModule. The ControlLDM's modules (``nn/unet.py``,
+``nn/autoencoder.py``, ``nn/clip_text.py``, ``nn/attention.py``) carry the
+flax names too and run NCHW, so their conv kernels take the Conv rule; the
+trainer's ``ldm`` level is dropped, CLIP's bare ``position_embedding``
+parameter keeps its name and layout. Its sparse conv layers (``lidar_*``) keep flax's leaf names
 and layouts (``kernel`` [K, Cin, Cout], ``bn/{scale, bias}``, ``bn/{mean,
 var}``), so their leaves map as they are. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
@@ -53,11 +57,15 @@ _MODULE_RENAMES = (
     (("Dense_0",), ("fc1",)),
     (("Dense_1",), ("fc2",)),
     (("LearnedSinusoidalPosEmb_0",), ("pos_emb",)),
+    # the ControlNet trainer's ControlLDM child: the port's trainer is the
+    # ControlLDM itself
+    (("ldm",), ()),
 )
 _AUTO_NAME = re.compile(r"^[A-Z]\w*_\d+$")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  "bias": "bias", "weights": "weights", "gamma": "gamma",
-                 "relative_position_bias_table": "relative_position_bias_table"}
+                 "relative_position_bias_table": "relative_position_bias_table",
+                 "position_embedding": "position_embedding"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 # top-level modules whose leaves keep their flax names and layouts
 _VERBATIM_PREFIX = "lidar_"

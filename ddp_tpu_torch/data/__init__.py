@@ -1,8 +1,8 @@
 """Data layer: datasets, pipelines, batch iterators.
 
 ``make_train_iter(cfg)`` builds the train batch iterator of a config, as
-``ddp_tpu/data/__init__.py`` does (its ``task="bev_fusion"``, ``task="bev"``,
-``task="depth"`` and ``task="seg"`` branches, :40-130).
+``ddp_tpu/data/__init__.py`` does (all its branches: ``task="controlnet"``,
+``"bev_fusion"``, ``"bev"``, ``"depth"`` and ``"seg"``).
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ def make_train_iter(cfg):
     ``bev_batch_iterator`` with the 3D aug (as JAX's always augments). BEV
     fusion: the 512-scene ``SyntheticFusionDataset`` or ``NuScenesFusionDataset``
     at the model's voxel grid and capacities, through
-    ``fusion_batch_iterator``. A tree whose train split holds nothing raises
+    ``fusion_batch_iterator``. ControlNet: ``SyntheticFill50k`` (20,000 pairs)
+    or a fill50k tree (``Fill50kDataset``) at ``model.cn_image_size``, through
+    ``controlnet_batch_iterator``. A tree whose train split holds nothing raises
     FileNotFoundError. Under ``torch.distributed`` each process gets its
     rank's slice of every global batch."""
     import torch.distributed as dist
@@ -29,6 +31,20 @@ def make_train_iter(cfg):
                    else (0, 1))
     d = cfg.data
     m = cfg.model
+    if m.task == "controlnet":
+        from .controlnet_data import (Fill50kDataset, SyntheticFill50k,
+                                      controlnet_batch_iterator)
+
+        if d.dataset == "synthetic":
+            # a wide index pool: the generator must interpolate circle position
+            # and size rather than memorise pairs
+            ds = SyntheticFill50k(size=m.cn_image_size, length=20_000)
+        else:
+            ds = Fill50kDataset(d.data_root, size=m.cn_image_size)
+            if len(ds) == 0:
+                raise FileNotFoundError(f"no fill50k prompt.json under {d.data_root}")
+        return controlnet_batch_iterator(ds, d.batch_size, seed=cfg.runtime.seed, rank=rank,
+                                         world=world)
     if m.task == "bev_fusion":
         from .bev_datasets import (NuScenesFusionDataset, SyntheticFusionDataset,
                                    fusion_batch_iterator)

@@ -148,6 +148,65 @@ class Mlp(nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
+def promoted_dtype(x: torch.Tensor, *params: Optional[torch.Tensor]) -> torch.dtype:
+    """JAX's promotion of an activation against a layer's parameters (a
+    flax layer with ``dtype=None``): bf16 against float32 is float32."""
+    dtype = x.dtype
+    for p in params:
+        if p is not None:
+            dtype = torch.promote_types(dtype, p.dtype)
+    return dtype
+
+
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+class PConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (NCHW) in the promoted type of its input and weights, as
+    a flax ``Conv`` computes. ``zero_init``: ``init_params_`` starts the
+    kernel at 0 (flax's ``kernel_init=zero_init``)."""
+
+    def __init__(self, *args, zero_init: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.zero_init = zero_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = promoted_dtype(x, self.weight)
+        return self._conv_forward(x.to(dtype), self.weight.to(dtype), _cast(self.bias, dtype))
+
+
+class PLinear(nn.Linear):
+    """``nn.Linear`` in the promoted type of its input and weights (flax
+    ``Dense``); ``zero_init`` as ``PConv2d``'s."""
+
+    def __init__(self, *args, zero_init: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.zero_init = zero_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = promoted_dtype(x, self.weight)
+        return F.linear(x.to(dtype), self.weight.to(dtype), _cast(self.bias, dtype))
+
+
+class PGroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (NCHW) in the promoted type (flax ``GroupNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = promoted_dtype(x, self.weight)
+        return F.group_norm(x.to(dtype), self.num_groups, self.weight.to(dtype),
+                            self.bias.to(dtype), self.eps)
+
+
+class PLayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` in the promoted type (flax ``LayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = promoted_dtype(x, self.weight)
+        return F.layer_norm(x.to(dtype), self.normalized_shape, self.weight.to(dtype),
+                            self.bias.to(dtype), self.eps)
+
+
 def init_params_(module: nn.Module, seed: int) -> None:
     """Fill every parameter from ``torch.Generator().manual_seed(seed)``, drawn
     on the CPU so that the weights do not depend on the device:
@@ -162,13 +221,19 @@ def init_params_(module: nn.Module, seed: int) -> None:
     head's ``conv_depth`` bias starts at 0.5 (``ddp_tpu/nn/heads.py:142,145``),
     so that a fresh head's output is above zero, where relu passes gradients.
     A sparse conv's ``kernel`` [K, Cin, Cout] is N(0, 1/(K·Cin)), flax's
-    fan-in of that shape."""
+    fan-in of that shape. A layer marked ``zero_init`` (the UNet's and
+    ControlNet's zero convolutions) starts at 0, and CLIP's
+    ``position_embedding`` at N(0, 0.01^2), as their flax inits."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner, _, leaf = name.rpartition(".")
             parent, _, kind = owner.rpartition(".")
-            if leaf == "relative_position_bias_table":
+            if getattr(module.get_submodule(owner), "zero_init", False):
+                val = torch.zeros(p.shape)
+            elif leaf == "position_embedding":
+                val = torch.randn(p.shape, generator=gen) * 0.01
+            elif leaf == "relative_position_bias_table":
                 val = torch.randn(p.shape, generator=gen) * 0.02
             elif leaf == "weights":
                 val = torch.randn(p.shape, generator=gen)

@@ -22,7 +22,8 @@ prints the mean across-hypothesis standard deviation and the mean width of
 the 80 % interval (10th to 90th percentile), in metres. Runs on the card
 unless ``--device cpu``. A BEV preset is refused, as the JAX tool has no BEV
 branch: ``evaluation/convergence.py: eval_bev`` scores a BEV model,
-``eval_bev_fusion`` a camera + lidar one.
+``eval_bev_fusion`` a camera + lidar one; so is a ControlNet preset
+(``tools/control_demo.py`` samples one, ``eval_controlnet`` scores one).
 """
 from __future__ import annotations
 
@@ -66,8 +67,12 @@ def main(argv=None) -> int:
         raise SystemExit(f"task {cfg.model.task!r} has no test CLI (the JAX tools/test.py "
                          f"has no BEV branch); evaluation/convergence.py: {scorer} scores a "
                          "BEV model")
+    if cfg.model.task == "controlnet":
+        raise SystemExit("task 'controlnet' has no test CLI (the JAX tools/test.py has no "
+                         "ControlNet branch); tools/control_demo.py samples a ControlLDM, "
+                         "evaluation/convergence.py: eval_controlnet scores one")
     if cfg.model.task not in ("seg", "depth"):
-        raise SystemExit(f"task {cfg.model.task!r} is not ported yet")
+        raise SystemExit(f"unknown task {cfg.model.task!r}")
     rt = cfg.runtime
     if cfg.model.task == "depth" and rt.test_mode != "whole":
         raise SystemExit("a depther is evaluated on whole images (runtime.test_mode=whole)")

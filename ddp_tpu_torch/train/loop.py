@@ -41,6 +41,8 @@ def batch_keys(task: str) -> Tuple[str, ...]:
         from ..data.bev_datasets import FUSION_BATCH_KEYS
 
         return FUSION_BATCH_KEYS
+    if task == "controlnet":
+        return ("image", "hint", "ids")
     return ("image", "label")
 
 
@@ -95,8 +97,9 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     per dispatch. ``data_iter`` yields host batches of the task's keys:
     {'image': [B, H, W, 3], 'label': [B, H, W]} (int classes for a
     segmentor, float metric depth for a depther), ``BEV_BATCH_KEYS`` for
-    ``task="bev"``, ``FUSION_BATCH_KEYS`` for ``task="bev_fusion"`` (as
-    ``ddp_tpu/train/loop.py:94-100`` picks them); with
+    ``task="bev"``, ``FUSION_BATCH_KEYS`` for ``task="bev_fusion"``,
+    {'image', 'hint', 'ids'} for ``task="controlnet"`` (as
+    ``ddp_tpu/train/loop.py:93-100`` picks them); with
     ``resume`` it must yield the batches from the restored step on.
     ``init_params``: a state_dict (parameters and BN statistics) loaded
     strictly into the fresh model before the optimizer is built, as the JAX

@@ -13,7 +13,8 @@ positionally and in order, as the JAX step calls its module
 ``(loss, logs)``: ("image", "label") for a ``DDPSegmentor`` ('label' an int
 map, 255 = ignore) or a ``DDPDepther`` ('label' float metric depth, <= 0 =
 invalid), the rig tuple ``data/bev_datasets.py: BEV_BATCH_KEYS`` for a
-``DDPBEVCamera``, ``FUSION_BATCH_KEYS`` for a ``DDPBEVFusion``. A batch value
+``DDPBEVCamera``, ``FUSION_BATCH_KEYS`` for a ``DDPBEVFusion``, ("image",
+"hint", "ids") for a ``ControlNetTrainer`` (its t an int [B]). A batch value
 may be a dict of tensors (the fusion batch's ``rulebooks``, int32): chunking,
 the bf16 cast, the CUDA graph's static inputs and the loop's stacking walk
 it leaf by leaf, as JAX's tree maps do.
@@ -21,7 +22,8 @@ it leaf by leaf, as JAX's tree maps do.
 ``mixed_precision=True`` is the JAX package's bf16 policy: the forward and
 backward run on bf16 copies of the parameters and of every float32 batch
 value (the image, a depth label or BEV masks, the rig's rotations,
-translations and intrinsics, a fusion batch's voxel features, the noise;
+translations and intrinsics, a fusion batch's voxel features, a ControlNet
+batch's image and hint, the noise; token ids stay int;
 ``torch.func.functional_call``), so
 the gradients land as float32 on the float32 master parameters; the
 optimizer state and the loss stay float32. A given ``t`` stays float32 (JAX

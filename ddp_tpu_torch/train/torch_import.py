@@ -1,6 +1,7 @@
 """Import the released mmseg DDP segmentor checkpoints (port of ``Importer``
 and ``import_ddp_seg``, ``ddp_tpu/train/torch_import.py:53-252``: Swin and
-ConvNeXt backbones).
+ConvNeXt backbones), and SD 1.5 + ControlNet state_dicts in the cldm layout
+(``import_sd_controlldm``, ``:258-520``; section at the end).
 
 An mmseg state_dict maps straight onto the port's state_dict: both are torch
 layouts, so conv and linear weights copy as they are. What changes is names
@@ -399,6 +400,257 @@ def load_mmseg_checkpoint(path: str, cfg, device=None):
                         input_size=cfg.data.crop_size)
     report = load_mmseg_state(model, read_state_dict(path), cfg)
     return model, report
+
+
+# --- the SD 1.5 ControlLDM (``ddp_tpu/train/torch_import.py:258-520``) --------------
+#
+# (cldm key, port key, kind) pairs over the cldm/model.py + tool_add_control.py
+# layout (model.diffusion_model.*, control_model.*, first_stage_model.*,
+# cond_stage_model.transformer.text_model.*). Both sides are torch layouts:
+# conv and linear weights copy as they are, but SD 1.5's 1x1-conv projections
+# (the spatial transformers' proj_in / proj_out, the VAE attention's q, k, v,
+# proj_out) load into Linears, and HF CLIP's q/k/v projections into one qkv.
+
+def _sd_res(t, p, in_ch, out_ch):
+    pairs = [(f"{t}.in_layers.0", f"{p}.in_norm", "norm"),
+             (f"{t}.in_layers.2", f"{p}.in_conv", "conv"),
+             (f"{t}.emb_layers.1", f"{p}.emb_proj", "lin"),
+             (f"{t}.out_layers.0", f"{p}.out_norm", "norm"),
+             (f"{t}.out_layers.3", f"{p}.out_conv", "conv")]
+    if in_ch != out_ch:
+        pairs.append((f"{t}.skip_connection", f"{p}.skip", "conv"))
+    return pairs
+
+
+def _sd_st(t, p, depth=1):
+    pairs = [(f"{t}.norm", f"{p}.norm", "norm"),
+             (f"{t}.proj_in", f"{p}.proj_in", "conv_as_lin"),
+             (f"{t}.proj_out", f"{p}.proj_out", "conv_as_lin")]
+    for d in range(depth):
+        tb, pb = f"{t}.transformer_blocks.{d}", f"{p}.block_{d}"
+        for attn in ("attn1", "attn2"):
+            pairs += [(f"{tb}.{attn}.to_q", f"{pb}.{attn}.to_q", "lin"),
+                      (f"{tb}.{attn}.to_k", f"{pb}.{attn}.to_k", "lin"),
+                      (f"{tb}.{attn}.to_v", f"{pb}.{attn}.to_v", "lin"),
+                      (f"{tb}.{attn}.to_out.0", f"{pb}.{attn}.to_out", "lin")]
+        pairs += [(f"{tb}.ff.net.0.proj", f"{pb}.ff.proj_in", "lin"),
+                  (f"{tb}.ff.net.2", f"{pb}.ff.proj_out", "lin"),
+                  (f"{tb}.norm1", f"{pb}.norm1", "norm"),
+                  (f"{tb}.norm2", f"{pb}.norm2", "norm"),
+                  (f"{tb}.norm3", f"{pb}.norm3", "norm")]
+    return pairs
+
+
+def sd_unet_pairs(cfg, tprefix: str, pprefix: str, decoder_half: bool = True):
+    """The SD UNet's pairs (``decoder_half=False``: the time embedding, the
+    encoder and the middle only, the ControlNet's copy)."""
+    pairs = [(f"{tprefix}.time_embed.0", f"{pprefix}.time_embed_0", "lin"),
+             (f"{tprefix}.time_embed.2", f"{pprefix}.time_embed_2", "lin"),
+             (f"{tprefix}.input_blocks.0.0", f"{pprefix}.encoder.conv_in", "conv")]
+    in_ch, ds, k = cfg.model_channels, 1, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        out_ch = cfg.model_channels * mult
+        for i in range(cfg.num_res_blocks):
+            pairs += _sd_res(f"{tprefix}.input_blocks.{k}.0",
+                             f"{pprefix}.encoder.res_{level}_{i}", in_ch, out_ch)
+            if ds in cfg.attention_resolutions:
+                pairs += _sd_st(f"{tprefix}.input_blocks.{k}.1",
+                                f"{pprefix}.encoder.attn_{level}_{i}", cfg.transformer_depth)
+            in_ch = out_ch
+            k += 1
+        if level != len(cfg.channel_mult) - 1:
+            pairs.append((f"{tprefix}.input_blocks.{k}.0.op",
+                          f"{pprefix}.encoder.down_{level}.conv", "conv"))
+            k += 1
+            ds *= 2
+    for j, name in enumerate(("mid_res1", "mid_attn", "mid_res2")):
+        t, p = f"{tprefix}.middle_block.{j}", f"{pprefix}.middle.{name}"
+        pairs += (_sd_st(t, p, cfg.transformer_depth) if name == "mid_attn"
+                  else _sd_res(t, p, in_ch, in_ch))
+    if not decoder_half:
+        return pairs
+    from ..nn.unet import skip_channels
+
+    skips = skip_channels(cfg)
+    h_ch, k = in_ch, 0
+    for level in reversed(range(len(cfg.channel_mult))):
+        out_ch = cfg.model_channels * cfg.channel_mult[level]
+        for i in range(cfg.num_res_blocks + 1):
+            pairs += _sd_res(f"{tprefix}.output_blocks.{k}.0", f"{pprefix}.up_res_{level}_{i}",
+                             h_ch + skips.pop(), out_ch)
+            has_attn = ds in cfg.attention_resolutions
+            if has_attn:
+                pairs += _sd_st(f"{tprefix}.output_blocks.{k}.1",
+                                f"{pprefix}.up_attn_{level}_{i}", cfg.transformer_depth)
+            if level != 0 and i == cfg.num_res_blocks:
+                pairs.append((f"{tprefix}.output_blocks.{k}.{2 if has_attn else 1}.conv",
+                              f"{pprefix}.up_{level}.conv", "conv"))
+            h_ch = out_ch
+            k += 1
+        if level != 0:
+            ds //= 2
+    return pairs + [(f"{tprefix}.out.0", f"{pprefix}.out_norm", "norm"),
+                    (f"{tprefix}.out.2", f"{pprefix}.out_conv", "conv")]
+
+
+def sd_controlnet_pairs(cfg, tprefix: str = "control_model", pprefix: str = "control_model"):
+    """The ControlNet's pairs: the encoder copy, the hint block's convs (even
+    indices of input_hint_block), the zero convs and middle_block_out."""
+    from ..nn.unet import skip_channels
+
+    pairs = sd_unet_pairs(cfg, tprefix, pprefix, decoder_half=False)
+    pairs += [(f"{tprefix}.input_hint_block.{2 * i}", f"{pprefix}.hint.conv_{i}", "conv")
+              for i in range(7)]
+    pairs.append((f"{tprefix}.input_hint_block.14", f"{pprefix}.hint.zero_conv", "conv"))
+    pairs += [(f"{tprefix}.zero_convs.{k}.0", f"{pprefix}.zero_conv_{k}", "conv")
+              for k in range(len(skip_channels(cfg)))]
+    return pairs + [(f"{tprefix}.middle_block_out.0", f"{pprefix}.middle_out", "conv")]
+
+
+def _sd_vae_res(t, p, in_ch, out_ch):
+    pairs = [(f"{t}.norm1", f"{p}.norm1", "norm"), (f"{t}.conv1", f"{p}.conv1", "conv"),
+             (f"{t}.norm2", f"{p}.norm2", "norm"), (f"{t}.conv2", f"{p}.conv2", "conv")]
+    if in_ch != out_ch:
+        pairs.append((f"{t}.nin_shortcut", f"{p}.nin_shortcut", "conv"))
+    return pairs
+
+
+def _sd_vae_mid(t, p, ch):
+    return (_sd_vae_res(f"{t}.mid.block_1", f"{p}.mid_block_1", ch, ch)
+            + [(f"{t}.mid.attn_1.norm", f"{p}.mid_attn.norm", "norm")]
+            + [(f"{t}.mid.attn_1.{n}", f"{p}.mid_attn.{n}", "conv_as_lin")
+               for n in ("q", "k", "v", "proj_out")]
+            + _sd_vae_res(f"{t}.mid.block_2", f"{p}.mid_block_2", ch, ch))
+
+
+def sd_vae_pairs(ch: int = 128, ch_mult=(1, 2, 4, 4), nrb: int = 2,
+                 tprefix: str = "first_stage_model", pprefix: str = "first_stage_model"):
+    te, pe = f"{tprefix}.encoder", f"{pprefix}.encoder"
+    pairs = [(f"{te}.conv_in", f"{pe}.conv_in", "conv")]
+    in_ch = ch
+    for level, mult in enumerate(ch_mult):
+        for i in range(nrb):
+            pairs += _sd_vae_res(f"{te}.down.{level}.block.{i}", f"{pe}.down_{level}_block_{i}",
+                                 in_ch, ch * mult)
+            in_ch = ch * mult
+        if level != len(ch_mult) - 1:
+            pairs.append((f"{te}.down.{level}.downsample.conv",
+                          f"{pe}.down_{level}_downsample", "conv"))
+    pairs += _sd_vae_mid(te, pe, in_ch)
+    td, pd = f"{tprefix}.decoder", f"{pprefix}.decoder"
+    pairs += [(f"{te}.norm_out", f"{pe}.norm_out", "norm"),
+              (f"{te}.conv_out", f"{pe}.conv_out", "conv"),
+              (f"{tprefix}.quant_conv", f"{pprefix}.quant_conv", "conv"),
+              (f"{tprefix}.post_quant_conv", f"{pprefix}.post_quant_conv", "conv"),
+              (f"{td}.conv_in", f"{pd}.conv_in", "conv")]
+    in_ch = ch * ch_mult[-1]
+    pairs += _sd_vae_mid(td, pd, in_ch)
+    for level in reversed(range(len(ch_mult))):
+        for i in range(nrb + 1):
+            pairs += _sd_vae_res(f"{td}.up.{level}.block.{i}", f"{pd}.up_{level}_block_{i}",
+                                 in_ch, ch * ch_mult[level])
+            in_ch = ch * ch_mult[level]
+        if level != 0:
+            pairs.append((f"{td}.up.{level}.upsample.conv", f"{pd}.up_{level}_upsample",
+                          "conv"))
+    return pairs + [(f"{td}.norm_out", f"{pd}.norm_out", "norm"),
+                    (f"{td}.conv_out", f"{pd}.conv_out", "conv")]
+
+
+def sd_clip_pairs(layers: int = 12, tprefix: str = "cond_stage_model.transformer.text_model",
+                  pprefix: str = "cond_stage_model"):
+    pairs = [(f"{tprefix}.embeddings.token_embedding", f"{pprefix}.token_embedding", "lin"),
+             (f"{tprefix}.embeddings.position_embedding", f"{pprefix}.position_embedding",
+              "pos_embed"),
+             (f"{tprefix}.final_layer_norm", f"{pprefix}.ln_final", "norm")]
+    for i in range(layers):
+        tb, pb = f"{tprefix}.encoder.layers.{i}", f"{pprefix}.block_{i}"
+        pairs += [(f"{tb}.self_attn", f"{pb}.qkv", "clip_qkv"),
+                  (f"{tb}.self_attn.out_proj", f"{pb}.out_proj", "lin"),
+                  (f"{tb}.layer_norm1", f"{pb}.ln_1", "norm"),
+                  (f"{tb}.layer_norm2", f"{pb}.ln_2", "norm"),
+                  (f"{tb}.mlp.fc1", f"{pb}.fc1", "lin"), (f"{tb}.mlp.fc2", f"{pb}.fc2", "lin")]
+    return pairs
+
+
+def sd_controlldm_pairs(cfg, clip_layers: int = 12, vae_ch: int = 128,
+                        vae_ch_mult=(1, 2, 4, 4), vae_nrb: int = 2):
+    """Every (cldm key, port key, kind) pair of a ControlLDM."""
+    return (sd_unet_pairs(cfg, "model.diffusion_model", "diffusion_model")
+            + sd_controlnet_pairs(cfg) + sd_vae_pairs(vae_ch, vae_ch_mult, vae_nrb)
+            + sd_clip_pairs(clip_layers))
+
+
+def import_sd_controlldm(state: Mapping[str, object], cfg, clip_layers: int = 12,
+                         vae_ch: int = 128, vae_ch_mult=(1, 2, 4, 4), vae_nrb: int = 2
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[str]]]:
+    """A cldm-layout SD + ControlNet state_dict -> (the port's ControlLDM
+    state_dict, the ``{missing, unused}`` report of cldm keys). ``cfg``: the
+    ``UNetConfig``."""
+    imp = Importer(state)
+    for tkey, pkey, kind in sd_controlldm_pairs(cfg, clip_layers, vae_ch, vae_ch_mult, vae_nrb):
+        if kind in ("conv", "lin", "norm"):
+            imp.linear(tkey, pkey)
+        elif kind == "conv_as_lin":
+            imp.linear(tkey, pkey)
+            if f"{pkey}.weight" in imp.sd:
+                imp.sd[f"{pkey}.weight"] = imp.sd[f"{pkey}.weight"][:, :, 0, 0]
+        elif kind == "pos_embed":
+            imp.put(pkey, f"{tkey}.weight")
+        elif kind == "clip_qkv":
+            parts = [imp.take(f"{tkey}.{n}_proj.{leaf}") for leaf in ("weight", "bias")
+                     for n in "qkv"]
+            if all(x is not None for x in parts[:3]):
+                imp.sd[f"{pkey}.weight"] = torch.cat(parts[:3])
+            if all(x is not None for x in parts[3:]):
+                imp.sd[f"{pkey}.bias"] = torch.cat(parts[3:])
+        else:
+            raise ValueError(f"unknown kind {kind}")
+    unused = sorted(k for k in imp.state if k not in imp.used)
+    return imp.sd, {"missing": imp.missing, "unused": unused}
+
+
+def load_sd_controlldm(model, state: Mapping[str, object]) -> Dict[str, List[str]]:
+    """Load a cldm-layout state_dict into a ``ControlLDM`` strictly: a missing
+    or unused tensor, or one of another shape, raises."""
+    sd, report = import_sd_controlldm(state, model.unet_cfg, model.cond_stage_model.layers,
+                                      model.vae_ch, model.vae_ch_mult, model.vae_nrb)
+    if report["missing"] or report["unused"]:
+        raise KeyError(f"cldm state_dict does not match: missing {report['missing'][:10]} "
+                       f"({len(report['missing'])}), unused {report['unused'][:10]} "
+                       f"({len(report['unused'])})")
+    model.load_state_dict(sd, strict=True)
+    return report
+
+
+def synthetic_sd_state(model, seed: int = 0) -> Dict[str, np.ndarray]:
+    """A seeded random cldm-layout state_dict for ``model`` (a ControlLDM),
+    numpy float32, shaped from the model through the pairs (no SD checkpoint
+    is in the repository): every tensor N(0, 0.05^2) plus 1 for norm scales."""
+    rng = np.random.RandomState(seed)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    st = {}
+
+    def draw(key, shape, mean=0.0):
+        st[key] = (mean + 0.05 * rng.randn(*shape)).astype(np.float32)
+
+    for tkey, pkey, kind in sd_controlldm_pairs(model.unet_cfg, model.cond_stage_model.layers,
+                                                model.vae_ch, model.vae_ch_mult, model.vae_nrb):
+        if kind == "pos_embed":
+            draw(f"{tkey}.weight", shapes[pkey])
+            continue
+        if kind == "clip_qkv":
+            out, inp = shapes[f"{pkey}.weight"]
+            for n in "qkv":
+                draw(f"{tkey}.{n}_proj.weight", (out // 3, inp))
+                draw(f"{tkey}.{n}_proj.bias", (out // 3,))
+            continue
+        w = shapes[f"{pkey}.weight"]
+        draw(f"{tkey}.weight", w + (1, 1) if kind == "conv_as_lin" else w,
+             1.0 if kind == "norm" else 0.0)
+        if f"{pkey}.bias" in shapes:
+            draw(f"{tkey}.bias", shapes[f"{pkey}.bias"])
+    return st
 
 
 def main(argv=None) -> int:

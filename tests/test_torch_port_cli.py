@@ -4,11 +4,13 @@ the CPU.
   - Presets field by field against ``ddp_tpu.config``: every preset the
     two packages share (the Cityscapes ConvNeXt and Swin families, the
     aligned fine-tunes, ``smoke``, the ADE20K Swin family, the end-check
-    presets, the NYUv2 and KITTI Swin depthers, the BEV camera presets; the
+    presets, the NYUv2 and KITTI Swin depthers, the BEV camera and fusion
+    presets, the ControlNet ones; the
     end checks' workdirs differ on purpose, ``work_dirs/torch_*``); every
     field of the port's dataclasses exists in the JAX package's.
   - The dataclasses' defaults field by field: the same fields but those
-    still to port (named in ``NOT_PORTED``), the same values.
+    still to port (named in ``NOT_PORTED``: the data loader's worker count),
+    the same values.
   - ``get_config`` overrides coerced as the JAX package coerces them
     (bools, ints, floats, tuples, nested dataclasses); an unknown key raises
     in both.
@@ -55,6 +57,7 @@ def test_presets_match_jax_field_by_field():
             "converge_seg_window", "converge_seg_msda", "converge_seg_quarter",
             "converge_seg_w16h4", "converge_depth", "nuscenes_camera", "converge_bev",
             "smoke_bev", "nuscenes_fusion", "converge_bev_fusion", "smoke_fusion",
+            "converge_controlnet", "controlnet_sd15",
             *(f"{d}_swin_{v}" for d in ("nyu", "kitti") for v in "tsbl")
             } <= set(SHARED)
     for name in SHARED:
@@ -71,11 +74,10 @@ def test_presets_match_jax_field_by_field():
             city.model.decoder_heads) == (19, (512, 1024), 16, 0.4, 16, 4)
 
 
-# the JAX fields whose slices are still to port (ROADMAP.md queue 1):
-# ControlNet's, and the data loader's worker count (the host pipeline)
+# the JAX fields whose slices are still to port (ROADMAP.md queue 1): the
+# data loader's worker count (the host pipeline)
 NOT_PORTED = {
-    "ModelConfig": {"cn_size", "cn_image_size", "cn_scale_factor", "cn_vae_ch", "cn_vae_nrb",
-                    "cn_vae_mult"},
+    "ModelConfig": set(),
     "DataConfig": {"num_workers"}, "OptimConfig": set(), "RuntimeConfig": set()}
 
 

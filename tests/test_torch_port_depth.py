@@ -183,8 +183,8 @@ def test_build_model_depth():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(mc)
-    with pytest.raises(NotImplementedError, match="controlnet"):
-        build_model(dataclasses.replace(mc, task="controlnet"), device="cpu")
+    with pytest.raises(ValueError, match="unknown task"):
+        build_model(dataclasses.replace(mc, task="not_a_task"), device="cpu")
 
 
 def _depth_batch(mc, b=2, seed=0):
