@@ -180,7 +180,7 @@ ms_deform_attn range and by the backward nodes made there.
                the largest that fits, with the peak and error of those that
                do not): f32 and bf16 through the bev_train case (eager, graph
                against eager on 2 scenes with deterministic algorithms on, a
-               graphed chunk of 5 steps), the host's batch of 8.
+               graphed chunk of 5 steps); the host's batch is fusion_host.
  26. cn_reference - a tiny ControlLDM (converge_controlnet with
                model.cn_size=tiny) on the card and on the CPU from the same
                weights, batch, t and noises: the loss (1e-5 relative) and eps
@@ -200,40 +200,60 @@ ms_deform_attn range and by the backward nodes made there.
                largest batch that fits, the misses recorded), graph against
                eager at batch 1 with deterministic algorithms on; no kernel
                launched.
- 29. converge - (only when named) the end check: converge_seg_window's 1500
+ 29. compat_reference - the tiny compat segmentors (an EncoderDecoder for
+               each of the 14 registry heads it can drive, on a width-8
+               ResNet-18 or, for SETR-MLA, a nano ViT; the FCN -> OCR cascade
+               on a tiny HRNet) on the card and on the CPU from the same
+               weights and batch, dropout off: eval logits (1e-4) and the
+               train-mode loss (1e-5 relative) in float32, every gradient
+               (1e-4 of its max + 1e-9 of the model's largest) in float64.
+ 30. compat_main - the five published compat configurations at their widths
+               (random weights, seed 0, float32): upernet_r50 (ResNetV1c-50,
+               UPerHead 512, FCN aux; 150 classes, 512^2),
+               deeplabv3plus_r50-d8 (19 classes, 512 x 1024), ocrnet_hr18
+               (HRNet-W18, FCN -> OCR 512/256), segformer_mit-b0 (MiT-B0,
+               SegformerHead 256; 512^2) and dpt_vit-b16 (ViT-B/16 taps 2, 5,
+               8, 11, DPTHead seg; 512^2): predict() of one image (ms, img/s,
+               busy share, peak memory) and 3 eager train steps at batch 2
+               with the port's AdamW (step ms, peak memory, a finite loss
+               that moves); 0 launches of the five kernels.
+ 31. fusion_host - (only when named) the host's fusion_batch_iterator
+               batch of 8 nuscenes_fusion scenes: the rig's sweeps and dense
+               clouds filling every capacity.
+ 32. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 30. graph_grads - (only when named) where the graphed and the eager step
+ 33. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 31. replay_records - (only when named) how often a profile of one
+ 34. replay_records - (only when named) how often a profile of one
                CUDA-graph replay (ade20k_swin_t_msda, 10 bf16 steps) lacks
                kernel records, with and without the pauses after the
                profile starts and before it stops that every other phase
                takes.
- 32. converge_msda - (only when named) the msda end checks:
+ 35. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
- 33. converge_depth - (only when named) the depth end check: converge_depth's
+ 36. converge_depth - (only when named) the depth end check: converge_depth's
                1500 iterations through train() and eval_depth's abs_rel,
                rmse and a1 at 1, 3 and 10 DDIM steps beside
                work_dirs/converge_depth/result.json of the JAX package.
- 34. converge_bev - (only when named) the BEV end check: converge_bev's 2500
+ 37. converge_bev - (only when named) the BEV end check: converge_bev's 2500
                iterations through train() and eval_bev's map mIoU at 1, 3 and
                10 DDIM steps beside work_dirs/converge_bev/result.json of the
                JAX package.
- 35. converge_bev_fusion - (only when named) the fusion end check:
+ 38. converge_bev_fusion - (only when named) the fusion end check:
                converge_bev_fusion's 2500 iterations through train() and
                eval_bev_fusion's map mIoU at 1 and 3 DDIM steps beside
                work_dirs/converge_bev_fusion/result.json of the JAX package.
- 36. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
+ 39. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
                iterations (the CE on the quarter-scale logits) and eval_seg
                beside work_dirs/converge_seg_quarter/result.json.
 
- 37. converge_controlnet - (only when named) the ControlNet end check:
+ 40. converge_controlnet - (only when named) the ControlNet end check:
                converge_controlnet through run() (the VAE pretrained and its
                latent scale measured, 40,000 steps on batches rendered on the
                card, PSNR and MAE of 8 held-out hints at 20 DDIM steps and
@@ -3508,10 +3528,9 @@ def phase_fusion_train(smi: str, profile: str = None):
     with the measured peak and error of those that did not): f32 (TF32 off)
     and bf16 through bev_graph_case (the eager step, graph against eager on
     2 scenes with deterministic algorithms on, a graphed chunk of 5 steps:
-    ms, scenes/s, busy share, peak memory, capture s, no kernel launched);
-    the host's fusion_batch_iterator batch of 8."""
+    ms, scenes/s, busy share, peak memory, capture s, no kernel launched).
+    The host's batch of 8 is the on-request phase fusion_host."""
     from ddp_tpu_torch.config import get_config
-    from ddp_tpu_torch.data.bev_datasets import fusion_batch_iterator
 
     cfg = get_config("nuscenes_fusion")
     want = cfg.data.batch_size
@@ -3546,6 +3565,22 @@ def phase_fusion_train(smi: str, profile: str = None):
             if f32_batch < 1:
                 raise AssertionError(f"fusion_train: no graphed f32 step fits: {misses}")
     b = f32_batch
+    emit({"phase": "fusion_train", "preset": cfg.name, "batch_wanted": want, "batch_run_f32": b,
+          "batch_note": "the preset's batch" if b == want else
+          f"the preset's batch of {want} does not fit in f32: {b} is the largest that does",
+          "f32_batches_that_did_not_fit": misses, "card": smi})
+    return graphed
+
+
+def phase_fusion_host(smi: str):
+    """The host's fusion_batch_iterator batch of nuscenes_fusion's 8 scenes,
+    twice each: the rig's 800-point sweeps, and dense clouds that fill every
+    level to its capacity."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data.bev_datasets import fusion_batch_iterator
+
+    cfg = get_config("nuscenes_fusion")
+    want = cfg.data.batch_size
     host = {}
     for what, ds in (("synthetic_rig", fusion_dataset(cfg, 512)),
                      ("dense_clouds", fusion_dense_dataset(cfg, 512))):
@@ -3555,16 +3590,12 @@ def phase_fusion_train(smi: str, profile: str = None):
             t0 = time.perf_counter()
             next(it)
             host[what].append(time.perf_counter() - t0)
-    emit({"phase": "fusion_train", "preset": cfg.name, "batch_wanted": want, "batch_run_f32": b,
-          "batch_note": "the preset's batch" if b == want else
-          f"the preset's batch of {want} does not fit in f32: {b} is the largest that does",
-          "f32_batches_that_did_not_fit": misses, "host_batch_s": host,
+    emit({"phase": "fusion_host", "preset": cfg.name, "host_batch_s": host,
           "host_batch": f"fusion_batch_iterator, {want} scenes of 6 x 256x704 + lidar "
                         "(voxelized, rulebooks; the first includes the iterator's start): "
                         "the rig's 800-point sweeps, and dense_cloud's 400,000 points a scene "
                         "at 10 a voxel (every level filled to its capacity)",
           "card": smi})
-    return graphed
 
 
 def phase_converge_bev_fusion(smi: str):
@@ -4059,15 +4090,266 @@ def phase_converge_controlnet(smi: str):
         raise AssertionError(f"converge_controlnet: did not learn ({result})")
 
 
+# --- the compat zoo: mmseg's EncoderDecoder surface ----------------------------
+
+COMPAT_K = 5
+# tiny heads for compat_reference: every registry head that EncoderDecoder
+# can drive (ocr and point take a previous stage's logits, and dpt cannot be
+# built with num_classes, as in the JAX package)
+COMPAT_TINY_HEADS = {
+    "psp": dict(channels=16), "uper": dict(channels=16),
+    "aspp": dict(channels=16, dilations=(1, 2)),
+    "sep_aspp": dict(channels=16, c1_channels=8, dilations=(1, 2)),
+    "segformer": dict(channels=16), "da": dict(channels=16), "nl": dict(channels=16),
+    "lraspp": dict(channels=16), "fpn": dict(channels=16), "setr_up": dict(channels=16),
+    "setr_mla": dict(channels=16), "fcn": dict(channels=16), "nn": dict(channels=16),
+    "identity": {}}
+
+
+def compat_tiny(name: str):
+    """A tiny compat segmentor: an EncoderDecoder with the registry head
+    ``name`` on a width-8 ResNet-18 (SETR-MLA on a nano ViT, whose taps share
+    one grid), or 'cascade': FCN -> OCR on a tiny HRNet. Weights from
+    init_params_(seed 0), DAHead's zero-initialised gates set to 0.1 so that
+    its attention carries signal."""
+    from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.mobile_hrnet import HRNet
+    from ddp_tpu_torch.nn.resnet import ResNet
+    from ddp_tpu_torch.nn.vit import VisionTransformer, vit_variant
+
+    if name == "cascade":
+        model = CascadeEncoderDecoder(HRNet((4, 8, 16, 32), 1, (1, 1, 1)), COMPAT_K,
+                                      channels=16, ocr_channels=8)
+    else:
+        backbone = (VisionTransformer(**vit_variant("nano"), patch_size=4, pretrain_grid=6)
+                    if name == "setr_mla" else
+                    ResNet(depth=18, stem_channels=8, base_channels=8))
+        model = EncoderDecoder(backbone, name, COMPAT_K, head_kwargs=COMPAT_TINY_HEADS[name])
+    init_params_(model, 0)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("_gamma"):
+                p.fill_(0.1)
+    return model
+
+
+def _dropout_off(model):
+    for m in model.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    return model
+
+
+def _compat_run(model, img, gt, dtype):
+    """(eval logits, train loss, logs, {name: grad}) of a copy of ``model``
+    in ``dtype`` on img's device, dropout off."""
+    import copy
+
+    m = copy.deepcopy(model).to(img.device, dtype).eval()
+    with torch.no_grad():
+        logits = m.forward_logits(img.to(dtype))
+    logits = [t for t in (logits if isinstance(logits, tuple) else (logits,)) if t is not None]
+    _dropout_off(m).train()
+    loss, logs = m(img.to(dtype), gt)
+    grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
+    return ([t.cpu() for t in logits], loss.item(), {k: v.item() for k, v in logs.items()},
+            {n: g.cpu() for (n, _), g in zip(m.named_parameters(), grads)})
+
+
+def phase_compat_reference(smi: str):
+    """Each tiny compat segmentor (compat_tiny: 14 EncoderDecoder heads and
+    the FCN -> OCR cascade on HRNet) on the card and on the CPU from the same
+    weights and batch (4 x 64^2, 5 classes, ignored pixels; the deepest maps
+    are 2^2, so a train-mode BatchNorm there sees 16 values a channel),
+    dropout off: float32 eval logits within 1e-4 and the train-mode loss
+    within 1e-5 relative; every gradient within 1e-4 of its max (+ 1e-9 of
+    the model's largest, for tensors whose gradient is 0 but for rounding),
+    in float64: in float32 a ReLU input within rounding of 0 can take the
+    other side on the other device and move every gradient upstream (the
+    float32 gradients' worst difference is recorded)."""
+    t0 = time.perf_counter()
+    g = _gen(71)
+    img = torch.randn(4, 64, 64, 3, generator=g)
+    gt = torch.randint(0, COMPAT_K, (4, 64, 64), generator=g)
+    gt[:, :2] = 255
+    rows, worst = {}, {"logits": 0.0, "loss_rel": 0.0, "grad_rel_f64": 0.0}
+    for name in list(COMPAT_TINY_HEADS) + ["cascade"]:
+        model = compat_tiny(name)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            res[dev] = {dt: _compat_run(model, img.to(dev), gt.to(dev), dt)
+                        for dt in (torch.float32, torch.float64)}
+        c32, g32 = res["cpu"][torch.float32], res["cuda"][torch.float32]
+        c64, g64 = res["cpu"][torch.float64], res["cuda"][torch.float64]
+        logit_diff = max((a - b).abs().max().item() for a, b in zip(c32[0], g32[0]))
+        loss_rel = abs(c32[1] - g32[1]) / abs(c32[1])
+
+        def grad_rel(a, b):
+            # a tensor's difference over its limit's scale: its own max plus
+            # 1e-9 of the model's largest (biases right before a train-mode
+            # BatchNorm, or a key's bias under softmax, get a gradient of 0
+            # plus rounding, where a ratio to their own max means nothing)
+            top = max(a[n].abs().max().item() for n in a)
+            return max(((a[n] - b[n]).abs().max()
+                        / (a[n].abs().max() + 1e-9 * top).clamp_min(1e-300)).item() for n in a)
+
+        rows[name] = {"logits_max_abs_diff": logit_diff, "loss_rel_diff": loss_rel,
+                      "logs": sorted(c32[2]), "grad_rel_diff_f64": grad_rel(c64[3], g64[3]),
+                      "grad_rel_diff_f32": grad_rel(c32[3], g32[3]), "tensors": len(c32[3])}
+        worst["logits"] = max(worst["logits"], logit_diff)
+        worst["loss_rel"] = max(worst["loss_rel"], loss_rel)
+        worst["grad_rel_f64"] = max(worst["grad_rel_f64"], rows[name]["grad_rel_diff_f64"])
+    line = {"phase": "compat_reference", "batch": list(img.shape), "classes": COMPAT_K,
+            "models": rows, "worst": worst,
+            "limits": "logits 1e-4 abs, loss 1e-5 relative (float32); each gradient 1e-4 of "
+                      "its max + 1e-9 of the model's largest (float64)",
+            "wall_s": time.perf_counter() - t0, "card": smi}
+    emit(line)
+    if not (worst["logits"] <= 1e-4 and worst["loss_rel"] <= 1e-5
+            and worst["grad_rel_f64"] <= 1e-4):
+        raise AssertionError(f"compat_reference: card vs CPU {worst}")
+
+
+def compat_configs():
+    """The five published configurations of compat_main, at their widths:
+    (name, mmseg config, builder, image size, classes)."""
+    from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
+    from ddp_tpu_torch.nn.compat_heads import DPTHead
+    from ddp_tpu_torch.nn.mit import MixVisionTransformer, mit_variant
+    from ddp_tpu_torch.nn.mobile_hrnet import HRNet
+    from ddp_tpu_torch.nn.resnet import ResNet
+    from ddp_tpu_torch.nn.vit import VisionTransformer, vit_variant
+
+    def dpt():
+        # JAX's EncoderDecoder hands num_classes to every registry head, and
+        # DPTHead takes out_channels (ROADMAP queue 3): the head is set on an
+        # EncoderDecoder by hand, as a user would
+        model = EncoderDecoder(VisionTransformer(**vit_variant("base"), patch_size=16),
+                               "identity", 150, aux_head=False)
+        model.decode_head = DPTHead(150, [768] * 4, channels=256,
+                                    post_channels=(96, 192, 384, 768), mode="seg")
+        return model
+
+    return (
+        ("upernet_r50", "configs/upernet/upernet_r50_512x512_160k_ade20k.py",
+         lambda: EncoderDecoder(ResNet(depth=50), "uper", 150, head_kwargs=dict(channels=512)),
+         (512, 512), 150),
+        ("deeplabv3plus_r50-d8",
+         "configs/deeplabv3plus/deeplabv3plus_r50-d8_512x1024_40k_cityscapes.py",
+         lambda: EncoderDecoder(ResNet(depth=50, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4)),
+                                "sep_aspp", 19, head_kwargs=dict(
+                                    channels=512, c1_channels=48, dilations=(1, 12, 24, 36))),
+         (512, 1024), 19),
+        ("ocrnet_hr18", "configs/ocrnet/ocrnet_hr18_512x1024_40k_cityscapes.py",
+         lambda: CascadeEncoderDecoder(HRNet((18, 36, 72, 144), 4, (1, 4, 3)), 19,
+                                       channels=512, ocr_channels=256),
+         (512, 1024), 19),
+        ("segformer_mit-b0", "configs/segformer/segformer_mit-b0_512x512_160k_ade20k.py",
+         lambda: EncoderDecoder(MixVisionTransformer(**mit_variant("b0")), "segformer", 150,
+                                head_kwargs=dict(channels=256), aux_head=False),
+         (512, 512), 150),
+        ("dpt_vit-b16", "configs/dpt/dpt_vit-b16_512x512_160k_ade20k.py", dpt, (512, 512), 150),
+    )
+
+
+def phase_compat_main(smi: str):
+    """The five published compat configurations (compat_configs) at their
+    widths with random weights (init_params_, seed 0), float32, TF32 off:
+    predict() of one image (the median of 5 calls after one: ms, img/s, busy
+    share of one profiled call, peak memory), then 3 eager train steps at
+    batch 2 on one batch (dropout and drop path on, CUDA generator):
+    forward, backward and the port's AdamW (lr 1e-5, constant), step ms and
+    peak memory; the loss finite and moving; 0 launches of the five kernels
+    on both paths. Returns the launches, summed over the configurations."""
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.train.optim import AdamW, OptimConfig
+
+    t_phase = time.perf_counter()
+    launches = {"serve": dict(NO_KERNELS), "train": dict(NO_KERNELS)}
+    rows = {}
+    for name, source, build, (h, w), k in compat_configs():
+        t0 = time.perf_counter()
+        model = build()
+        init_params_(model, 0)
+        model = model.cuda()
+        n_params = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(0)
+        img = torch.randn(2, h, w, 3, device="cuda", generator=g)
+        gt = torch.randint(0, k, (2, h, w), device="cuda", generator=g)
+        one = img[:1]
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated() / 1e9
+        reset_all_launches()
+        pred = model.predict(one)
+        torch.cuda.synchronize()
+        serve_counts = all_launches()
+        if tuple(pred.shape) != (1, h, w) or not bool(((pred >= 0) & (pred < k)).all()):
+            raise AssertionError(f"compat_main {name}: predict {tuple(pred.shape)}")
+        serve_ms = wall_s(lambda: model.predict(one), reps=5, warmup=0) * 1e3
+        p, wall_ms = profiled(lambda: model.predict(one), timed=True)
+        serve_busy = busy(p, wall_ms)
+        del p
+        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+
+        # lr 1e-5 without warm-up: at 1e-4 dpt_vit-b16's loss rose 9.4 ->
+        # 19.2 -> 63.9 in these 3 steps
+        opt = AdamW(OptimConfig(lr=1e-5, schedule="constant", warmup_steps=0, warmup_ratio=1.0,
+                                grad_clip=1e9), list(model.named_parameters()))
+        params = [p for _, p in model.named_parameters()]
+        model.train()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        losses, step_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, logs = model(img, gt, g)
+            grads = torch.autograd.grad(loss, params)
+            opt.step(grads)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss.item())
+            del grads, loss
+        train_counts = all_launches()
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        for path, counted in (("serve", serve_counts), ("train", train_counts)):
+            for kname, n in counted.items():
+                launches[path][kname] += n
+        moved = abs(losses[-1] - losses[0]) > 1e-4 * abs(losses[0])
+        rows[name] = {"source": source, "image": [h, w], "classes": k, "parameters": n_params,
+                      "build_s": build_s, "predict_ms": serve_ms, "img_per_s": 1e3 / serve_ms,
+                      "predict_busy": serve_busy, "predict_peak_gb": serve_peak,
+                      "live_before_gb": live, "train_batch": 2, "step_ms": step_ms,
+                      "train_img_per_s": 2e3 / statistics.median(step_ms[1:]),
+                      "train_peak_gb": train_peak, "losses": losses, "loss_moved": moved,
+                      "log_keys": sorted(logs), "launches_serve": serve_counts,
+                      "launches_train": train_counts}
+        del model, opt, params, img, gt, one, pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        if (serve_counts != NO_KERNELS or train_counts != NO_KERNELS or not moved
+                or not all(np.isfinite(losses))):
+            emit({"phase": "compat_main", "failed": name, **rows[name]})
+            raise AssertionError(f"compat_main {name}: launches {serve_counts} {train_counts}, "
+                                 f"losses {losses}")
+    emit({"phase": "compat_main", "dtype": "float32, tf32 off", "weights": "init_params_(seed 0)",
+          "configs": rows, "wall_s": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
-          "fusion_train", "cn_reference", "cn_main", "cn_train", "converge", "graph_grads",
+          "fusion_train", "fusion_host", "cn_reference", "cn_main", "cn_train",
+          "compat_reference", "compat_main", "converge", "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
           "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
-ON_REQUEST = ("converge", "graph_grads", "replay_records", "converge_msda", "converge_depth",
-              "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
+ON_REQUEST = ("fusion_host", "converge", "graph_grads", "replay_records", "converge_msda",
+              "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
               "converge_controlnet")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
@@ -4077,7 +4359,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but converge, graph_grads, replay_records, converge_msda, "
+                         "but fusion_host, converge, graph_grads, replay_records, converge_msda, "
                          "converge_depth, converge_bev, converge_bev_fusion, "
                          "converge_seg_quarter and converge_controlnet; serve needs main)")
     args = ap.parse_args(argv)
@@ -4138,6 +4420,8 @@ def main(argv=None) -> int:
         launches["fusion_serve"] = phase_fusion_main(smi, args.profile)
     if "fusion_train" in phases:
         launches["fusion_graph"] = phase_fusion_train(smi, args.profile)
+    if "fusion_host" in phases:
+        phase_fusion_host(smi)
     if "cn_reference" in phases:
         phase_cn_reference(smi)
     cn = None
@@ -4148,6 +4432,11 @@ def main(argv=None) -> int:
     del cn
     gc.collect()
     torch.cuda.empty_cache()
+    if "compat_reference" in phases:
+        phase_compat_reference(smi)
+    if "compat_main" in phases:
+        compat = phase_compat_main(smi)
+        launches["compat_serve"], launches["compat_train"] = compat["serve"], compat["train"]
     if "converge_controlnet" in phases:
         phase_converge_controlnet(smi)
     if "converge_depth" in phases:
@@ -4208,7 +4497,12 @@ def main(argv=None) -> int:
                                  "the fusion_train batch), profiled"),
                 ("cn_serve", "sample() of one 512^2 image, controlnet_sd15 (20 DDIM steps, "
                              "CFG)"),
-                ("cn_train", "eager f32 train step of controlnet_sd15, 4 x 512^2"))
+                ("cn_train", "eager f32 train step of controlnet_sd15, 4 x 512^2"),
+                ("compat_serve", "predict() of one image, summed over the five compat_main "
+                                 "configurations (upernet_r50, deeplabv3plus_r50-d8, "
+                                 "ocrnet_hr18, segformer_mit-b0, dpt_vit-b16)"),
+                ("compat_train", "3 eager train steps at batch 2, summed over the five "
+                                 "compat_main configurations"))
             if key in launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

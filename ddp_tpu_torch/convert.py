@@ -30,7 +30,14 @@ is a ConvModule. The ControlLDM's modules (``nn/unet.py``,
 ``nn/autoencoder.py``, ``nn/clip_text.py``, ``nn/attention.py``) carry the
 flax names too and run NCHW, so their conv kernels take the Conv rule; the
 trainer's ``ldm`` level is dropped, CLIP's bare ``position_embedding``
-parameter keeps its name and layout. Its sparse conv layers (``lidar_*``) keep flax's leaf names
+parameter keeps its name and layout. The compat zoo's modules
+(``nn/resnet.py``, ``nn/mobile_hrnet.py``, ``nn/mit.py``, ``nn/vit.py``,
+``nn/compat_heads.py``, the registry heads of ``nn/heads.py``,
+``models/compat_segmentor.py``) carry the flax names; grouped and depthwise
+kernels [kh, kw, in/g, out] take the Conv rule to torch's [out, in/g, kh,
+kw]; a ConvModule's ``LayerNorm_0`` is its ``norm``; DAHead's
+``pam_gamma``/``cam_gamma`` and ViT's ``pos_embed``/``cls_token`` keep their
+names. The fusion model's sparse conv layers (``lidar_*``) keep flax's leaf names
 and layouts (``kernel`` [K, Cin, Cout], ``bn/{scale, bias}``, ``bn/{mean,
 var}``), so their leaves map as they are. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
@@ -54,6 +61,8 @@ _MODULE_RENAMES = (
     # flax BatchNorm child is the torch module itself
     (("BatchNorm_0",), ()),
     (("Conv_0",), ("conv",)),
+    # a ConvModule's (or ConvWithTime's) LayerNorm (``norm="LN"``)
+    (("LayerNorm_0",), ("norm",)),
     (("Dense_0",), ("fc1",)),
     (("Dense_1",), ("fc2",)),
     (("LearnedSinusoidalPosEmb_0",), ("pos_emb",)),
@@ -65,7 +74,11 @@ _AUTO_NAME = re.compile(r"^[A-Z]\w*_\d+$")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  "bias": "bias", "weights": "weights", "gamma": "gamma",
                  "relative_position_bias_table": "relative_position_bias_table",
-                 "position_embedding": "position_embedding"}
+                 "position_embedding": "position_embedding",
+                 # bare parameters of the compat zoo: DAHead's gates, ViT's
+                 # position embedding and class token
+                 "pam_gamma": "pam_gamma", "cam_gamma": "cam_gamma",
+                 "pos_embed": "pos_embed", "cls_token": "cls_token"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 # top-level modules whose leaves keep their flax names and layouts
 _VERBATIM_PREFIX = "lidar_"

@@ -33,7 +33,7 @@ from torch import nn
 
 from ..ops.bev_pool import bev_pool, quantize_geometry
 from ..ops.resize import resize
-from .common import BatchNorm2d, ConvModule
+from .common import BatchNorm2d, Conv2dSame, ConvModule
 
 
 def frustum_grid(image_size, feature_size, dbound) -> np.ndarray:
@@ -79,22 +79,6 @@ def lss_geometry(frustum: torch.Tensor, camera2lidar_rots: torch.Tensor,
     pts = torch.einsum("bnij,bndhwj->bndhwi", combine, pts)
     out = pts + camera2lidar_trans.to(f32)[:, :, None, None, None, :]
     return out.to(frustum.dtype)
-
-
-class Conv2dSame(nn.Conv2d):
-    """A bias-free conv with flax's ``SAME`` padding (NCHW): total padding
-    max((ceil(in/s) − 1)·s + k − in, 0) per axis, the smaller half before."""
-
-    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int = 1):
-        super().__init__(in_channels, out_channels, kernel, stride=stride, bias=False)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pads = []
-        for size, k, s in zip(reversed(x.shape[2:]), reversed(self.kernel_size),
-                              reversed(self.stride)):
-            total = max((-(-size // s) - 1) * s + k - size, 0)
-            pads += [total // 2, total - total // 2]
-        return F.conv2d(F.pad(x, pads), self.weight, None, self.stride)
 
 
 def _grid(bounds):

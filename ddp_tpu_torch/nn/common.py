@@ -21,7 +21,7 @@ about 1e-3 per activation.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,7 +77,8 @@ def promoted(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's training semantics: statistics in
-    float32, the biased variance for normalising and for the running update,
+    float32 (float64 for float64 inputs), the biased variance for
+    normalising and for the running update,
     ``running = 0.9 · running + 0.1 · batch``. At eval, torch's running-stats
     normalisation (the same formula as flax's)."""
 
@@ -86,52 +87,130 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.FLAX_MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.float()[:, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
         return y.to(x.dtype)
 
 
 def make_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
-    """'GN' (32 groups), 'BN'/'SyncBN' (flax-semantics BatchNorm), or None."""
+    """'GN' (32 groups), 'BN'/'SyncBN' (flax-semantics BatchNorm), 'LN' (over
+    the channels, eps 1e-5 as flax's ``make_norm``), or None. GN and BN take
+    NCHW, LN channels last."""
     if norm is None:
         return None
     if norm == "GN":
         return nn.GroupNorm(32, channels, eps=1e-5)
     if norm in ("BN", "SyncBN"):
         return BatchNorm2d(channels, eps=1e-5)
+    if norm == "LN":
+        return nn.LayerNorm(channels, eps=1e-5)
     raise ValueError(f"unknown norm {norm!r}")
 
 
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def same_pads(size: Sequence[int], kernel: Sequence[int], stride: Sequence[int],
+              dilation: Sequence[int] = (1, 1)) -> Tuple[Tuple[int, int], ...]:
+    """flax's ``SAME`` padding per spatial axis, (before, after): the total
+    max((ceil(in/s) − 1)·s + (k − 1)·d + 1 − in, 0), the smaller half before
+    (a strided conv's extra row goes after, where torch's symmetric padding
+    would put one before too)."""
+    pads = []
+    for n, k, s, d in zip(size, kernel, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def _f_pad(pads) -> list:
+    """(before, after) per axis, first axis first -> ``F.pad``'s order."""
+    return [p for pair in reversed(pads) for p in pair]
+
+
+class Conv2dSame(nn.Conv2d):
+    """A conv with flax's padding (NCHW): ``SAME`` (``same_pads``; symmetric
+    padding passed to the conv itself, else an explicit ``F.pad``) or
+    ``VALID``. Bias-free unless ``bias``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, stride=1,
+                 dilation=1, groups: int = 1, bias: bool = False, padding: str = "SAME"):
+        super().__init__(in_channels, out_channels, kernel, stride=stride, dilation=dilation,
+                         groups=groups, bias=bias)
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        self.same = padding == "SAME"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.same:
+            return self._conv_forward(x, self.weight, self.bias)
+        pads = same_pads(x.shape[2:], self.kernel_size, self.stride, self.dilation)
+        if all(lo == hi for lo, hi in pads):
+            return F.conv2d(x, self.weight, self.bias, self.stride, tuple(lo for lo, _ in pads),
+                            self.dilation, self.groups)
+        return F.conv2d(F.pad(x, _f_pad(pads)), self.weight, self.bias, self.stride, 0,
+                        self.dilation, self.groups)
+
+
+class Conv(Conv2dSame):
+    """flax ``nn.Conv``: NHWC in and out (a conv on the channels-last view),
+    ``SAME`` padding unless ``VALID``, with a bias unless told otherwise."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, stride=1,
+                 dilation=1, groups: int = 1, bias: bool = True, padding: str = "SAME"):
+        super().__init__(in_channels, out_channels, kernel, stride, dilation, groups, bias,
+                         padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def max_pool_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """flax ``max_pool(..., padding="SAME")`` on NCHW: -inf padding,
+    ``same_pads``'s split."""
+    kernel, stride = _pair(kernel), _pair(stride)
+    pads = same_pads(x.shape[2:], kernel, stride)
+    return F.max_pool2d(F.pad(x, _f_pad(pads), value=float("-inf")), kernel, stride)
+
+
+def avg_pool_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """flax ``avg_pool(..., padding="SAME")`` on NCHW: zero padding, and every
+    window divided by its full size, padding included."""
+    kernel, stride = _pair(kernel), _pair(stride)
+    pads = same_pads(x.shape[2:], kernel, stride)
+    return F.avg_pool2d(F.pad(x, _f_pad(pads)), kernel, stride)
+
+
 class ConvModule(nn.Module):
-    """conv -> norm -> act (mmcv ConvModule; bias only without a norm).
-    'SAME' padding for odd kernels, stride 1. NHWC in and out."""
+    """conv -> norm -> act (mmcv ConvModule; bias only without a norm), flax
+    ``SAME`` padding at any kernel size and ``stride``. NHWC in and out."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int] = (1, 1), norm: Optional[str] = None,
-                 act: Optional[str] = None):
+                 act: Optional[str] = None, stride=1):
         super().__init__()
-        if kernel_size[0] % 2 == 0 or kernel_size[1] % 2 == 0:
-            raise ValueError(f"SAME padding needs odd kernels, got {kernel_size}")
-        pad = (kernel_size[0] // 2, kernel_size[1] // 2)
-        self.conv = nn.Conv2d(in_channels, features, kernel_size, padding=pad,
-                              bias=norm is None)
+        self.conv = Conv2dSame(in_channels, features, kernel_size, stride, bias=norm is None)
         self.norm = make_norm(norm, features)
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x.permute(0, 3, 1, 2))
-        if self.norm is not None:
+        if self.norm is not None and not isinstance(self.norm, nn.LayerNorm):
+            x = self.norm(x)
+        x = x.permute(0, 2, 3, 1)
+        if isinstance(self.norm, nn.LayerNorm):
             x = self.norm(x)
         if self.act is not None:
             x = self.act(x)
-        return x.permute(0, 2, 3, 1)
+        return x
 
 
 class Mlp(nn.Module):
@@ -211,7 +290,8 @@ def init_params_(module: nn.Module, seed: int) -> None:
     """Fill every parameter from ``torch.Generator().manual_seed(seed)``, drawn
     on the CPU so that the weights do not depend on the device:
     matrices and conv kernels N(0, 1/fan_in), norm scales 1, biases 0,
-    Swin relative-position biases N(0, 0.02^2), sinusoid frequencies N(0, 1).
+    Swin relative-position biases and ViT's position embedding and class
+    token N(0, 0.02^2), DAHead's gates 0, sinusoid frequencies N(0, 1).
     The msda layers get the reference's init (``ddp_tpu/nn/transformer.py:
     86-103``): ``sampling_offsets`` and ``attention_weights`` kernels 0, the
     offsets' bias mmcv's ring (``DeformableAttention.offset_bias``),
@@ -233,7 +313,9 @@ def init_params_(module: nn.Module, seed: int) -> None:
                 val = torch.zeros(p.shape)
             elif leaf == "position_embedding":
                 val = torch.randn(p.shape, generator=gen) * 0.01
-            elif leaf == "relative_position_bias_table":
+            elif leaf in ("pam_gamma", "cam_gamma"):
+                val = torch.zeros(p.shape)
+            elif leaf in ("relative_position_bias_table", "pos_embed", "cls_token"):
                 val = torch.randn(p.shape, generator=gen) * 0.02
             elif leaf == "weights":
                 val = torch.randn(p.shape, generator=gen)

@@ -1,4 +1,4 @@
-"""Decode heads (port of ``ddp_tpu/nn/heads.py:23-166``).
+"""Decode heads (port of ``ddp_tpu/nn/heads.py:23-290``).
 
   - DeformableHeadWithTime: flatten HW -> sine or learned pos-enc ->
     time-FiLM encoder (msda over the one level, or window attention; FiLM
@@ -8,6 +8,15 @@
     its 'upconv' variant ends in two pixel shuffles (x4 the encoder's grid).
   - FCNHead: the training-time auxiliary head (3x3 conv+BN+ReLU, dropout
     0.1 in training, 1x1 conv_seg) on the clean encoder features.
+  - The heads that only the head registry (``head_registry.py``) builds:
+    ``ConvWithTime`` / ``FCNHeadWithTime`` (fcn_head_with_time.py: conv,
+    norm, FiLM(time) before the ReLU), ``NNHead`` (an FCN stack without a
+    classifier), ``IdentityHead``, and ``DeformableHead`` (the deformable
+    encoder without time conditioning, deformable_head.py).
+
+NHWC in and out; every forward takes the generator its dropout draws from
+(unused where nothing is random), so the registry's heads share one
+interface.
 """
 from __future__ import annotations
 
@@ -18,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ConvModule, dropout
+from .common import Conv, ConvModule, dropout, make_norm
 from .pos_embed import LearnedPositionalEncoding, sine_pos_embed
 from .transformer import TimeFiLMEncoder, reference_points
 
@@ -152,3 +161,118 @@ class FCNHead(nn.Module):
             x = getattr(self, f"conv{i}")(x)
         x = dropout(x, self.dropout, self.training, generator)
         return self.conv_seg(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class ConvWithTime(nn.Module):
+    """conv -> norm -> FiLM(time) -> ReLU (the reference's ConvWithTimeModule):
+    with a time vector, SiLU -> Linear(T -> 2C) gives (scale, shift), applied
+    as x·(scale + 1) + shift before the activation. ``time_in`` None: no
+    time MLP (the flax module has one only where it was called with a time
+    vector)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=(3, 3), dilation: int = 1,
+                 norm: Optional[str] = "SyncBN", time_in: Optional[int] = 1024):
+        super().__init__()
+        self.conv = Conv(in_channels, features, kernel_size, dilation=dilation,
+                         bias=norm is None)
+        self.norm = make_norm(norm, features)
+        if time_in is not None:
+            self.time_mlp = nn.Linear(time_in, features * 2)
+
+    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.conv(x)
+        if isinstance(self.norm, nn.LayerNorm):
+            x = self.norm(x)
+        elif self.norm is not None:
+            x = self.norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if time is not None:
+            scale, shift = self.time_mlp(F.silu(time))[:, None, None, :].chunk(2, dim=-1)
+            x = x * (scale + 1.0) + shift
+        return F.relu(x)
+
+
+class FCNHeadWithTime(nn.Module):
+    """FCN denoising head with FiLM time conditioning in every conv
+    (fcn_head_with_time.py: ``num_convs`` ConvWithTime, the optional
+    ``concat_input`` conv_cat, dropout, 1x1 conv_seg)."""
+
+    def __init__(self, num_classes: int, in_channels: int, channels: int = 256,
+                 num_convs: int = 2, kernel_size: int = 3, dilation: int = 1,
+                 concat_input: bool = True, dropout: float = 0.1,
+                 norm: Optional[str] = "SyncBN", time_in: Optional[int] = 1024):
+        super().__init__()
+        self.num_convs, self.concat_input, self.dropout = num_convs, concat_input, dropout
+        k = (kernel_size, kernel_size)
+        for i in range(num_convs):
+            self.add_module(f"conv{i}", ConvWithTime(in_channels if i == 0 else channels,
+                                                     channels, k, dilation, norm, time_in))
+        if concat_input:
+            self.conv_cat = ConvModule(in_channels + channels, channels, k, norm=norm,
+                                       act="relu")
+        self.conv_seg = Conv(channels, num_classes, 1)
+
+    def forward(self, x: torch.Tensor, time: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        inputs = x
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv{i}")(x, time)
+        if self.concat_input:
+            x = self.conv_cat(torch.cat([inputs, x], dim=-1))
+        return self.conv_seg(dropout(x, self.dropout, self.training, generator))
+
+
+class NNHead(nn.Module):
+    """An FCN stack without a classifier (the reference's NNHead, a feature
+    refiner): ``channels`` out."""
+
+    def __init__(self, in_channels: int, channels: int = 256, num_convs: int = 2,
+                 kernel_size: int = 3, dilation: int = 1, concat_input: bool = True,
+                 norm: Optional[str] = "SyncBN"):
+        super().__init__()
+        self.num_convs, self.concat_input = num_convs, concat_input
+        k = (kernel_size, kernel_size)
+        for i in range(num_convs):
+            self.add_module(f"conv{i}", ConvModule(in_channels if i == 0 else channels,
+                                                   channels, k, norm=norm, act="relu"))
+        if concat_input:
+            self.conv_cat = ConvModule(in_channels + channels, channels, k, norm=norm,
+                                       act="relu")
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        inputs = x
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv{i}")(x)
+        if self.concat_input:
+            x = self.conv_cat(torch.cat([inputs, x], dim=-1))
+        return x
+
+
+class IdentityHead(nn.Module):
+    """Pass-through head (identity_head.py)."""
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return x
+
+
+class DeformableHead(nn.Module):
+    """The deformable-attention head without time conditioning
+    (deformable_head.py): the msda encoder on one level, sine positions,
+    1x1 conv_seg."""
+
+    def __init__(self, num_classes: int, embed_dims: int = 256, num_layers: int = 6,
+                 num_heads: int = 8, num_points: int = 4, ffn_dim: int = 1024):
+        super().__init__()
+        self.embed_dims = embed_dims
+        self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, 1, num_points,
+                                       ffn_dim, use_time=False, attn_type="msda")
+        self.conv_seg = Conv(embed_dims, num_classes, 1)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, h, w, c = x.shape
+        pos = _sine_pos(h, w, self.embed_dims // 2, x.device).to(x.dtype)
+        refs = _reference_points(h, w, x.device).to(x.dtype)
+        q = self.encoder(x.reshape(b, h * w, c), None, pos, refs, ((h, w),))
+        return self.conv_seg(q.reshape(b, h, w, c))

@@ -63,13 +63,14 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
                     align_corners: bool = False) -> torch.Tensor:
-    """[..., H, W, C] -> [..., size[0], size[1], C]; lerps in float32."""
+    """[..., H, W, C] -> [..., size[0], size[1], C]; lerps in float32
+    (float64 for float64 inputs)."""
     h, w = x.shape[-3], x.shape[-2]
     oh, ow = size
     if (h, w) == (oh, ow):
         return x
     dev = x.device
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     lo_h, hi_h, wh = _linear_weights_on(h, oh, align_corners, dev)
     lo_w, hi_w, ww = _linear_weights_on(w, ow, align_corners, dev)
     wh_ = wh[:, None, None]
