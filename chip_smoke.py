@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phases build,converge_bev      # the BEV end check
     python3 chip_smoke.py --phases build,converge_bev_fusion   # the fusion end check
     python3 chip_smoke.py --phases build,converge_controlnet   # the ControlNet end check
+    python3 chip_smoke.py --phases build,host_data         # the host's decode and batch times
+    python3 chip_smoke.py --phases build,compat_reference,compat_main   # the compat zoo
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A busy share is the union of the intervals of the kernels and copies that
@@ -110,12 +112,8 @@ ms_deform_attn range and by the backward nodes made there.
                (files through data/image_io.py: read_image), 20 iterations,
                then python -m ddp_tpu_torch.tools.test on its workdir, whole
                and slide; an ADE20K JPEG raises the named ImportError
-               without Pillow (its import blocked for the check); then the
-               host's times at the Cityscapes size: one 1024 x 2048 RGB
-               image and label map decoded by read_png and by Pillow (held
-               bitwise to each other), and make_train_iter batches of
-               cityscapes_convnext_t (16 crops of 512 x 1024) with and
-               without Pillow.
+               without Pillow (its import blocked for the check). The host's
+               times at the Cityscapes size are host_data's.
  16. depth_reference - a small depther (converge_depth: nano Swin, 64-d msda
                decoder; its deform head and the upconv head, 2 randsteps) on
                the card and on the CPU from the same weights: the training
@@ -136,9 +134,8 @@ ms_deform_attn range and by the backward nodes made there.
  19. depth_data - the entry points on an NYU-layout tree of full-size PNGs
                (480 x 640 RGB, 16-bit depth in mm, from write_png):
                tools.train converge_depth for 20 iterations at 416 x 544
-               crops, batch 16, then tools.test with --uncertainty; the
-               host's decode ms of one frame and its depth map (read_png
-               and Pillow) and s per make_train_iter batch of 16.
+               crops, batch 16, then tools.test with --uncertainty. The
+               host's times are host_data's.
  20. bev_reference - smoke_bev (2 cameras of 32 x 64, nano Swin, 32-d msda
                decoder) on the card and on the CPU from the same weights and
                batch: the loss with fixed t and noise (1e-5 relative) and
@@ -200,67 +197,82 @@ ms_deform_attn range and by the backward nodes made there.
                largest batch that fits, the misses recorded), graph against
                eager at batch 1 with deterministic algorithms on; no kernel
                launched.
- 29. compat_reference - the tiny compat segmentors (an EncoderDecoder for
-               each of the 14 registry heads it can drive, on a width-8
-               ResNet-18 or, for SETR-MLA, a nano ViT; the FCN -> OCR cascade
-               on a tiny HRNet) on the card and on the CPU from the same
-               weights and batch, dropout off: eval logits (1e-4) and the
-               train-mode loss (1e-5 relative) in float32, every gradient
-               (1e-4 of its max + 1e-9 of the model's largest) in float64.
- 30. compat_main - the five published compat configurations at their widths
+ 29. compat_reference - the tiny compat models (an EncoderDecoder for each
+               of the 14 part-I and 13 part-II registry heads it can drive,
+               on a width-8 ResNet-18 or, for SETR-MLA, a nano ViT; the FCN
+               -> OCR cascade on a tiny HRNet; the 7 real-time backbones under
+               an FCN head; STDCHead on its boundary targets and ICNeck
+               alone) on the card and on the CPU from the same weights and
+               batch, dropout off: eval logits (1e-4), the train-mode loss
+               (1e-5 relative) and EMANet's bases after it (1e-5 of their
+               max) in float32, every gradient (1e-4 of its max + 1e-9 of the
+               model's largest) in float64, the boundary targets bitwise.
+ 30. compat_main - the nine published compat configurations at their widths
                (random weights, seed 0, float32): upernet_r50 (ResNetV1c-50,
                UPerHead 512, FCN aux; 150 classes, 512^2),
                deeplabv3plus_r50-d8 (19 classes, 512 x 1024), ocrnet_hr18
                (HRNet-W18, FCN -> OCR 512/256), segformer_mit-b0 (MiT-B0,
-               SegformerHead 256; 512^2) and dpt_vit-b16 (ViT-B/16 taps 2, 5,
-               8, 11, DPTHead seg; 512^2): predict() of one image (ms, img/s,
-               busy share, peak memory) and 3 eager train steps at batch 2
-               with the port's AdamW (step ms, peak memory, a finite loss
-               that moves); 0 launches of the five kernels.
+               SegformerHead 256; 512^2), dpt_vit-b16 (ViT-B/16 taps 2, 5,
+               8, 11, DPTHead seg; 512^2), and on ResNetV1c-50 D8 with the
+               FCN aux head at 512 x 1024, 19 classes: encnet_r50-d8
+               (EncHead 512, 32 codes, SE loss), ccnet_r50-d8 (CCHead 512,
+               2 recurrences) and emanet_r50-d8 (EMAHead 256/512, 64 bases,
+               3 stages); fast_scnn (FastSCNN + SepFCNHead 128): predict()
+               of one image (ms, img/s, busy share, peak memory) and 3 eager
+               train steps at batch 2 with the port's AdamW (step ms, peak
+               memory, a finite loss that moves, EncNet's SE loss, EMANet's
+               bases moved); 0 launches of the five kernels.
  31. fusion_host - (only when named) the host's fusion_batch_iterator
                batch of 8 nuscenes_fusion scenes: the rig's sweeps and dense
                clouds filling every capacity.
- 32. converge - (only when named) the end check: converge_seg_window's 1500
+ 32. host_data - (only when named) the host's times at full size: one
+               1024 x 2048 Cityscapes image and label map and one 480 x 640
+               NYU frame and depth map decoded by read_png and by Pillow
+               (held bitwise to each other), and make_train_iter batches of
+               16 crops (cityscapes_convnext_t, converge_depth) with and
+               without Pillow.
+ 33. converge - (only when named) the end check: converge_seg_window's 1500
                iterations through train() and eval_seg's mIoU at 1, 3 and 10
                DDIM steps beside the JAX package's
                work_dirs/converge_seg_window/result.json.
- 33. graph_grads - (only when named) where the graphed and the eager step
+ 34. graph_grads - (only when named) where the graphed and the eager step
                part: one ade20k_swin_t step's gradients (fixed draws)
                twice eagerly and once as a CUDA-graph replay, f32 and bf16,
                with PyTorch's deterministic algorithms off and on.
- 34. replay_records - (only when named) how often a profile of one
+ 35. replay_records - (only when named) how often a profile of one
                CUDA-graph replay (ade20k_swin_t_msda, 10 bf16 steps) lacks
                kernel records, with and without the pauses after the
                profile starts and before it stops that every other phase
                takes.
- 35. converge_msda - (only when named) the msda end checks:
+ 36. converge_msda - (only when named) the msda end checks:
                converge_seg_msda's 1500 iterations, then
                converge_seg_aligned_msda's 300 from its checkpoint, each
                beside work_dirs/<preset>/result.json of the JAX package.
- 36. converge_depth - (only when named) the depth end check: converge_depth's
+ 37. converge_depth - (only when named) the depth end check: converge_depth's
                1500 iterations through train() and eval_depth's abs_rel,
                rmse and a1 at 1, 3 and 10 DDIM steps beside
                work_dirs/converge_depth/result.json of the JAX package.
- 37. converge_bev - (only when named) the BEV end check: converge_bev's 2500
+ 38. converge_bev - (only when named) the BEV end check: converge_bev's 2500
                iterations through train() and eval_bev's map mIoU at 1, 3 and
                10 DDIM steps beside work_dirs/converge_bev/result.json of the
                JAX package.
- 38. converge_bev_fusion - (only when named) the fusion end check:
+ 39. converge_bev_fusion - (only when named) the fusion end check:
                converge_bev_fusion's 2500 iterations through train() and
                eval_bev_fusion's map mIoU at 1 and 3 DDIM steps beside
                work_dirs/converge_bev_fusion/result.json of the JAX package.
- 39. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
+ 40. converge_seg_quarter - (only when named) converge_seg_quarter's 1500
                iterations (the CE on the quarter-scale logits) and eval_seg
                beside work_dirs/converge_seg_quarter/result.json.
 
- 40. converge_controlnet - (only when named) the ControlNet end check:
+ 41. converge_controlnet - (only when named) the ControlNet end check:
                converge_controlnet through run() (the VAE pretrained and its
                latent scale measured, 40,000 steps on batches rendered on the
                card, PSNR and MAE of 8 held-out hints at 20 DDIM steps and
                guidance 1.0) beside work_dirs/converge_controlnet/result.json;
                on a miss two more starts (runtime.seed 1, 2).
 
-The line before the last is {"kernels": [...]}; the last line is
+Before the card's line, {"phase_seconds": {...}, "total_s": ...}: host seconds
+by phase. The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -296,8 +308,25 @@ CARDS = (("H200", 4.8e12, 67e12, 16 * 132 * 1.98e9),
          ("H100", 3.35e12, 67e12, 16 * 132 * 1.98e9))
 
 
+_T0 = time.perf_counter()
+_EMITTED = []  # (phase, seconds since the script started) of each emitted line
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+    _EMITTED.append((obj.get("phase"), time.perf_counter() - _T0))
+
+
+def phase_seconds() -> dict:
+    """Host seconds by phase: the time from the line before each phase's
+    lines to its last, summed over its runs of lines (a phase's time ends at
+    its last line), and the script's total so far."""
+    out, last = {}, 0.0
+    for phase, t in _EMITTED:
+        key = phase or "other"
+        out[key] = out.get(key, 0.0) + t - last
+        last = t
+    return {"phase_seconds": out, "total_s": time.perf_counter() - _T0}
 
 
 def card_peaks(name: str):
@@ -2401,8 +2430,8 @@ def phase_city_data(smi: str):
     on its workdir in whole and slide modes (a 32 x 64 crop of the 48 x 96
     images); each must exit 0 and print its mIoU line. An ADE20K JPEG must
     raise the named ImportError where Pillow is missing (its import is
-    blocked for that check, since the card has it). Then the decoders' and
-    the train iterator's host times at the Cityscapes size (city_decode)."""
+    blocked for that check, since the card has it). The decoders' and the
+    train iterator's host times at the Cityscapes size are host_data's."""
     import importlib.util
     import shutil
 
@@ -2471,7 +2500,6 @@ def phase_city_data(smi: str):
         del sys.modules["PIL"]
         sys.modules.update(saved)
     out["ade_jpeg"]["without_pillow_raises"] = errors
-    out["decode"] = city_decode(root)
     shutil.rmtree(CITY_DIR, ignore_errors=True)
     emit(dict(out, card=smi))
 
@@ -2714,24 +2742,14 @@ def phase_depth_train(smi: str, profile: str = None):
     return eager, graphed
 
 
-def phase_depth_data(smi: str):
-    """The depth entry points on real-format files: an NYU-layout tree of
-    full-size frames (480 x 640 RGB and 16-bit depth in millimetres, PNGs
-    from write_png; 4 train and 2 test frames); python -m
-    ddp_tpu_torch.tools.train converge_depth on it for 20 iterations at
-    416 x 544 crops, batch 16, then python -m ddp_tpu_torch.tools.test on its
-    workdir: each must exit 0 and print its metric line. Then the host's
-    times: one frame and its depth map decoded by read_png and by Pillow
-    (where installed; held bitwise to each other), and make_train_iter
-    batches of 16 with and without Pillow."""
-    import importlib.util
-    import shutil
-
+def nyu_tree(root: str) -> str:
+    """An NYU-layout tree of full-size frames (480 x 640 RGB and 16-bit depth
+    in millimetres, PNGs from write_png; 4 train and 2 test frames) under
+    DEPTH_DIR, frame 0 read back bitwise by read_png; its path."""
     import numpy as np
 
     from ddp_tpu_torch.data.image_io import read_png
 
-    root = os.path.dirname(os.path.abspath(__file__))
     tree = os.path.join(root, DEPTH_DIR, "nyu")
     shutil.rmtree(os.path.join(root, DEPTH_DIR), ignore_errors=True)
     os.makedirs(os.path.join(tree, "image"))
@@ -2759,7 +2777,53 @@ def phase_depth_data(smi: str):
     if not (np.array_equal(got_rgb, written[0][0]) and got_dep.dtype == np.uint16
             and np.array_equal(got_dep, written[0][1])):
         raise AssertionError("depth_data: read_png does not give the pixels written")
+    return tree
 
+
+def depth_decode(root: str, tree: str) -> dict:
+    """The host's part of a depth train step: nyu_tree's frame 0 and its
+    depth map decoded by read_png and by Pillow (where installed; held
+    bitwise to each other), and make_train_iter batches of converge_depth
+    (16 crops of 416 x 544) with and without Pillow."""
+    import importlib.util
+
+    import numpy as np
+
+    from ddp_tpu_torch.data.image_io import read_png
+
+    rgb0, dep0 = os.path.join(tree, "image", "0.png"), os.path.join(tree, "depth", "0.png")
+    got_rgb, got_dep = read_png(rgb0, rgb=True), read_png(dep0)
+    dec = {"frame": [480, 640], "read_png_rgb_ms": _host_ms(lambda: read_png(rgb0, rgb=True), 3),
+           "read_png_depth16_ms": _host_ms(lambda: read_png(dep0), 3)}
+    dec["pillow_installed"] = importlib.util.find_spec("PIL") is not None
+    if dec["pillow_installed"]:
+        from PIL import Image
+
+        def pil(path, rgb):
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB") if rgb else im)
+
+        if not (np.array_equal(pil(rgb0, True), got_rgb)
+                and np.array_equal(pil(dep0, False), got_dep)):
+            raise AssertionError("host_data: read_png differs from Pillow")
+        dec["pillow_rgb_ms"] = _host_ms(lambda: pil(rgb0, True), 5)
+        dec["pillow_depth16_ms"] = _host_ms(lambda: pil(dep0, False), 5)
+    over = {"data.dataset": "nyu", "data.data_root": tree, "data.crop_size": "(416,544)"}
+    dec["make_train_iter"] = {
+        "preset": "converge_depth, batch 16 of 416x544 crops",
+        "read_image": batch_times(root, "converge_depth", over, "read_image", 2),
+        "read_png_no_pillow": batch_times(root, "converge_depth", over, "no_pillow", 1)}
+    return dec
+
+
+def phase_depth_data(smi: str):
+    """The depth entry points on real-format files (nyu_tree): python -m
+    ddp_tpu_torch.tools.train converge_depth on it for 20 iterations at
+    416 x 544 crops, batch 16, then python -m ddp_tpu_torch.tools.test on its
+    workdir: each must exit 0 and print its metric line. The host's decode
+    and batch times are host_data's."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree = nyu_tree(root)
     workdir = os.path.join(root, DEPTH_DIR, "train")
     sets = ["data.dataset=nyu", f"data.data_root={tree}"]
 
@@ -2790,30 +2854,24 @@ def phase_depth_data(smi: str):
     if "restored step 20" not in text or not line.search(text) or "hypothesis std" not in text:
         raise AssertionError(f"depth_data test: output {text!r}")
     out["test"] = {"wall_s": test_s, "lines": text.strip().splitlines()}
-
-    dec = {"frame": [480, 640], "read_png_rgb_ms": _host_ms(lambda: read_png(rgb0, rgb=True), 3),
-           "read_png_depth16_ms": _host_ms(lambda: read_png(dep0), 3)}
-    dec["pillow_installed"] = importlib.util.find_spec("PIL") is not None
-    if dec["pillow_installed"]:
-        from PIL import Image
-
-        def pil(path, rgb):
-            with Image.open(path) as im:
-                return np.asarray(im.convert("RGB") if rgb else im)
-
-        if not (np.array_equal(pil(rgb0, True), got_rgb)
-                and np.array_equal(pil(dep0, False), got_dep)):
-            raise AssertionError("depth_data: read_png differs from Pillow")
-        dec["pillow_rgb_ms"] = _host_ms(lambda: pil(rgb0, True), 5)
-        dec["pillow_depth16_ms"] = _host_ms(lambda: pil(dep0, False), 5)
-    over = {"data.dataset": "nyu", "data.data_root": tree, "data.crop_size": "(416,544)"}
-    dec["make_train_iter"] = {
-        "preset": "converge_depth, batch 16 of 416x544 crops",
-        "read_image": batch_times(root, "converge_depth", over, "read_image", 2),
-        "read_png_no_pillow": batch_times(root, "converge_depth", over, "no_pillow", 1)}
-    out["decode"] = dec
     shutil.rmtree(os.path.join(root, DEPTH_DIR), ignore_errors=True)
     emit(dict(out, card=smi))
+
+
+def phase_host_data(smi: str):
+    """The host's decode and batch times at full size (city_data's and
+    depth_data's until they moved here, to keep the default run's time):
+    city_decode (a 1024 x 2048 Cityscapes image and label map; batches of
+    16 crops of cityscapes_convnext_t) and depth_decode (a 480 x 640 NYU
+    frame and depth map; batches of 16 crops of converge_depth), each with
+    and without Pillow."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = {"phase": "host_data", "city": city_decode(root)}
+    shutil.rmtree(os.path.join(root, CITY_DIR), ignore_errors=True)
+    out["depth"] = depth_decode(root, nyu_tree(root))
+    shutil.rmtree(os.path.join(root, DEPTH_DIR), ignore_errors=True)
+    emit(dict(out, wall_s=time.perf_counter() - t0, card=smi))
 
 
 def phase_converge_depth(smi: str):
@@ -4106,13 +4164,41 @@ COMPAT_TINY_HEADS = {
     "identity": {}}
 
 
+# part II (compat_heads2.py): every head EncoderDecoder can drive (STDCHead's
+# one channel cannot: ROADMAP queue 3); PSA's attention convs fit the tiny
+# ResNet's 2^2 top map at 64^2
+COMPAT_TINY_HEADS2 = {
+    "ann": dict(channels=16, project_channels=8), "apc": dict(channels=16),
+    "cc": dict(channels=16), "dm": dict(channels=16), "dnl": dict(channels=16),
+    "ema": dict(channels=16, ema_channels=16, num_bases=8),
+    "enc": dict(channels=16, num_codes=8), "gc": dict(channels=16),
+    "isa": dict(channels=16, isa_channels=8, down_factor=(2, 2)),
+    "knet": dict(channels=16, num_stages=2, num_heads=2),
+    "psa": dict(channels=16, feat_size=(2, 2)),
+    "segmenter_mask": dict(embed_dims=16, num_heads=2), "sep_fcn": dict(channels=16)}
+# the real-time backbones (lightweight.py) at narrow widths, each under an
+# FCN head (Fast-SCNN: its SepFCNHead), BiSeNetV1's STDC context at JAX's
+# fixed base 64
+COMPAT_TINY_BACKBONES = {
+    "stdc1": ("STDCNet", dict(base=8)), "stdc2": ("STDCNet", dict(base=8, blocks=(4, 5, 3))),
+    "bisenetv1": ("BiSeNetV1", dict(channels=8, spatial_channels=(8, 8, 8, 16))),
+    "bisenetv2": ("BiSeNetV2", dict(detail_channels=(8, 8, 16),
+                                    semantic_channels=(8, 8, 16, 16))),
+    "fast_scnn": ("FastSCNN", dict(channels=(8, 8, 16), global_channels=(8, 16, 16))),
+    "cgnet": ("CGNet", dict(channels=(8, 16, 16), blocks=(1, 2))),
+    "erfnet": ("ERFNet", dict(channels=(8, 16, 32)))}
+
+
 def compat_tiny(name: str):
     """A tiny compat segmentor: an EncoderDecoder with the registry head
-    ``name`` on a width-8 ResNet-18 (SETR-MLA on a nano ViT, whose taps share
-    one grid), or 'cascade': FCN -> OCR on a tiny HRNet. Weights from
-    init_params_(seed 0), DAHead's zero-initialised gates set to 0.1 so that
-    its attention carries signal."""
+    ``name`` (part I or II) on a width-8 ResNet-18 (SETR-MLA on a nano ViT,
+    whose taps share one grid), 'cascade': FCN -> OCR on a tiny HRNet, or
+    'backbone:<name>': a real-time backbone of COMPAT_TINY_BACKBONES under an
+    FCN head. Weights from init_params_(seed 0), the attention gates that
+    start at 0 (DAHead's, CC's) set to 0.1 so that the attention carries
+    signal."""
     from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
+    from ddp_tpu_torch.nn import lightweight
     from ddp_tpu_torch.nn.common import init_params_
     from ddp_tpu_torch.nn.mobile_hrnet import HRNet
     from ddp_tpu_torch.nn.resnet import ResNet
@@ -4121,17 +4207,48 @@ def compat_tiny(name: str):
     if name == "cascade":
         model = CascadeEncoderDecoder(HRNet((4, 8, 16, 32), 1, (1, 1, 1)), COMPAT_K,
                                       channels=16, ocr_channels=8)
+    elif name.startswith("backbone:"):
+        cls, kw = COMPAT_TINY_BACKBONES[name.split(":")[1]]
+        head = "sep_fcn" if cls == "FastSCNN" else "fcn"
+        model = EncoderDecoder(getattr(lightweight, cls)(**kw), head, COMPAT_K,
+                               head_kwargs=dict(channels=16))
     else:
         backbone = (VisionTransformer(**vit_variant("nano"), patch_size=4, pretrain_grid=6)
                     if name == "setr_mla" else
                     ResNet(depth=18, stem_channels=8, base_channels=8))
-        model = EncoderDecoder(backbone, name, COMPAT_K, head_kwargs=COMPAT_TINY_HEADS[name])
+        kw = COMPAT_TINY_HEADS[name] if name in COMPAT_TINY_HEADS else COMPAT_TINY_HEADS2[name]
+        model = EncoderDecoder(backbone, name, COMPAT_K, head_kwargs=kw)
     init_params_(model, 0)
     with torch.no_grad():
         for n, p in model.named_parameters():
-            if n.endswith("_gamma"):
+            if n.endswith("gamma"):
                 p.fill_(0.1)
     return model
+
+
+# the parameters a compat model's loss does not reach, where JAX's gradient
+# is 0: EMANet's frozen ema_mid and BiSeNetV2's computed-and-dropped bga_s2
+# branch (both run under torch.no_grad), and Fast-SCNN's fusion module, whose
+# map JAX's EncoderDecoder does not decode (ROADMAP queue 3). The loss of
+# every other model must reach every parameter.
+_EMA_MID = ("decode_head.ema_mid.weight", "decode_head.ema_mid.bias")
+_CBR = ("conv.weight", "bn.weight", "bn.bias")
+COMPAT_UNREACHED = {
+    "ema": _EMA_MID, "emanet_r50-d8": _EMA_MID,
+    "backbone:bisenetv2": tuple(f"backbone.bga_s2_{p}" for p in _CBR),
+    "fast_scnn": tuple(f"backbone.ffm_{m}_{p}" for m in ("dw", "hi", "up") for p in _CBR)}
+
+
+def grads_of(loss, named, unreached=()):
+    """``autograd.grad`` over every named parameter, as strict as its default
+    but for ``unreached``: the loss must reach every parameter except
+    exactly those, which get 0 (JAX's gradient for them)."""
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    missed = {n for (n, _), g in zip(named, grads) if g is None}
+    if missed != set(unreached):
+        raise AssertionError(f"the loss does not reach {sorted(missed)}; "
+                             f"expected {sorted(unreached)}")
+    return [torch.zeros_like(p) if g is None else g for (_, p), g in zip(named, grads)]
 
 
 def _dropout_off(model):
@@ -4141,44 +4258,118 @@ def _dropout_off(model):
     return model
 
 
-def _compat_run(model, img, gt, dtype):
-    """(eval logits, train loss, logs, {name: grad}) of a copy of ``model``
-    in ``dtype`` on img's device, dropout off."""
+def _compat_run(model, img, gt, dtype, forward=None, loss_fn=None, unreached=()):
+    """(eval outputs, train loss, logs, {name: grad}, {name: EMA bases after
+    the train forward}) of a copy of ``model`` in ``dtype`` on img's
+    device, dropout off. A segmentor by default; a module alone through
+    ``forward(m, x)`` (its eval outputs) and ``loss_fn(m, x)`` (its loss).
+    The loss reaches every parameter but ``unreached`` (grads_of)."""
     import copy
 
     m = copy.deepcopy(model).to(img.device, dtype).eval()
+    x = img.to(dtype)
     with torch.no_grad():
-        logits = m.forward_logits(img.to(dtype))
+        logits = forward(m, x) if forward else m.forward_logits(x)
     logits = [t for t in (logits if isinstance(logits, tuple) else (logits,)) if t is not None]
     _dropout_off(m).train()
-    loss, logs = m(img.to(dtype), gt)
-    grads = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
+    loss, logs = loss_fn(m, x) if loss_fn else m(x, gt)
+    grads = grads_of(loss, list(m.named_parameters()), unreached)
     return ([t.cpu() for t in logits], loss.item(), {k: v.item() for k, v in logs.items()},
-            {n: g.cpu() for (n, _), g in zip(m.named_parameters(), grads)})
+            {n: g.cpu() for (n, _), g in zip(m.named_parameters(), grads)},
+            {n: b.cpu() for n, b in m.named_buffers() if n.endswith("bases")})
+
+
+def compat_modules_alone(g):
+    """The part-II modules no EncoderDecoder drives, each with its input and
+    its eval outputs and loss: STDCHead on the boundary targets of blocky
+    labels (BCE with logits) and ICNeck on three maps (the mean square of
+    its outputs). name -> (module, input, forward, loss_fn, targets)."""
+    import torch.nn.functional as F
+
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.compat_heads2 import STDCHead, stdc_boundary_targets
+    from ddp_tpu_torch.nn.lightweight import ICNeck
+
+    labels = torch.randint(0, COMPAT_K, (4, 5, 5), generator=g)
+    labels = labels.repeat_interleave(4, 1).repeat_interleave(4, 2)[:, :16, :16]
+    stdc, neck = STDCHead([8], channels=16), ICNeck([8, 16, 32], channels=8)
+    for mod in (stdc, neck):
+        init_params_(mod, 0)
+    sizes = ((16, 8), (8, 16), (4, 32))
+    maps = torch.cat([torch.randn(4, n, n, c, generator=g).reshape(4, -1) for n, c in sizes], 1)
+
+    def split(x):
+        out, i = [], 0
+        for n, c in sizes:
+            out.append(x[:, i:i + n * n * c].reshape(4, n, n, c))
+            i += n * n * c
+        return out
+
+    def stdc_loss(m, x):
+        target = stdc_boundary_targets(labels.to(x.device)).to(x.dtype)
+        loss = F.binary_cross_entropy_with_logits(m([split(x)[0]])[..., 0], target)
+        return loss, {"loss_bd": loss}
+
+    def neck_loss(m, x):
+        loss = sum(o.square().mean() for o in m(split(x)))
+        return loss, {"loss": loss}
+
+    return {"stdc_head": (stdc, maps, lambda m, x: m([split(x)[0]]), stdc_loss, labels),
+            "icneck": (neck, maps, lambda m, x: m(split(x)), neck_loss, None)}
+
+
+def _all_maps_loss(gt):
+    """A tiny backbone segmentor's loss on ``gt`` plus the mean square of
+    each backbone map."""
+    def loss_fn(m, x):
+        loss, logs = m(x, gt.to(x.device))
+        return loss + sum(f.square().mean() for f in m.backbone(x)), logs
+    return loss_fn
 
 
 def phase_compat_reference(smi: str):
-    """Each tiny compat segmentor (compat_tiny: 14 EncoderDecoder heads and
-    the FCN -> OCR cascade on HRNet) on the card and on the CPU from the same
+    """Each tiny compat model on the card and on the CPU from the same
     weights and batch (4 x 64^2, 5 classes, ignored pixels; the deepest maps
     are 2^2, so a train-mode BatchNorm there sees 16 values a channel),
-    dropout off: float32 eval logits within 1e-4 and the train-mode loss
-    within 1e-5 relative; every gradient within 1e-4 of its max (+ 1e-9 of
-    the model's largest, for tensors whose gradient is 0 but for rounding),
-    in float64: in float32 a ReLU input within rounding of 0 can take the
-    other side on the other device and move every gradient upstream (the
-    float32 gradients' worst difference is recorded)."""
+    dropout off: compat_tiny's 14 part-I EncoderDecoder heads, the FCN ->
+    OCR cascade on HRNet, the 13 part-II heads EncoderDecoder can drive
+    (EncNet's log keys hold loss_se) and the 7 real-time backbones; then
+    STDCHead on stdc_boundary_targets and ICNeck as modules alone
+    (compat_modules_alone). A backbone's loss adds the mean square of each
+    of its maps, so that the gradient reaches the branches EncoderDecoder
+    does not decode; every loss must reach every parameter but
+    COMPAT_UNREACHED's. Float32 eval logits within 1e-4 and the
+    train-mode loss within 1e-5 relative; every gradient within 1e-4 of its
+    max (+ 1e-9 of the model's largest, for tensors whose gradient is 0 but
+    for rounding), in float64: in float32 a ReLU input within rounding of 0
+    can take the other side on the other device and move every gradient
+    upstream (the float32 gradients' worst difference is recorded); EMANet's
+    bases after the train forward within 1e-5 of their max (float32), and
+    moved; the boundary targets bitwise."""
+    from ddp_tpu_torch.nn.compat_heads2 import stdc_boundary_targets
+
     t0 = time.perf_counter()
     g = _gen(71)
     img = torch.randn(4, 64, 64, 3, generator=g)
     gt = torch.randint(0, COMPAT_K, (4, 64, 64), generator=g)
     gt[:, :2] = 255
-    rows, worst = {}, {"logits": 0.0, "loss_rel": 0.0, "grad_rel_f64": 0.0}
-    for name in list(COMPAT_TINY_HEADS) + ["cascade"]:
-        model = compat_tiny(name)
+    gt[1][gt[1] == 2] = 255  # class 2 absent from image 1: an SE target of 0
+    rows, worst = {}, {"logits": 0.0, "loss_rel": 0.0, "grad_rel_f64": 0.0, "bases_rel": 0.0}
+    alone = compat_modules_alone(g)
+    names = (list(COMPAT_TINY_HEADS) + ["cascade"] + list(COMPAT_TINY_HEADS2)
+             + [f"backbone:{b}" for b in COMPAT_TINY_BACKBONES] + list(alone))
+    for name in names:
+        if name in alone:
+            model, x, fwd, loss_fn, labels = alone[name]
+        else:
+            model, x, fwd, loss_fn, labels = compat_tiny(name), img, None, None, None
+            if name.startswith("backbone:"):
+                loss_fn = _all_maps_loss(gt)
+        unreached = COMPAT_UNREACHED.get(name, ())
         res = {}
         for dev in ("cpu", "cuda"):
-            res[dev] = {dt: _compat_run(model, img.to(dev), gt.to(dev), dt)
+            res[dev] = {dt: _compat_run(model, x.to(dev), gt.to(dev), dt, fwd, loss_fn,
+                                        unreached)
                         for dt in (torch.float32, torch.float64)}
         c32, g32 = res["cpu"][torch.float32], res["cuda"][torch.float32]
         c64, g64 = res["cpu"][torch.float64], res["cuda"][torch.float64]
@@ -4196,26 +4387,45 @@ def phase_compat_reference(smi: str):
 
         rows[name] = {"logits_max_abs_diff": logit_diff, "loss_rel_diff": loss_rel,
                       "logs": sorted(c32[2]), "grad_rel_diff_f64": grad_rel(c64[3], g64[3]),
-                      "grad_rel_diff_f32": grad_rel(c32[3], g32[3]), "tensors": len(c32[3])}
+                      "grad_rel_diff_f32": grad_rel(c32[3], g32[3]), "tensors": len(c32[3]),
+                      "unreached": len(unreached)}
         worst["logits"] = max(worst["logits"], logit_diff)
         worst["loss_rel"] = max(worst["loss_rel"], loss_rel)
         worst["grad_rel_f64"] = max(worst["grad_rel_f64"], rows[name]["grad_rel_diff_f64"])
+        for key, b in c32[4].items():  # the EMA bases after one train-mode forward
+            rel = ((b - g32[4][key]).abs().max() / b.abs().max()).item()
+            moved = not torch.equal(b, dict(model.named_buffers())[key].float())
+            rows[name]["bases"] = {"rel_diff": rel, "moved": moved}
+            worst["bases_rel"] = max(worst["bases_rel"], rel if moved else float("inf"))
+        if labels is not None:  # the boundary targets, card against CPU
+            rows[name]["targets_bitwise"] = torch.equal(
+                stdc_boundary_targets(labels), stdc_boundary_targets(labels.cuda()).cpu())
+            if not rows[name]["targets_bitwise"]:
+                worst["targets"] = "differ"
+    if "loss_se" not in rows["enc"]["logs"]:
+        worst["enc_logs"] = rows["enc"]["logs"]
     line = {"phase": "compat_reference", "batch": list(img.shape), "classes": COMPAT_K,
             "models": rows, "worst": worst,
-            "limits": "logits 1e-4 abs, loss 1e-5 relative (float32); each gradient 1e-4 of "
-                      "its max + 1e-9 of the model's largest (float64)",
+            "limits": "logits 1e-4 abs, loss 1e-5 relative, EMA bases 1e-5 of their max "
+                      "(float32); each gradient 1e-4 of its max + 1e-9 of the model's "
+                      "largest (float64); boundary targets bitwise",
             "wall_s": time.perf_counter() - t0, "card": smi}
     emit(line)
     if not (worst["logits"] <= 1e-4 and worst["loss_rel"] <= 1e-5
-            and worst["grad_rel_f64"] <= 1e-4):
+            and worst["grad_rel_f64"] <= 1e-4 and worst["bases_rel"] <= 1e-5
+            and "targets" not in worst and "enc_logs" not in worst):
         raise AssertionError(f"compat_reference: card vs CPU {worst}")
 
 
 def compat_configs():
-    """The five published configurations of compat_main, at their widths:
-    (name, mmseg config, builder, image size, classes)."""
+    """The nine published configurations of compat_main, at their widths:
+    (name, mmseg config, builder, image size, classes). Part II (EncNet,
+    CCNet, EMANet on ResNetV1c-50 D8 with the FCN aux head on stage 3;
+    Fast-SCNN under JAX's EncoderDecoder, which decodes its last map and
+    puts the FCN aux on the one before: ROADMAP queue 3)."""
     from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
     from ddp_tpu_torch.nn.compat_heads import DPTHead
+    from ddp_tpu_torch.nn.lightweight import FastSCNN
     from ddp_tpu_torch.nn.mit import MixVisionTransformer, mit_variant
     from ddp_tpu_torch.nn.mobile_hrnet import HRNet
     from ddp_tpu_torch.nn.resnet import ResNet
@@ -4231,6 +4441,7 @@ def compat_configs():
                                     post_channels=(96, 192, 384, 768), mode="seg")
         return model
 
+    r50_d8 = dict(depth=50, strides=(1, 2, 1, 1), dilations=(1, 1, 2, 4))
     return (
         ("upernet_r50", "configs/upernet/upernet_r50_512x512_160k_ade20k.py",
          lambda: EncoderDecoder(ResNet(depth=50), "uper", 150, head_kwargs=dict(channels=512)),
@@ -4250,18 +4461,33 @@ def compat_configs():
                                 head_kwargs=dict(channels=256), aux_head=False),
          (512, 512), 150),
         ("dpt_vit-b16", "configs/dpt/dpt_vit-b16_512x512_160k_ade20k.py", dpt, (512, 512), 150),
+        ("encnet_r50-d8", "configs/encnet/encnet_r50-d8_512x1024_40k_cityscapes.py",
+         lambda: EncoderDecoder(ResNet(**r50_d8), "enc", 19, head_kwargs=dict(
+             channels=512, num_codes=32, use_se_loss=True)), (512, 1024), 19),
+        ("ccnet_r50-d8", "configs/ccnet/ccnet_r50-d8_512x1024_40k_cityscapes.py",
+         lambda: EncoderDecoder(ResNet(**r50_d8), "cc", 19, head_kwargs=dict(
+             channels=512, recurrence=2, concat_input=True)), (512, 1024), 19),
+        ("emanet_r50-d8", "configs/emanet/emanet_r50-d8_512x1024_80k_cityscapes.py",
+         lambda: EncoderDecoder(ResNet(**r50_d8), "ema", 19, head_kwargs=dict(
+             channels=256, ema_channels=512, num_bases=64, num_stages=3, momentum=0.1)),
+         (512, 1024), 19),
+        ("fast_scnn", "configs/fastscnn/fast_scnn_lr0.12_8x4_160k_cityscapes.py",
+         lambda: EncoderDecoder(FastSCNN(), "sep_fcn", 19, head_kwargs=dict(
+             channels=128, concat_input=False)), (512, 1024), 19),
     )
 
 
 def phase_compat_main(smi: str):
-    """The five published compat configurations (compat_configs) at their
+    """The nine published compat configurations (compat_configs) at their
     widths with random weights (init_params_, seed 0), float32, TF32 off:
     predict() of one image (the median of 5 calls after one: ms, img/s, busy
     share of one profiled call, peak memory), then 3 eager train steps at
     batch 2 on one batch (dropout and drop path on, CUDA generator):
-    forward, backward and the port's AdamW (lr 1e-5, constant), step ms and
-    peak memory; the loss finite and moving; 0 launches of the five kernels
-    on both paths. Returns the launches, summed over the configurations."""
+    forward, backward (every parameter's gradient: the loss reaches all but
+    COMPAT_UNREACHED's, which get 0, as in JAX) and the port's AdamW (lr 1e-5, constant), step ms
+    and peak memory; the loss finite and moving; 0 launches of the five
+    kernels on both paths; EncNet's SE loss and whether EMANet's bases
+    moved. Returns the launches, summed over the configurations."""
     from ddp_tpu_torch.nn.common import init_params_
     from ddp_tpu_torch.train.optim import AdamW, OptimConfig
 
@@ -4298,21 +4524,27 @@ def phase_compat_main(smi: str):
         # 19.2 -> 63.9 in these 3 steps
         opt = AdamW(OptimConfig(lr=1e-5, schedule="constant", warmup_steps=0, warmup_ratio=1.0,
                                 grad_clip=1e9), list(model.named_parameters()))
-        params = [p for _, p in model.named_parameters()]
+        params = list(model.named_parameters())
+        unreached = COMPAT_UNREACHED.get(name, ())
+        bases0 = {n: b.clone() for n, b in model.named_buffers() if n.endswith("bases")}
         model.train()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
-        losses, step_ms = [], []
+        losses, step_ms, extra = [], [], {}
         for _ in range(3):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             loss, logs = model(img, gt, g)
-            grads = torch.autograd.grad(loss, params)
+            grads = grads_of(loss, params, unreached)
             opt.step(grads)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
             losses.append(loss.item())
+            if "loss_se" in logs:
+                extra.setdefault("loss_se", []).append(logs["loss_se"].item())
             del grads, loss
+        for n, b in bases0.items():
+            extra["bases_moved"] = bool((model.get_buffer(n) - b).abs().max() > 0)
         train_counts = all_launches()
         train_peak = torch.cuda.max_memory_allocated() / 1e9
         for path, counted in (("serve", serve_counts), ("train", train_counts)):
@@ -4326,12 +4558,13 @@ def phase_compat_main(smi: str):
                       "train_img_per_s": 2e3 / statistics.median(step_ms[1:]),
                       "train_peak_gb": train_peak, "losses": losses, "loss_moved": moved,
                       "log_keys": sorted(logs), "launches_serve": serve_counts,
-                      "launches_train": train_counts}
+                      "launches_train": train_counts, "unreached": list(unreached), **extra}
         del model, opt, params, img, gt, one, pred
         gc.collect()
         torch.cuda.empty_cache()
         if (serve_counts != NO_KERNELS or train_counts != NO_KERNELS or not moved
-                or not all(np.isfinite(losses))):
+                or not all(np.isfinite(losses)) or extra.get("bases_moved") is False
+                or (name.startswith("encnet") and not all(np.isfinite(extra["loss_se"])))):
             emit({"phase": "compat_main", "failed": name, **rows[name]})
             raise AssertionError(f"compat_main {name}: launches {serve_counts} {train_counts}, "
                                  f"losses {losses}")
@@ -4345,10 +4578,11 @@ PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
           "fusion_train", "fusion_host", "cn_reference", "cn_main", "cn_train",
-          "compat_reference", "compat_main", "converge", "graph_grads",
+          "compat_reference", "compat_main", "host_data", "converge", "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
           "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
-ON_REQUEST = ("fusion_host", "converge", "graph_grads", "replay_records", "converge_msda",
+ON_REQUEST = ("fusion_host", "host_data", "converge", "graph_grads", "replay_records",
+              "converge_msda",
               "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
               "converge_controlnet")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
@@ -4359,7 +4593,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but fusion_host, converge, graph_grads, replay_records, converge_msda, "
+                         "but fusion_host, host_data, converge, graph_grads, replay_records, "
+                         "converge_msda, "
                          "converge_depth, converge_bev, converge_bev_fusion, "
                          "converge_seg_quarter and converge_controlnet; serve needs main)")
     args = ap.parse_args(argv)
@@ -4437,6 +4672,8 @@ def main(argv=None) -> int:
     if "compat_main" in phases:
         compat = phase_compat_main(smi)
         launches["compat_serve"], launches["compat_train"] = compat["serve"], compat["train"]
+    if "host_data" in phases:
+        phase_host_data(smi)
     if "converge_controlnet" in phases:
         phase_converge_controlnet(smi)
     if "converge_depth" in phases:
@@ -4498,12 +4735,14 @@ def main(argv=None) -> int:
                 ("cn_serve", "sample() of one 512^2 image, controlnet_sd15 (20 DDIM steps, "
                              "CFG)"),
                 ("cn_train", "eager f32 train step of controlnet_sd15, 4 x 512^2"),
-                ("compat_serve", "predict() of one image, summed over the five compat_main "
+                ("compat_serve", "predict() of one image, summed over the nine compat_main "
                                  "configurations (upernet_r50, deeplabv3plus_r50-d8, "
-                                 "ocrnet_hr18, segformer_mit-b0, dpt_vit-b16)"),
-                ("compat_train", "3 eager train steps at batch 2, summed over the five "
+                                 "ocrnet_hr18, segformer_mit-b0, dpt_vit-b16, encnet_r50-d8, "
+                                 "ccnet_r50-d8, emanet_r50-d8, fast_scnn)"),
+                ("compat_train", "3 eager train steps at batch 2, summed over the nine "
                                  "compat_main configurations"))
             if key in launches}
+    print(json.dumps(phase_seconds()), flush=True)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

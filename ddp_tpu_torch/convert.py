@@ -39,7 +39,15 @@ kw]; a ConvModule's ``LayerNorm_0`` is its ``norm``; DAHead's
 ``pam_gamma``/``cam_gamma`` and ViT's ``pos_embed``/``cls_token`` keep their
 names. The fusion model's sparse conv layers (``lidar_*``) keep flax's leaf names
 and layouts (``kernel`` [K, Cin, Cout], ``bn/{scale, bias}``, ``bn/{mean,
-var}``), so their leaves map as they are. Leaves are numpy arrays (or
+var}``), so their leaves map as they are. The compat zoo's part II
+(``nn/compat_heads2.py``, ``nn/lightweight.py``) carries the flax names too:
+a ``_TokenConvModule`` (a flax module with a ``Dense_0`` and a
+``BatchNorm_0`` child) maps them to ``fc1`` and ``norm`` (its batch stats
+so only beside its params, where the ``Dense_0`` shows); the Encoding's
+``scale`` is its ``weight``; ``codewords``, K-Net's ``kernels``,
+Segmenter's ``cls_emb`` and CGNet's ``prelu`` keep their names; EMANet's
+batch stat ``bases`` is the buffer ``bases`` (no ``num_batches_tracked``:
+it is no BatchNorm). Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """
@@ -47,7 +55,7 @@ from __future__ import annotations
 
 import re
 import warnings
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -78,8 +86,13 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  # bare parameters of the compat zoo: DAHead's gates, ViT's
                  # position embedding and class token
                  "pam_gamma": "pam_gamma", "cam_gamma": "cam_gamma",
-                 "pos_embed": "pos_embed", "cls_token": "cls_token"}
-_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+                 "pos_embed": "pos_embed", "cls_token": "cls_token",
+                 # part II: the Encoding's codewords, K-Net's kernels,
+                 # Segmenter's class embedding, CGNet's PReLU slopes
+                 "codewords": "codewords", "kernels": "kernels", "cls_emb": "cls_emb",
+                 "prelu": "prelu"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var", "bases": "bases"}
+_BN_STATS = ("mean", "var")
 # top-level modules whose leaves keep their flax names and layouts
 _VERBATIM_PREFIX = "lidar_"
 
@@ -92,9 +105,27 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[s
             yield prefix + (str(k),), v
 
 
-def _module_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
+def _token_convs(params: Mapping, prefix: Tuple[str, ...] = ()) -> Set[Tuple[str, ...]]:
+    """The flax modules with a ``Dense_0`` and a ``BatchNorm_0`` child: the
+    compat zoo's ``_TokenConvModule``s, whose BatchNorm is the port's
+    ``norm`` (elsewhere a lone ``BatchNorm_0`` is a named wrapper's child,
+    the torch module itself)."""
+    found = {prefix} if "Dense_0" in params and "BatchNorm_0" in params else set()
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            found |= _token_convs(v, prefix + (str(k),))
+    return found
+
+
+def _module_path(path: Tuple[str, ...], token_convs: Set[Tuple[str, ...]] = frozenset()
+                 ) -> Tuple[str, ...]:
     out, i = [], 0
     while i < len(path):
+        if (path[i] == "BatchNorm_0" and path[:i] in token_convs
+                and path[i + 1:i + 2] != ("BatchNorm_0",)):
+            out.append("norm")
+            i += 1
+            continue
         for src, dst in _MODULE_RENAMES:
             if path[i:i + len(src)] == src:
                 out.extend(dst)
@@ -134,6 +165,7 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
     """Flax ``params`` (+ ``batch_stats``) -> torch state_dict. Raises on any
     flax leaf that no rule maps."""
     sd: Dict[str, torch.Tensor] = {}
+    token_convs = _token_convs(params)
     for path, value in _walk(params):
         same = _verbatim(path, value)
         if same is not None:
@@ -142,7 +174,7 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
         *mod, leaf = path
         if leaf not in _PARAM_LEAVES:
             raise KeyError(f"no rule for flax leaf {'/'.join(path)}")
-        key = ".".join(_module_path(tuple(mod)) + (_PARAM_LEAVES[leaf],))
+        key = ".".join(_module_path(tuple(mod), token_convs) + (_PARAM_LEAVES[leaf],))
         sd[key] = _to_torch(leaf, value)
     for path, value in _walk(batch_stats or {}):
         same = _verbatim(path, value)
@@ -152,9 +184,10 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
         *mod, leaf = path
         if leaf not in _STAT_LEAVES:
             raise KeyError(f"no rule for flax batch stat {'/'.join(path)}")
-        prefix = ".".join(_module_path(tuple(mod)))
+        prefix = ".".join(_module_path(tuple(mod), token_convs))
         sd[f"{prefix}.{_STAT_LEAVES[leaf]}"] = _to_torch(leaf, value)
-        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+        if leaf in _BN_STATS:
+            sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     return sd
 
 

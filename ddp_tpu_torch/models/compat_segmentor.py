@@ -2,7 +2,11 @@
 (port of ``ddp_tpu/models/compat_segmentor.py:28-155``).
 
   - ``EncoderDecoder`` (mmseg encoder_decoder.py): backbone -> a decode head
-    from ``head_registry.HEADS`` (+ the FCN aux head, weight 0.4).
+    from ``head_registry.HEADS`` (+ the FCN aux head, weight 0.4). A head
+    whose output is a tuple, EncHead's ``(logits, se_logits)``, adds the SE
+    loss: 0.2 · the mean sigmoid BCE of the SE logits against the classes
+    present in each image (``enc_onehot_labels``), log key ``loss_se``;
+    ``predict`` ignores the SE logits.
   - ``CascadeEncoderDecoder`` (mmseg cascade_encoder_decoder.py), OCRNet's
     form: the backbone's maps resized to the first and concatenated, an
     FCNHead (weight 0.4), then an OCRHead on the same maps and the FCN's
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from ..nn.compat_heads import OCRHead
+from ..nn.compat_heads2 import enc_onehot_labels
 from ..nn.head_registry import build_head
 from ..nn.heads import FCNHead
 from ..nn.losses import cross_entropy_seg, seg_accuracy
@@ -95,10 +100,17 @@ class CascadeEncoderDecoder(nn.Module):
         return torch.argmax(up, dim=-1)
 
 
+def _se_loss(se_logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid BCE with logits, JAX's stable form:
+    max(z, 0) − z·t + log1p(exp(−|z|))."""
+    return torch.mean(torch.clamp_min(se_logits, 0) - se_logits * target
+                      + torch.log1p(torch.exp(-se_logits.abs())))
+
+
 class EncoderDecoder(nn.Module):
     """Generic encoder-decoder: backbone -> ``build_head(head_name)`` (+ the
-    FCN aux head on ``aux_in_index``, weight ``aux_weight``). A head whose
-    output is a tuple (EncHead's SE branch, a part-II head) raises."""
+    FCN aux head on ``aux_in_index``, weight ``aux_weight``); a tuple head
+    output is ``(logits, se_logits)`` (EncHead)."""
 
     def __init__(self, backbone: nn.Module, head_name: str, num_classes: int,
                  head_kwargs: Optional[Dict] = None, aux_head: bool = True,
@@ -108,6 +120,7 @@ class EncoderDecoder(nn.Module):
         self.aux_weight = aux_weight
         self.aux_in_index = aux_in_index
         self.align_corners = align_corners
+        self.num_classes = num_classes
         self.backbone = backbone
         kw = dict(head_kwargs or {})
         kw.setdefault("num_classes", num_classes)
@@ -115,26 +128,26 @@ class EncoderDecoder(nn.Module):
         self.auxiliary_head = (FCNHead(num_classes, in_channels[aux_in_index], norm="BN")
                                if aux_head else None)
 
-    def _decode(self, feats, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _decode(self, feats, generator: Optional[torch.Generator]):
+        """(logits, SE logits or None); a tuple head output is unpacked as
+        JAX unpacks it (DAHead's three outputs raise)."""
         out = self.decode_head(list(feats), generator)
-        if isinstance(out, tuple):
-            raise NotImplementedError(
-                "a decode head that returns a tuple (EncHead's SE branch, enc_onehot_labels) "
-                "is not ported yet")
-        return out
+        logits, se_logits = out if isinstance(out, tuple) else (out, None)
+        return logits, se_logits
 
     def forward_logits(self, img: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """(logits, aux logits or None, SE logits or None)."""
         feats = self.backbone(img, generator)
-        out = self._decode(feats, generator)
+        out, se_logits = self._decode(feats, generator)
         aux = (self.auxiliary_head(feats[self.aux_in_index], generator)
                if self.auxiliary_head is not None else None)
-        return out, aux
+        return out, aux, se_logits
 
     def forward(self, img: torch.Tensor, gt: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """img [B, H, W, C], gt [B, H, W] int -> (loss, logs)."""
-        logits, aux = self.forward_logits(img, generator)
+        logits, aux, se_logits = self.forward_logits(img, generator)
         full = gt.shape[1:3]
         up = resize(logits, full, mode="bilinear", align_corners=self.align_corners)
         loss = cross_entropy_seg(up, gt)
@@ -144,12 +157,17 @@ class EncoderDecoder(nn.Module):
             loss_aux = self.aux_weight * cross_entropy_seg(up_aux, gt)
             logs["aux.loss_ce"] = loss_aux
             loss = loss + loss_aux
+        if se_logits is not None:
+            loss_se = 0.2 * _se_loss(se_logits, enc_onehot_labels(gt, self.num_classes)
+                                     .to(se_logits.dtype))
+            logs["loss_se"] = loss_se
+            loss = loss + loss_se
         logs["loss"] = loss
         return loss, logs
 
     @torch.no_grad()
     def predict(self, img: torch.Tensor) -> torch.Tensor:
         with _eval_mode(self):  # the aux head does not change the argmax: not run
-            logits = self._decode(self.backbone(img), None)
+            logits, _ = self._decode(self.backbone(img), None)
         up = resize(logits, img.shape[1:3], mode="bilinear", align_corners=self.align_corners)
         return torch.argmax(up, dim=-1)

@@ -75,28 +75,53 @@ def promoted(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
     return functional_call(module, {n: p.to(dtype) for n, p in params.items()}, args)
 
 
+FLAX_MOMENTUM = 0.9
+
+
+def _flax_batch_stats(bn: nn.modules.batchnorm._BatchNorm, xf: torch.Tensor, dims
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch mean and biased variance of ``xf`` over ``dims``, and flax's
+    update of ``bn``'s running statistics:
+    ``running = 0.9 · running + 0.1 · batch``."""
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1.0 - FLAX_MOMENTUM) * mean)
+        bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1.0 - FLAX_MOMENTUM) * var)
+    return mean, var
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm over NCHW with flax's training semantics: statistics in
     float32 (float64 for float64 inputs), the biased variance for
-    normalising and for the running update,
-    ``running = 0.9 · running + 0.1 · batch``. At eval, torch's running-stats
-    normalisation (the same formula as flax's)."""
-
-    FLAX_MOMENTUM = 0.9
+    normalising and for the running update (``_flax_batch_stats``). At
+    eval, torch's running-stats normalisation (the same formula as
+    flax's)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.FLAX_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mean, var = _flax_batch_stats(self, xf, (0, 2, 3))
         mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(xf.dtype)[:, None, None]
         return y.to(x.dtype)
+
+
+class TokenBatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the last axis of a channels-last tensor [..., C] (flax
+    ``nn.BatchNorm`` on tokens [b, N, C] or on NHWC maps): the statistics
+    reduce over every other axis, with ``BatchNorm2d``'s flax training
+    semantics; at eval, the running statistics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean, var = _flax_batch_stats(self, xf, tuple(range(x.ndim - 1)))
+        else:
+            mean, var = self.running_mean.to(xf.dtype), self.running_var.to(xf.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(x.dtype)
 
 
 def make_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
@@ -303,13 +328,23 @@ def init_params_(module: nn.Module, seed: int) -> None:
     A sparse conv's ``kernel`` [K, Cin, Cout] is N(0, 1/(K·Cin)), flax's
     fan-in of that shape. A layer marked ``zero_init`` (the UNet's and
     ControlNet's zero convolutions) starts at 0, and CLIP's
-    ``position_embedding`` at N(0, 0.01^2), as their flax inits."""
+    ``position_embedding`` at N(0, 0.01^2), as their flax inits. A module
+    with a ``flax_init(leaf, shape, generator)`` method gives its own
+    parameters' flax init where that returns a tensor (the compat zoo's bare
+    parameters: CGNet's PReLU slopes, the Encoding's codewords and scales,
+    CC's gate, K-Net's kernels, Segmenter's class embedding); then each
+    module with an ``init_buffers_(generator)`` method refills its drawn
+    buffers (EMANet's bases), in module order."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner, _, leaf = name.rpartition(".")
             parent, _, kind = owner.rpartition(".")
-            if getattr(module.get_submodule(owner), "zero_init", False):
+            own = getattr(module.get_submodule(owner), "flax_init", None)
+            own = own(leaf, p.shape, gen) if own is not None else None
+            if own is not None:
+                val = own
+            elif getattr(module.get_submodule(owner), "zero_init", False):
                 val = torch.zeros(p.shape)
             elif leaf == "position_embedding":
                 val = torch.randn(p.shape, generator=gen) * 0.01
@@ -340,3 +375,6 @@ def init_params_(module: nn.Module, seed: int) -> None:
                 fan_in = p[0].numel()
                 val = torch.randn(p.shape, generator=gen) / fan_in ** 0.5
             p.copy_(val)
+        for m in module.modules():
+            if hasattr(m, "init_buffers_"):
+                m.init_buffers_(gen)

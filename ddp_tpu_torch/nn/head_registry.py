@@ -1,13 +1,15 @@
-"""Decode-head registry, part I (port of ``ddp_tpu/nn/head_registry.py:
-27-91``): the mmseg ``HEADS`` surface (builder.py ``build_head(cfg)``) as a
-name -> class map, so a head is chosen by a config string, as the
-reference's ``decode_head=dict(type=...)``.
+"""Decode-head registry (port of ``ddp_tpu/nn/head_registry.py:26-91``):
+the mmseg ``HEADS`` surface (builder.py ``build_head(cfg)``) as a name ->
+class map, so a head is chosen by a config string, as the reference's
+``decode_head=dict(type=...)``. It holds JAX's 31 names: part I
+(``compat_heads.py``), part II (``compat_heads2.py``) and the fcn family
+(``heads.py``).
 
 ``build_head("uper", in_channels=[...], num_classes=19, channels=256)``
 returns a module that takes a list of NHWC maps (``in_channels``: their
-channels) and a generator. The part-II names of the JAX registry (ann, apc,
-cc, dm, dnl, ema, enc, gc, isa, knet, psa, segmenter_mask, sep_fcn, stdc)
-are not ported yet and are unknown here.
+channels) and a generator. As in JAX, the one-channel ``STDCHead`` drops
+``num_classes``, and so do ``NNHead`` and ``IdentityHead``; ``PSAHead``
+also takes ``feat_size``, the map size its attention convs are built for.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from torch import nn
 from .compat_heads import (ASPPHead, DAHead, DepthwiseSeparableASPPHead, DPTHead, FPNHead,
                            LRASPPHead, NLHead, OCRHead, PointHead, PSPHead, SegformerHead,
                            SETRMLAHead, SETRUPHead, UPerHead)
+from .compat_heads2 import (ANNHead, APCHead, CCHead, DMHead, DNLHead, EMAHead, EncHead, GCHead,
+                            ISAHead, KNetHead, PSAHead, SegmenterMaskHead, SepFCNHead, STDCHead)
 from .heads import FCNHead, IdentityHead, NNHead
 
 HEADS: Dict[str, Any] = {
@@ -37,6 +41,21 @@ HEADS: Dict[str, Any] = {
     "setr_mla": SETRMLAHead,
     "dpt": DPTHead,
     "point": PointHead,
+    # part II (compat_heads2.py)
+    "ann": ANNHead,
+    "apc": APCHead,
+    "cc": CCHead,
+    "dm": DMHead,
+    "dnl": DNLHead,
+    "ema": EMAHead,
+    "enc": EncHead,
+    "gc": GCHead,
+    "isa": ISAHead,
+    "knet": KNetHead,
+    "psa": PSAHead,
+    "segmenter_mask": SegmenterMaskHead,
+    "sep_fcn": SepFCNHead,
+    "stdc": STDCHead,
     # fcn family (heads.py)
     "fcn": FCNHead,
     "nn": NNHead,
@@ -66,6 +85,9 @@ def build_head(name: str, in_channels: Sequence[int], **kwargs) -> nn.Module:
     if cls is IdentityHead:
         kwargs.pop("num_classes", None)
         return _LastLevel(cls(**kwargs))
+    if cls is STDCHead:  # a fixed one-channel boundary head
+        kwargs.pop("num_classes", None)
+        return cls(in_channels=list(in_channels), **kwargs)
     if cls is NNHead:
         kwargs.pop("num_classes", None)
         return _LastLevel(cls(in_channels[-1], **kwargs))

@@ -35,9 +35,9 @@ def _bn(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=1e-5)
 
 
-def _resize_nchw(x: torch.Tensor, size) -> torch.Tensor:
-    """Bilinear, align_corners=False, through the NHWC ``resize``."""
-    return resize(x.permute(0, 2, 3, 1), size, mode="bilinear").permute(0, 3, 1, 2)
+def _resize_nchw(x: torch.Tensor, size, mode: str = "bilinear") -> torch.Tensor:
+    """NCHW through the NHWC ``resize`` (bilinear: align_corners=False)."""
+    return resize(x.permute(0, 2, 3, 1), tuple(size), mode=mode).permute(0, 3, 1, 2)
 
 
 class _SE(nn.Module):

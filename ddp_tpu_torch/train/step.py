@@ -94,6 +94,15 @@ def _chunk(batch: Dict[str, Any], i: int, n: int, lead: str) -> Dict[str, Any]:
     return out
 
 
+def param_grads(loss: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``loss``'s gradient for each of ``params``, 0 for a parameter the loss
+    does not reach (one that runs under ``torch.no_grad``, as JAX's
+    ``stop_gradient``, or feeds no output the loss reads): JAX's gradient for
+    it, so that AdamW's decoupled decay still moves it."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
 class TrainStep:
     """``step(state, batch) -> logs`` (0-d tensors on the model's device, no
     host synchronisation). ``grads(state, batch)`` is the forward and
@@ -133,8 +142,7 @@ class TrainStep:
             loss, logs = self._loss(model, params,
                                     _chunk(batch, i, self.microbatch, self.batch_keys[0]),
                                     state.generator)
-            g = torch.autograd.grad(loss.float(), leaves, allow_unused=True)
-            g = [torch.zeros_like(p) if x is None else x.float() for x, p in zip(g, leaves)]
+            g = [x.float() for x in param_grads(loss.float(), leaves)]
             total = g if total is None else torch._foreach_add(total, g)
             chunk_logs.append({k: v.detach().float() for k, v in logs.items()})
         if self.microbatch > 1:

@@ -5,18 +5,21 @@ Weights: the flax variable tree of each module is shaped by ``jax.eval_shape``
 (no JAX init is compiled) and filled with seeded numpy values (kernels
 N(0, 1/fan_in), biases and BN means N(0, 0.1²), scales 1 + N(0, 0.1²), BN
 variances U(0.5, 1.5)), so that every leaf carries signal; ``convert.py``
-carries them across. The JAX side is jitted once per case and cached.
+carries them across. The JAX side is two jitted calls (every case's eval
+forward; the training forwards), cached.
 
   - Cases: ResNet-18 and ResNet-50 at stem and base width 8 (even sizes: the
     strided 3x3s pad asymmetrically), ResNeXt, the dilated D8 ResNet-50,
-    MobileNetV2, MobileNetV3-Small (dilated; the large arch's table and the
-    undilated tail are not held here, for the file's time), a tiny HRNet,
+    MobileNetV2, MobileNetV3-Small (dilated) and -Large (LRASPP's
+    published backbone: its block table, with the undilated tail at output
+    stride 32), a tiny HRNet,
     UNetBackbone, ResNeSt, a nano MiT, and a nano ViT on a position grid
     that grows and on one that shrinks.
   - Eval outputs (float32), per map, within 1e-4 · max|y| + 1e-6.
   - One training-mode forward's BatchNorm running statistics within 1e-5 of
-    their max, on ResNet-18 and HRNet (its BatchNorms and fusion convs; two,
-    to keep the file's time; the segmentor test holds more), in
+    their max, on ResNet-18, HRNet (its BatchNorms and fusion convs) and
+    MobileNetV2 (depthwise convs, ReLU6; three, to keep the file's time; the
+    segmentor tests hold more), in
     float64 on both sides: in float32 the 50-layer bottleneck stacks part
     by up to 3e-5 of the max (5.7e-5 at 64² inputs), growing steadily with
     depth from 2e-8 at the stem, as float32 rounding passes through 50
@@ -101,6 +104,11 @@ CASES = {
                      (2, 32, 32, 3)),
     "mobilenet_v3_small": (jmh.MobileNetV3("small"), lambda: tmh.MobileNetV3("small"),
                            (2, 32, 32, 3)),
+    # LRASPP's published backbone: the large block table, with the undilated
+    # tail (the dilated conversion is held on small)
+    "mobilenet_v3_large_undilated": (jmh.MobileNetV3("large", dilated=False),
+                                     lambda: tmh.MobileNetV3("large", dilated=False),
+                                     (2, 32, 32, 3)),
     "hrnet": (jmh.HRNet(widths=(4, 8, 16), blocks_per_stage=1, stage_modules=(1, 1)),
               lambda: tmh.HRNet(widths=(4, 8, 16), blocks_per_stage=1, stage_modules=(1, 1)),
               (2, 32, 32, 3)),
@@ -140,25 +148,34 @@ def _f64(tree):
 
 
 # the cases whose training-mode BatchNorm statistics are held to JAX's
-BN_STATS = ("resnet18", "hrnet")
+BN_STATS = ("resnet18", "hrnet", "mobilenet_v2")
 
 
 @functools.lru_cache(maxsize=None)
+def jax_cases():
+    """name -> (variables, input, float32 eval outputs, the new batch stats of
+    a float64 training-mode forward or None): every case's eval forward in
+    one jitted call, the BN_STATS cases' training forwards in a second (two
+    compiles, not one or two per case)."""
+    variables, xs = {}, {}
+    for name, (jmod, _, shape) in CASES.items():
+        xs[name] = _inputs(shape)
+        variables[name] = fill_variables(
+            jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), xs[name])))
+    ev = jax.jit(lambda vs, xx: {n: CASES[n][0].apply(vs[n], xx[n], train=False)
+                                 for n in CASES})(variables, xs)
+    with float64():
+        new = jax.jit(lambda vs, xx: {
+            n: CASES[n][0].apply(vs[n], xx[n], train=True, mutable=["batch_stats"])[1]
+            for n in BN_STATS})({n: _f64(variables[n]) for n in BN_STATS},
+                                {n: _f64(xs[n]) for n in BN_STATS})
+        stats = {n: jax.tree_util.tree_map(np.asarray, new[n]["batch_stats"]) for n in BN_STATS}
+    return {n: (variables[n], xs[n], [np.asarray(o) for o in ev[n]], stats.get(n))
+            for n in CASES}
+
+
 def jax_case(name):
-    """(variables, input, float32 eval outputs, the new batch stats of a
-    float64 training-mode forward or None)."""
-    jmod, _, shape = CASES[name]
-    x = _inputs(shape)
-    shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), x))
-    variables = fill_variables(shapes)
-    ev = jax.jit(lambda v, x: jmod.apply(v, x, train=False))(variables, x)
-    stats = None
-    if name in BN_STATS:
-        with float64():
-            _, new = jax.jit(lambda v, x: jmod.apply(v, x, train=True, mutable=["batch_stats"]))(
-                _f64(variables), _f64(x))
-            stats = jax.tree_util.tree_map(np.asarray, new["batch_stats"])
-    return variables, x, [np.asarray(o) for o in ev], stats
+    return jax_cases()[name]
 
 
 def _port(name, variables):

@@ -19,8 +19,8 @@ side of the registry cases is one jitted call.
     random floats without ties, and a tie-free case checks the picks.
   - The adaptive pool against JAX's matrix, a 2x2 map pooled to 6 included.
   - Dropout draws from the generator it is given.
-  - The registry: the port's names are JAX's part I, and the part-II names
-    are exactly the ones still missing; an unknown name raises. Two
+  - The registry: the port's names are JAX's 31, part I and part II; an
+    unknown name raises. Two
     reference gaps the port follows: 'dpt' cannot be built with
     ``num_classes`` in either package; LRASPPHead's gate pools the whole map.
 """
@@ -250,11 +250,12 @@ def test_dropout_uses_the_generator():
 
 
 def test_registry_holds_part_one():
-    assert set(treg.HEADS) <= set(jreg.HEADS)
-    assert set(jreg.HEADS) - set(treg.HEADS) == PART2
-    assert len(treg.HEADS) == 17
-    with pytest.raises(ValueError, match="unknown head"):
-        treg.build_head("enc", [8], num_classes=K)
+    """Part I and the fcn family are there, and so is part II: the port's
+    registry is JAX's 31 names (part II's heads are held to JAX in
+    ``test_torch_port_compat_heads2.py``)."""
+    assert set(treg.HEADS) == set(jreg.HEADS)
+    assert set(CASES) - {"ocr", "point", "dpt_seg", "dpt_depth", "da_aux"} <= set(treg.HEADS)
+    assert PART2 <= set(treg.HEADS) and len(treg.HEADS) == 31
     with pytest.raises(ValueError, match="unknown head"):
         treg.build_head("nope", [8])
 

@@ -26,8 +26,8 @@ both draw nothing.
     float64 one and JAX's float32 is 15 % from JAX's float64. The float32
     forward is held by the backbone and head tests and by ``chip_smoke.py:
     compat_reference``.
-  - ``EncoderDecoder`` refuses a head whose output is a tuple (EncHead's, a
-    part-II head) by name; two reference gaps the port follows.
+  - ``EncoderDecoder`` refuses a tuple head output other than EncHead's
+    (logits, SE logits), as JAX's does; two reference gaps the port follows.
   - Every flax leaf of upernet_r50, deeplabv3plus_r50-d8, ocrnet_hr18,
     segformer_mit-b0 and dpt_vit-b16 (ViT-B/16 and its DPTHead) maps
     through ``params_from_flax`` onto the port's modules (``check_complete``),
@@ -211,12 +211,20 @@ def test_segmentor_step_matches_jax(name):
 
 
 def test_encoder_decoder_refuses_tuple_heads():
+    """A tuple head output is (logits, se_logits), EncHead's (held to JAX in
+    ``test_torch_port_compat_segmentor2.py``); DAHead's three aux outputs are
+    refused, as JAX's unpacking refuses them."""
     backbone = tres.ResNet(depth=18, stem_channels=8, base_channels=8)
     model = tseg.EncoderDecoder(backbone, "da", K,
                                 head_kwargs=dict(channels=16, return_aux=True)).eval()
     img, gt = (torch.from_numpy(a) for a in _batch())
-    with pytest.raises(NotImplementedError, match="EncHead"):
+    with pytest.raises(ValueError, match="unpack"):
         model(img, gt.long())
+    jm = jseg.EncoderDecoder(jres.ResNet(depth=18, stem_channels=8, base_channels=8), "da", K,
+                             head_kwargs=dict(channels=16, return_aux=True))
+    with pytest.raises(ValueError, match="unpack"):
+        jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), img.numpy(), gt.numpy(),
+                                       train=False))
 
 
 # the five published configurations of chip_smoke.py's compat_main, at
