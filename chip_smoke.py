@@ -4187,18 +4187,29 @@ COMPAT_TINY_BACKBONES = {
     "fast_scnn": ("FastSCNN", dict(channels=(8, 8, 16), global_channels=(8, 16, 16))),
     "cgnet": ("CGNet", dict(channels=(8, 16, 16), blocks=(1, 2))),
     "erfnet": ("ERFNet", dict(channels=(8, 16, 32)))}
+# part II-b (transformer_backbones.py) at narrow widths under an FCN head:
+# Twins-PCPVT, Twins-SVT whose LSA windows of 3 divide none of a 64^2
+# image's grids (every LSA takes the padded path), BEiT on its 8^2 grid,
+# EfficientNet (SAME stride-2 pads, a residual block)
+_TINY_TWINS = dict(dims=(8, 16, 24, 32), num_heads=(1, 2, 2, 4), sr_ratios=(4, 2, 2, 1))
+COMPAT_TINY_BACKBONES2 = {
+    "twins_pcpvt": ("Twins", dict(_TINY_TWINS, depths=(1, 2, 1, 1))),
+    "twins_svt": ("Twins", dict(_TINY_TWINS, depths=(2, 2, 3, 1), svt=True, window_size=3)),
+    "beit": ("BEiT", dict(embed_dim=32, depth=3, num_heads=2, patch_size=8,
+                          out_indices=(0, 1, 2), grid=(8, 8))),
+    "efficientnet": ("EfficientNet", dict(width_mult=0.25, depth_mult=0.5))}
 
 
 def compat_tiny(name: str):
     """A tiny compat segmentor: an EncoderDecoder with the registry head
     ``name`` (part I or II) on a width-8 ResNet-18 (SETR-MLA on a nano ViT,
     whose taps share one grid), 'cascade': FCN -> OCR on a tiny HRNet, or
-    'backbone:<name>': a real-time backbone of COMPAT_TINY_BACKBONES under an
-    FCN head. Weights from init_params_(seed 0), the attention gates that
-    start at 0 (DAHead's, CC's) set to 0.1 so that the attention carries
-    signal."""
+    'backbone:<name>': a backbone of COMPAT_TINY_BACKBONES (real-time) or
+    COMPAT_TINY_BACKBONES2 (Twins, BEiT, EfficientNet) under an FCN head.
+    Weights from init_params_(seed 0), the attention gates that start at 0
+    (DAHead's, CC's) set to 0.1 so that the attention carries signal."""
     from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
-    from ddp_tpu_torch.nn import lightweight
+    from ddp_tpu_torch.nn import lightweight, transformer_backbones
     from ddp_tpu_torch.nn.common import init_params_
     from ddp_tpu_torch.nn.mobile_hrnet import HRNet
     from ddp_tpu_torch.nn.resnet import ResNet
@@ -4208,9 +4219,11 @@ def compat_tiny(name: str):
         model = CascadeEncoderDecoder(HRNet((4, 8, 16, 32), 1, (1, 1, 1)), COMPAT_K,
                                       channels=16, ocr_channels=8)
     elif name.startswith("backbone:"):
-        cls, kw = COMPAT_TINY_BACKBONES[name.split(":")[1]]
+        key = name.split(":")[1]
+        module = lightweight if key in COMPAT_TINY_BACKBONES else transformer_backbones
+        cls, kw = {**COMPAT_TINY_BACKBONES, **COMPAT_TINY_BACKBONES2}[key]
         head = "sep_fcn" if cls == "FastSCNN" else "fcn"
-        model = EncoderDecoder(getattr(lightweight, cls)(**kw), head, COMPAT_K,
+        model = EncoderDecoder(getattr(module, cls)(**kw), head, COMPAT_K,
                                head_kwargs=dict(channels=16))
     else:
         backbone = (VisionTransformer(**vit_variant("nano"), patch_size=4, pretrain_grid=6)
@@ -4229,8 +4242,10 @@ def compat_tiny(name: str):
 # the parameters a compat model's loss does not reach, where JAX's gradient
 # is 0: EMANet's frozen ema_mid and BiSeNetV2's computed-and-dropped bga_s2
 # branch (both run under torch.no_grad), and Fast-SCNN's fusion module, whose
-# map JAX's EncoderDecoder does not decode (ROADMAP queue 3). The loss of
-# every other model must reach every parameter.
+# map JAX's EncoderDecoder does not decode (ROADMAP queue 3); in
+# compat_depth, binsformer_swint's Swin stages 1-3, merges and out norms,
+# which JAX's BinsFormerHead does not read (_binsformer_unreached, 145
+# tensors). The loss of every other model must reach every parameter.
 _EMA_MID = ("decode_head.ema_mid.weight", "decode_head.ema_mid.bias")
 _CBR = ("conv.weight", "bn.weight", "bn.bias")
 COMPAT_UNREACHED = {
@@ -4279,6 +4294,31 @@ def _compat_run(model, img, gt, dtype, forward=None, loss_fn=None, unreached=())
             {n: b.cpu() for n, b in m.named_buffers() if n.endswith("bases")})
 
 
+def _packed(shapes, g, b: int = 4):
+    """One flat [b, n] tensor of seeded maps [b, h, w, c] for each (h, w, c)
+    of ``shapes`` (a module alone takes one input tensor) and the function
+    that splits it back into the maps."""
+    x = torch.cat([torch.randn(b, h * w * c, generator=g) for h, w, c in shapes], 1)
+
+    def split(t):
+        out, i = [], 0
+        for h, w, c in shapes:
+            out.append(t[:, i:i + h * w * c].reshape(t.shape[0], h, w, c))
+            i += h * w * c
+        return out
+
+    return x, split
+
+
+def _sq_loss(outs):
+    loss = sum(o.square().mean() for o in outs)
+    return loss, {"loss": loss}
+
+
+def _tuple(o):
+    return o if isinstance(o, tuple) else (o,)
+
+
 def compat_modules_alone(g):
     """The part-II modules no EncoderDecoder drives, each with its input and
     its eval outputs and loss: STDCHead on the boundary targets of blocky
@@ -4295,27 +4335,123 @@ def compat_modules_alone(g):
     stdc, neck = STDCHead([8], channels=16), ICNeck([8, 16, 32], channels=8)
     for mod in (stdc, neck):
         init_params_(mod, 0)
-    sizes = ((16, 8), (8, 16), (4, 32))
-    maps = torch.cat([torch.randn(4, n, n, c, generator=g).reshape(4, -1) for n, c in sizes], 1)
-
-    def split(x):
-        out, i = [], 0
-        for n, c in sizes:
-            out.append(x[:, i:i + n * n * c].reshape(4, n, n, c))
-            i += n * n * c
-        return out
+    maps, split = _packed(((16, 16, 8), (8, 8, 16), (4, 4, 32)), g)
 
     def stdc_loss(m, x):
         target = stdc_boundary_targets(labels.to(x.device)).to(x.dtype)
         loss = F.binary_cross_entropy_with_logits(m([split(x)[0]])[..., 0], target)
         return loss, {"loss_bd": loss}
 
-    def neck_loss(m, x):
-        loss = sum(o.square().mean() for o in m(split(x)))
-        return loss, {"loss": loss}
-
     return {"stdc_head": (stdc, maps, lambda m, x: m([split(x)[0]]), stdc_loss, labels),
-            "icneck": (neck, maps, lambda m, x: m(split(x)), neck_loss, None)}
+            "icneck": (neck, maps, lambda m, x: m(split(x)), lambda m, x: _sq_loss(m(split(x))),
+                       None)}
+
+
+def compat_modules_part2(g):
+    """The part II-b/c modules that no EncoderDecoder drives, each at a tiny
+    width on seeded maps (batch 4), its loss the mean square of its outputs:
+    DiffSwin at t = (0.1, 0.4, 0.7, 0.95), every neck (Feature2Pyramid at
+    each rescale, HAHI over 3 transformer levels, SkipNeck behind a
+    MultiLevelNeck: it has no weights of its own) and every depth head.
+    name -> (module, input, forward, loss_fn, None), as compat_modules_alone."""
+    from ddp_tpu_torch.nn import depth_heads as dh, necks as nk
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.diffswin import DiffSwinTransformer
+
+    pyr = ((16, 16, 8), (8, 8, 16), (4, 4, 24), (2, 2, 32))
+    ch = [c for _, _, c in pyr]
+    t = torch.tensor([0.1, 0.4, 0.7, 0.95])
+    hahi = dict(embedding_dim=16, num_points=2, num_heads=2)
+    mods = {
+        "diffswin": (DiffSwinTransformer(8, (2, 1, 1, 1), (1, 2, 2, 2), window=4,
+                                         drop_path_rate=0.0, time_dim=16), None),
+        # 64 channels: GroupNorm's 32 groups hold 2 channels of the scale-1
+        # branch's 1x1 map (with 1, its output is its bias and the conv's
+        # gradient is rounding on both devices)
+        "ppm": (nk.PPM(16, 64), ((13, 14, 16),)),
+        "psp_neck": (nk.PSPNeck([8, 16], 64), ((16, 16, 8), (12, 13, 16))),
+        "multilevel+skip": (torch.nn.Sequential(nk.MultiLevelNeck([16] * 4, 8), nk.SkipNeck()),
+                            ((8, 8, 16),) * 4),
+        "f2p": (nk.Feature2Pyramid(16), ((5, 6, 16),) * 4),
+        "f2p_quarter": (nk.Feature2Pyramid(16, rescales=(0.25, 2.0, 1.0)), ((9, 10, 16),) * 3),
+        "hahi": (nk.HAHINeck(ch, (8, 16, 16, 16), **hahi), pyr),
+        "jpu": (nk.JPU(ch, mid_channels=8, dilations=(1, 2), start_level=1), pyr),
+        "densedepth": (dh.DenseDepthHead(ch, (8, 16, 16, 32)), pyr),
+        "adabins": (dh.AdabinsHead(ch, (16, 16), (8, 16, 16, 32), n_bins=16, n_query_channels=8,
+                                   embedding_dim=16, patch_size=4), pyr),
+        "bts": (dh.BTSHead(ch, channels=8), pyr),
+        "newcrf": (dh.NeWCRFHead(ch, channels=8), ((10, 14, 8), (5, 7, 16), (3, 4, 24),
+                                                   (2, 2, 32))),
+        "binsformer": (dh.BinsFormerHead(ch, n_bins=8, channels=16), pyr),
+    }
+    out = {}
+    for name, (mod, shapes) in mods.items():
+        init_params_(mod, 0)
+        if shapes is None:  # DiffSwin: an image and t
+            x = torch.randn(4, 64, 64, 3, generator=g)
+
+            def fwd(m, x):
+                return m(x, t.to(x))
+        else:
+            x, split = _packed(shapes, g)
+
+            def fwd(m, x, split=split, one=name == "ppm"):
+                return tuple(m(split(x)[0])) if one else _tuple(m(split(x)))
+        out[name] = (mod, x, fwd, lambda m, x, fwd=fwd: _sq_loss(_tuple(fwd(m, x))), None)
+    return out
+
+
+def compat_loss_checks(g):
+    """The zoo's losses (nn/losses.py) on the card and on the CPU from the
+    same seeded inputs: labels with ignored pixels and an absent class,
+    Lovász 'present' and 'all', the hinge per image and over the batch, the
+    chamfer loss with an image without valid depth. name -> the float32
+    value's relative difference and the float64 gradient's difference over
+    its max."""
+    from ddp_tpu_torch.nn import losses as L
+
+    k = COMPAT_K
+    logits = torch.randn(4, 32, 32, k, generator=g)
+    labels = torch.randint(0, k - 1, (4, 32, 32), generator=g)
+    labels[:, :3] = 255
+    bin_logits = torch.randn(4, 32, 32, generator=g)
+    bin_labels = torch.randint(0, 2, (4, 32, 32), generator=g)
+    bin_labels[1, 4:9] = 255
+    edges = torch.cumsum(0.1 + torch.rand(4, 17, generator=g), 1)
+    depth = 0.5 + 5.0 * torch.rand(4, 32, 32, generator=g)
+    depth[0, :4] = 0.0
+    depth[2] = 0.0
+    bins = torch.randint(0, k, (4, 32, 32), generator=g)
+    cases = {
+        "dice_loss": (lambda x, d: L.dice_loss(x, d["labels"]), logits),
+        "tversky_loss": (lambda x, d: L.tversky_loss(x, d["labels"]), logits),
+        "lovasz_softmax_present": (lambda x, d: L.lovasz_softmax(x, d["labels"]), logits),
+        "lovasz_softmax_all": (lambda x, d: L.lovasz_softmax(x, d["labels"], "all"), logits),
+        "lovasz_hinge_per_image": (lambda x, d: L.lovasz_hinge(x, d["bin_labels"]), bin_logits),
+        "lovasz_hinge_batch": (lambda x, d: L.lovasz_hinge(x, d["bin_labels"], per_image=False),
+                               bin_logits),
+        "focal_seg_loss": (lambda x, d: L.focal_seg_loss(x, d["labels"]), logits),
+        "bins_chamfer_loss": (lambda x, d: L.bins_chamfer_loss(x, d["depth"]), edges),
+        "mse_depth_loss": (lambda x, d: L.mse_depth_loss(x, d["depth"]), depth.flip(1) + 0.5),
+        "ce_bins_loss": (lambda x, d: L.ce_bins_loss(x, d["bins"]), logits)}
+    data = {"labels": labels, "bin_labels": bin_labels, "depth": depth, "bins": bins}
+    rows = {}
+    for name, (fn, x) in cases.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            for dt in (torch.float32, torch.float64):
+                d = {key: v.to(dev) for key, v in data.items()}
+                d["depth"] = d["depth"].to(dt)
+                xx = x.to(dev, dt).requires_grad_(True)
+                loss = fn(xx, d)
+                (grad,) = torch.autograd.grad(loss, [xx])
+                res[dev, dt] = (loss.item(), grad.cpu())
+        v_cpu, v_card = res["cpu", torch.float32][0], res["cuda", torch.float32][0]
+        g_cpu, g_card = res["cpu", torch.float64][1], res["cuda", torch.float64][1]
+        rows[name] = {"value": v_cpu, "value_rel_diff_f32": abs(v_card - v_cpu) / abs(v_cpu),
+                      "grad_rel_diff_f64": ((g_card - g_cpu).abs().max()
+                                            / g_cpu.abs().max()).item()}
+    return rows
 
 
 def _all_maps_loss(gt):
@@ -4355,9 +4491,10 @@ def phase_compat_reference(smi: str):
     gt[:, :2] = 255
     gt[1][gt[1] == 2] = 255  # class 2 absent from image 1: an SE target of 0
     rows, worst = {}, {"logits": 0.0, "loss_rel": 0.0, "grad_rel_f64": 0.0, "bases_rel": 0.0}
-    alone = compat_modules_alone(g)
+    alone = {**compat_modules_alone(g), **compat_modules_part2(g)}
     names = (list(COMPAT_TINY_HEADS) + ["cascade"] + list(COMPAT_TINY_HEADS2)
-             + [f"backbone:{b}" for b in COMPAT_TINY_BACKBONES] + list(alone))
+             + [f"backbone:{b}" for b in (*COMPAT_TINY_BACKBONES, *COMPAT_TINY_BACKBONES2)]
+             + list(alone))
     for name in names:
         if name in alone:
             model, x, fwd, loss_fn, labels = alone[name]
@@ -4404,32 +4541,49 @@ def phase_compat_reference(smi: str):
                 worst["targets"] = "differ"
     if "loss_se" not in rows["enc"]["logs"]:
         worst["enc_logs"] = rows["enc"]["logs"]
+    losses = compat_loss_checks(g)
+    worst["zoo_loss_rel"] = max(r["value_rel_diff_f32"] for r in losses.values())
+    worst["zoo_loss_grad_rel_f64"] = max(r["grad_rel_diff_f64"] for r in losses.values())
     line = {"phase": "compat_reference", "batch": list(img.shape), "classes": COMPAT_K,
-            "models": rows, "worst": worst,
+            "models": rows, "zoo_losses": losses, "worst": worst,
             "limits": "logits 1e-4 abs, loss 1e-5 relative, EMA bases 1e-5 of their max "
                       "(float32); each gradient 1e-4 of its max + 1e-9 of the model's "
-                      "largest (float64); boundary targets bitwise",
+                      "largest (float64); boundary targets bitwise; the zoo's losses: value "
+                      "1e-5 relative (float32), gradient 1e-4 of its max (float64)",
             "wall_s": time.perf_counter() - t0, "card": smi}
     emit(line)
     if not (worst["logits"] <= 1e-4 and worst["loss_rel"] <= 1e-5
             and worst["grad_rel_f64"] <= 1e-4 and worst["bases_rel"] <= 1e-5
+            and worst["zoo_loss_rel"] <= 1e-5 and worst["zoo_loss_grad_rel_f64"] <= 1e-4
             and "targets" not in worst and "enc_logs" not in worst):
         raise AssertionError(f"compat_reference: card vs CPU {worst}")
 
 
 def compat_configs():
-    """The nine published configurations of compat_main, at their widths:
+    """The twelve published configurations of compat_main, at their widths:
     (name, mmseg config, builder, image size, classes). Part II (EncNet,
     CCNet, EMANet on ResNetV1c-50 D8 with the FCN aux head on stage 3;
     Fast-SCNN under JAX's EncoderDecoder, which decodes its last map and
-    puts the FCN aux on the one before: ROADMAP queue 3)."""
+    puts the FCN aux on the one before: ROADMAP queue 3). Part II-b: Twins
+    PCPVT-S and SVT-S under UPerHead 512 (drop path 0.2), BEiT-B under
+    Feature2Pyramid and UPerHead 768 at 640^2 (drop path 0.1), each with the
+    FCN aux head on its third map, as mmseg's in_index 2."""
     from ddp_tpu_torch.models.compat_segmentor import CascadeEncoderDecoder, EncoderDecoder
     from ddp_tpu_torch.nn.compat_heads import DPTHead
     from ddp_tpu_torch.nn.lightweight import FastSCNN
     from ddp_tpu_torch.nn.mit import MixVisionTransformer, mit_variant
     from ddp_tpu_torch.nn.mobile_hrnet import HRNet
+    from ddp_tpu_torch.nn.necks import Feature2Pyramid
     from ddp_tpu_torch.nn.resnet import ResNet
+    from ddp_tpu_torch.nn.transformer_backbones import BEiT, Twins
     from ddp_tpu_torch.nn.vit import VisionTransformer, vit_variant
+
+    def beit():
+        # BEiT-B, patch 16 at 640^2 (the one 40^2 grid its table is built
+        # for), taps 3/5/7/11 through Feature2Pyramid(768, (4, 2, 1, 0.5))
+        return EncoderDecoder(BackboneWithNeck(
+            BEiT(drop_path_rate=0.1, grid=(40, 40)), Feature2Pyramid(768, (4.0, 2.0, 1.0, 0.5))),
+            "uper", 150, head_kwargs=dict(channels=768))
 
     def dpt():
         # JAX's EncoderDecoder hands num_classes to every registry head, and
@@ -4474,11 +4628,159 @@ def compat_configs():
         ("fast_scnn", "configs/fastscnn/fast_scnn_lr0.12_8x4_160k_cityscapes.py",
          lambda: EncoderDecoder(FastSCNN(), "sep_fcn", 19, head_kwargs=dict(
              channels=128, concat_input=False)), (512, 1024), 19),
+        ("twins_pcpvt-s_upernet", "configs/twins/twins_pcpvt-s_uperhead_8x4_512x512_160k_ade20k.py",
+         lambda: EncoderDecoder(Twins(drop_path_rate=0.2), "uper", 150,
+                                head_kwargs=dict(channels=512)), (512, 512), 150),
+        ("twins_svt-s_upernet", "configs/twins/twins_svt-s_uperhead_8x2_512x512_160k_ade20k.py",
+         lambda: EncoderDecoder(Twins(dims=(64, 128, 256, 512), depths=(2, 2, 10, 4),
+                                      num_heads=(2, 4, 8, 16), svt=True, window_size=7,
+                                      drop_path_rate=0.2), "uper", 150,
+                                head_kwargs=dict(channels=512)), (512, 512), 150),
+        ("upernet_beit-base", "configs/beit/upernet_beit-base_8x2_640x640_160k_ade20k.py", beit,
+         (640, 640), 150),
     )
 
 
+def compat_row(model, predict, check, step, lr: float, batch: int, unreached=()) -> dict:
+    """What every compat_main and compat_depth row measures of a model on the
+    card: ``predict()`` once with the kernel counts from 0 (``check``
+    validates its output), then the median of 5 calls after it (ms, img/s),
+    the busy share of one profiled call and the peak GB with what was live
+    before; then 3 eager train steps of ``batch`` images, ``step()`` ->
+    (loss, logs) in train mode (dropout and drop path on), every parameter's
+    gradient through grads_of (``unreached`` get 0, as JAX gives them) and
+    the port's AdamW (``lr``, constant): step ms, peak GB, the losses and
+    logs of each step, whether the loss moved, the kernel counts from 0."""
+    from ddp_tpu_torch.train.optim import AdamW, OptimConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    reset_all_launches()
+    out = predict()
+    torch.cuda.synchronize()
+    serve_counts = all_launches()
+    check(out)
+    del out
+    serve_ms = wall_s(predict, reps=5, warmup=0) * 1e3
+    p, wall_ms = profiled(predict, timed=True)
+    serve_busy = busy(p, wall_ms)
+    del p
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    params = list(model.named_parameters())
+    opt = AdamW(OptimConfig(lr=lr, schedule="constant", warmup_steps=0, warmup_ratio=1.0,
+                            grad_clip=1e9), params)
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, step_ms, logs_seen = [], [], {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, logs = step()
+        grads = grads_of(loss, params, unreached)
+        opt.step(grads)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.item())
+        for key, v in logs.items():
+            logs_seen.setdefault(key, []).append(v.item())
+        del grads, loss, logs
+    return {"parameters": sum(p.numel() for _, p in params), "predict_ms": serve_ms,
+            "img_per_s": 1e3 / serve_ms, "predict_busy": serve_busy,
+            "predict_peak_gb": serve_peak, "live_before_gb": live, "train_batch": batch,
+            "step_ms": step_ms, "train_img_per_s": batch * 1e3 / statistics.median(step_ms[1:]),
+            "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses,
+            "logs": logs_seen, "loss_moved": abs(losses[-1] - losses[0]) > 1e-4 * abs(losses[0]),
+            "launches_serve": serve_counts, "launches_train": all_launches(),
+            "unreached": len(unreached)}
+
+
+def row_failed(row: dict) -> bool:
+    """A row launched one of the five kernels, or its loss did not move or
+    was not finite."""
+    return (row["launches_serve"] != NO_KERNELS or row["launches_train"] != NO_KERNELS
+            or not row["loss_moved"]
+            or not all(np.isfinite(v) for vs in row["logs"].values() for v in vs)
+            or not all(np.isfinite(row["losses"])))
+
+
+def add_launches(launches: dict, row: dict) -> None:
+    for path in ("serve", "train"):
+        for kname, n in row[f"launches_{path}"].items():
+            launches[path][kname] += n
+
+
+class BackboneWithNeck(torch.nn.Module):
+    """backbone -> neck as one EncoderDecoder backbone: JAX's EncoderDecoder
+    has no neck field, and mmseg's upernet_beit puts Feature2Pyramid
+    between BEiT and UPerHead (a composition of this script, as the dpt
+    row's head, not a package feature)."""
+
+    def __init__(self, backbone, neck):
+        super().__init__()
+        self.backbone, self.neck = backbone, neck
+        self.out_channels = neck.out_channels
+
+    def forward(self, x, generator=None):
+        return self.neck(self.backbone(x, generator))
+
+
+def diffswin_row():
+    """DiffSwin at Swin-T widths (embed 96, depths 2/2/6/2, heads
+    3/6/12/24, window 7, time MLP 1024, drop path 0.3), random weights
+    (init_params_, seed 0), float32 TF32 off. Nothing in JAX puts a head on
+    it, so its loss is the mean square of its four maps: the maps of one
+    512^2 image move between t = 0.5 and 0.9; then compat_row with the eval
+    forward at t = 0.5 as predict and steps at 2 x 512^2, t ~ U(0, 1), AdamW
+    lr 1e-4 (the maps leave LayerNorms, so their mean square is ~1 each
+    whatever the blocks do: at 1e-5 it moved by 5e-5 in 3 steps)."""
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.diffswin import DiffSwinTransformer
+
+    t0 = time.perf_counter()
+    model = DiffSwinTransformer()
+    init_params_(model, 0)
+    model = model.cuda()
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.randn(2, 512, 512, 3, device="cuda", generator=g)
+    one, half = img[:1], torch.full((1,), 0.5, device="cuda")
+
+    @torch.no_grad()
+    def predict(t=half):
+        return model.eval()(one, t)
+
+    moves = min((a - b).abs().max().item()
+                for a, b in zip(predict(), predict(torch.full((1,), 0.9, device="cuda"))))
+    shapes = []
+
+    def check(maps):
+        shapes.extend(list(m.shape) for m in maps)
+        if not all(bool(torch.isfinite(m).all()) for m in maps) or not moves > 1e-4:
+            raise AssertionError(f"compat_main diffswin_t: maps {shapes}, t moves them {moves}")
+
+    def step():
+        loss = sum(m.square().mean() for m in model(img, torch.rand(2, device="cuda", generator=g),
+                                                      g))
+        return loss, {"loss": loss}
+
+    row = compat_row(model, predict, check, step, 1e-4, 2)
+    row = {"source": "mmseg backbones/diffswin.py DiffSwinTransformer (the reference's "
+                     "experimental DDP backbone) at Swin-T widths; no head in JAX: loss = the "
+                     "mean square of its four maps",
+           "image": [512, 512], "build_s": build_s, "map_shapes": shapes,
+           "max_map_change_t_0.5_to_0.9": moves, **row}
+    del model, img, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    if row_failed(row):
+        emit({"phase": "compat_main", "failed": "diffswin_t", **row})
+        raise AssertionError(f"compat_main diffswin_t: {row}")
+    return row
+
+
 def phase_compat_main(smi: str):
-    """The nine published compat configurations (compat_configs) at their
+    """The twelve published compat configurations (compat_configs) at their
     widths with random weights (init_params_, seed 0), float32, TF32 off:
     predict() of one image (the median of 5 calls after one: ms, img/s, busy
     share of one profiled call, peak memory), then 3 eager train steps at
@@ -4487,9 +4789,9 @@ def phase_compat_main(smi: str):
     COMPAT_UNREACHED's, which get 0, as in JAX) and the port's AdamW (lr 1e-5, constant), step ms
     and peak memory; the loss finite and moving; 0 launches of the five
     kernels on both paths; EncNet's SE loss and whether EMANet's bases
-    moved. Returns the launches, summed over the configurations."""
+    moved; then DiffSwin at Swin-T widths (diffswin_row). Returns the
+    launches, summed over the configurations."""
     from ddp_tpu_torch.nn.common import init_params_
-    from ddp_tpu_torch.train.optim import AdamW, OptimConfig
 
     t_phase = time.perf_counter()
     launches = {"serve": dict(NO_KERNELS), "train": dict(NO_KERNELS)}
@@ -4499,76 +4801,205 @@ def phase_compat_main(smi: str):
         model = build()
         init_params_(model, 0)
         model = model.cuda()
-        n_params = sum(p.numel() for p in model.parameters())
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         g = torch.Generator(device="cuda").manual_seed(0)
         img = torch.randn(2, h, w, 3, device="cuda", generator=g)
         gt = torch.randint(0, k, (2, h, w), device="cuda", generator=g)
         one = img[:1]
-        torch.cuda.reset_peak_memory_stats()
-        live = torch.cuda.memory_allocated() / 1e9
-        reset_all_launches()
-        pred = model.predict(one)
-        torch.cuda.synchronize()
-        serve_counts = all_launches()
-        if tuple(pred.shape) != (1, h, w) or not bool(((pred >= 0) & (pred < k)).all()):
-            raise AssertionError(f"compat_main {name}: predict {tuple(pred.shape)}")
-        serve_ms = wall_s(lambda: model.predict(one), reps=5, warmup=0) * 1e3
-        p, wall_ms = profiled(lambda: model.predict(one), timed=True)
-        serve_busy = busy(p, wall_ms)
-        del p
-        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+        bases0 = {n: b.clone() for n, b in model.named_buffers() if n.endswith("bases")}
+
+        def check(pred, name=name, h=h, w=w, k=k):
+            if tuple(pred.shape) != (1, h, w) or not bool(((pred >= 0) & (pred < k)).all()):
+                raise AssertionError(f"compat_main {name}: predict {tuple(pred.shape)}")
 
         # lr 1e-5 without warm-up: at 1e-4 dpt_vit-b16's loss rose 9.4 ->
         # 19.2 -> 63.9 in these 3 steps
-        opt = AdamW(OptimConfig(lr=1e-5, schedule="constant", warmup_steps=0, warmup_ratio=1.0,
-                                grad_clip=1e9), list(model.named_parameters()))
-        params = list(model.named_parameters())
-        unreached = COMPAT_UNREACHED.get(name, ())
-        bases0 = {n: b.clone() for n, b in model.named_buffers() if n.endswith("bases")}
-        model.train()
-        torch.cuda.reset_peak_memory_stats()
-        reset_all_launches()
-        losses, step_ms, extra = [], [], {}
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            loss, logs = model(img, gt, g)
-            grads = grads_of(loss, params, unreached)
-            opt.step(grads)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-            losses.append(loss.item())
-            if "loss_se" in logs:
-                extra.setdefault("loss_se", []).append(logs["loss_se"].item())
-            del grads, loss
+        row = compat_row(model, lambda: model.predict(one), check, lambda: model(img, gt, g),
+                         1e-5, 2, COMPAT_UNREACHED.get(name, ()))
         for n, b in bases0.items():
-            extra["bases_moved"] = bool((model.get_buffer(n) - b).abs().max() > 0)
-        train_counts = all_launches()
-        train_peak = torch.cuda.max_memory_allocated() / 1e9
-        for path, counted in (("serve", serve_counts), ("train", train_counts)):
-            for kname, n in counted.items():
-                launches[path][kname] += n
-        moved = abs(losses[-1] - losses[0]) > 1e-4 * abs(losses[0])
-        rows[name] = {"source": source, "image": [h, w], "classes": k, "parameters": n_params,
-                      "build_s": build_s, "predict_ms": serve_ms, "img_per_s": 1e3 / serve_ms,
-                      "predict_busy": serve_busy, "predict_peak_gb": serve_peak,
-                      "live_before_gb": live, "train_batch": 2, "step_ms": step_ms,
-                      "train_img_per_s": 2e3 / statistics.median(step_ms[1:]),
-                      "train_peak_gb": train_peak, "losses": losses, "loss_moved": moved,
-                      "log_keys": sorted(logs), "launches_serve": serve_counts,
-                      "launches_train": train_counts, "unreached": list(unreached), **extra}
-        del model, opt, params, img, gt, one, pred
+            row["bases_moved"] = bool((model.get_buffer(n) - b).abs().max() > 0)
+        rows[name] = {"source": source, "image": [h, w], "classes": k, "build_s": build_s, **row}
+        add_launches(launches, row)
+        del model, img, gt, one, bases0
         gc.collect()
         torch.cuda.empty_cache()
-        if (serve_counts != NO_KERNELS or train_counts != NO_KERNELS or not moved
-                or not all(np.isfinite(losses)) or extra.get("bases_moved") is False
-                or (name.startswith("encnet") and not all(np.isfinite(extra["loss_se"])))):
+        if (row_failed(row) or row.get("bases_moved") is False
+                or (name.startswith("encnet") and "loss_se" not in row["logs"])):
             emit({"phase": "compat_main", "failed": name, **rows[name]})
-            raise AssertionError(f"compat_main {name}: launches {serve_counts} {train_counts}, "
-                                 f"losses {losses}")
+            raise AssertionError(f"compat_main {name}: launches {row['launches_serve']} "
+                                 f"{row['launches_train']}, losses {row['losses']}")
+    rows["diffswin_t"] = diffswin_row()
+    add_launches(launches, rows["diffswin_t"])
     emit({"phase": "compat_main", "dtype": "float32, tf32 off", "weights": "init_params_(seed 0)",
+          "configs": rows, "wall_s": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
+# --- the compat zoo's depth heads: the depth toolbox's NYUv2 configurations ---
+
+class DepthComposite(torch.nn.Module):
+    """backbone -> (neck) -> a head of nn/depth_heads.py, its depth resized
+    bilinearly to the image; the loss is sig_loss (+ ``chamfer`` ·
+    bins_chamfer_loss of AdaBins' bin edges). JAX has no depth
+    encoder-decoder for these heads, so the composition is this script's."""
+
+    def __init__(self, backbone, head, neck=None, chamfer: float = 0.0, max_depth: float = 10.0):
+        super().__init__()
+        self.backbone, self.head = backbone, head
+        if neck is not None:
+            self.neck = neck
+        self.chamfer, self.max_depth = chamfer, max_depth
+
+    def depth(self, img, generator=None):
+        from ddp_tpu_torch.ops.resize import resize
+
+        feats = self.backbone(img, generator)
+        if hasattr(self, "neck"):
+            feats = self.neck(feats)
+        out = self.head(list(feats))
+        d, edges = out if isinstance(out, tuple) else (out, None)
+        return resize(d, img.shape[1:3], mode="bilinear")[..., 0], edges
+
+    def forward(self, img, gt, generator=None):
+        from ddp_tpu_torch.nn.losses import bins_chamfer_loss, sig_loss
+
+        d, edges = self.depth(img, generator)
+        loss = sig_loss(d, gt)
+        logs = {"loss_sig": loss}
+        if self.chamfer:
+            logs["loss_chamfer"] = self.chamfer * bins_chamfer_loss(edges, gt)
+            loss = loss + logs["loss_chamfer"]
+        return loss, dict(logs, loss=loss)
+
+    @torch.no_grad()
+    def predict(self, img):
+        was = self.training
+        self.eval()
+        try:
+            return self.depth(img)[0]
+        finally:
+            self.train(was)
+
+
+def depth_configs():
+    """The six NYUv2 configurations of compat_depth (the Monocular-Depth-
+    Estimation-Toolbox's, by their config names), at the backbones' published
+    widths: (name, source, build function, serving size, widths the compact JAX head
+    takes from its own defaults rather than the config, cuts). The toolbox's
+    5-level pyramids (a 1/2 stem level of 64 channels) lose that level: the
+    port's ResNet and Swin return 4 maps, as JAX's."""
+    from ddp_tpu_torch.nn import depth_heads as dh
+    from ddp_tpu_torch.nn.necks import HAHINeck
+    from ddp_tpu_torch.nn.resnet import ResNet
+    from ddp_tpu_torch.nn.swin import SwinTransformer, swin_variant
+    from ddp_tpu_torch.nn.transformer_backbones import EfficientNet
+
+    r50 = (256, 512, 1024, 2048)
+    swin = (96, 192, 384, 768)
+    no_stem = "the toolbox's 1/2 stem level (64 channels) absent: 4 maps, as JAX's backbone"
+
+    def swin_t():
+        return SwinTransformer(**swin_variant("tiny"), drop_path_rate=0.3)
+
+    def adabins():
+        backbone = EfficientNet(width_mult=1.6, depth_mult=2.2)
+        # the finest tap is 1/4: 104 x 136 at 416 x 544
+        return DepthComposite(backbone, dh.AdabinsHead(backbone.out_channels, (104, 136)),
+                              chamfer=0.1)
+
+    return (
+        ("densedepth_r50", "configs/densedepth/densedepth_r50_nyu_24e.py",
+         lambda: DepthComposite(ResNet(depth=50), dh.DenseDepthHead(r50, r50)),
+         (480, 640), {}, [no_stem]),
+        ("bts_r50", "configs/bts/bts_r50_nyu_24e.py",
+         lambda: DepthComposite(ResNet(depth=50), dh.BTSHead(r50)), (480, 640),
+         {"channels": "64 (the compact head's default; BTS's bts_size is 512)",
+          "_PlaneCoeffs.channels": 32}, []),
+        ("adabins_efnetb5", "configs/adabins/adabins_efnetb5ap_nyu_24e.py", adabins, (416, 544),
+         {"up_sample_channels": "(128, 256, 512, 1024)", "n_bins": 256,
+          "n_query_channels": "128 (47 at 416x544: 48 tokens of 16^2 patches)",
+          "embedding_dim": 128, "patch_size": 16, "mViT": "4 layers, 4 heads, FFN 1024"},
+         ["serves at 416x544: the head is built for one map size"]),
+        ("depthformer_swint", "configs/depthformer/depthformer_swint_w7_nyu.py",
+         lambda: DepthComposite(swin_t(), dh.DenseDepthHead(swin, swin),
+                                neck=HAHINeck(swin, swin, 256, 8, 8)), (480, 640),
+         {"HAHI": "embedding 256, 8 heads, 8 points, BN"},
+         [no_stem + " (DepthFormer's conv stem): HAHI's conv level is Swin stage 0"]),
+        ("binsformer_swint", "configs/binsformer/binsformer_swint_w7_nyu.py",
+         lambda: DepthComposite(swin_t(), dh.BinsFormerHead(swin)), (480, 640),
+         {"n_bins": 16, "channels": 64, "dec_layers": 2, "num_heads": 4}, []),
+        ("newcrfs_swint", "configs/newcrfs/newcrfs_swint_w7_nyu.py",
+         lambda: DepthComposite(swin_t(), dh.NeWCRFHead(swin)), (480, 640),
+         {"channels": 64, "crf": "4 heads, window 4"}, []),
+    )
+
+
+def _binsformer_unreached(model) -> tuple:
+    """BinsFormerHead reads only the first map (JAX's compact head): Swin's
+    later stages, merges and out norms feed nothing the loss reads."""
+    later = ("downsample", "stage1", "stage2", "stage3", "out_norm1", "out_norm2", "out_norm3")
+    return tuple(n for n, _ in model.named_parameters()
+                 if n.startswith(tuple(f"backbone.{p}" for p in later)))
+
+
+def phase_compat_depth(smi: str):
+    """The six depth configurations (depth_configs) at their widths with random
+    weights (init_params_, seed 0), float32, TF32 off: predict() of one
+    480x640 frame (AdaBins 416x544; the median of 5 calls after one: ms,
+    img/s, busy share of one profiled call, peak GB), depth finite and in
+    [0, max_depth]; then 3 eager steps at 2 x 416x544 (sig_loss, AdaBins
+    + 0.1 bins_chamfer_loss; max_depth 10; drop path on, CUDA generator;
+    every parameter's gradient through grads_of: BinsFormer's unreached
+    Swin stages named; AdamW lr 1e-4, constant), step ms and peak GB, the
+    loss finite and moving; 0 launches of the five kernels on both paths.
+    Returns the launches, summed over the configurations."""
+    from ddp_tpu_torch.nn.common import init_params_
+
+    t_phase = time.perf_counter()
+    launches = {"serve": dict(NO_KERNELS), "train": dict(NO_KERNELS)}
+    rows = {}
+    for name, source, build, (h, w), head_defaults, cuts in depth_configs():
+        t0 = time.perf_counter()
+        model = build()
+        init_params_(model, 0)
+        model = model.cuda()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        g = torch.Generator(device="cuda").manual_seed(0)
+        one = torch.randn(1, h, w, 3, device="cuda", generator=g)
+        img = torch.randn(2, 416, 544, 3, device="cuda", generator=g)
+        gt = 0.5 + 9.0 * torch.rand(2, 416, 544, device="cuda", generator=g)
+        gt[:, :26] = 0.0  # invalid rows
+        depth_range = []
+
+        def check(pred, name=name, h=h, w=w, top=model.max_depth):
+            depth_range.extend([pred.min().item(), pred.max().item()])
+            if (tuple(pred.shape) != (1, h, w) or not bool(torch.isfinite(pred).all())
+                    or depth_range[0] < 0 or depth_range[1] > top):
+                raise AssertionError(f"compat_depth {name}: predict {tuple(pred.shape)}, "
+                                     f"{depth_range}")
+
+        unreached = _binsformer_unreached(model) if name.startswith("binsformer") else ()
+        row = compat_row(model, lambda: model.predict(one), check, lambda: model(img, gt, g),
+                         1e-4, 2, unreached)
+        rows[name] = {"source": source, "serve_image": [h, w], "train_image": [416, 544],
+                      "head_widths_from_jax_defaults": head_defaults, "cuts": cuts,
+                      "build_s": build_s, "depth_range_m": depth_range, **row}
+        if unreached:
+            rows[name]["unreached_are"] = ("Swin's downsample0-2, stages 1-3 and out_norm1-3: "
+                                           "JAX's BinsFormerHead reads only the first map")
+        add_launches(launches, row)
+        del model, img, gt, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        if row_failed(row):
+            emit({"phase": "compat_depth", "failed": name, **rows[name]})
+            raise AssertionError(f"compat_depth {name}: launches {row['launches_serve']} "
+                                 f"{row['launches_train']}, losses {row['losses']}")
+    emit({"phase": "compat_depth", "dataset": "NYUv2 sizes, random images and depth (0.5-9.5 m, "
+                                              "the top 26 rows invalid)",
+          "dtype": "float32, tf32 off", "weights": "init_params_(seed 0)", "max_depth": 10.0,
           "configs": rows, "wall_s": time.perf_counter() - t_phase, "card": smi})
     return launches
 
@@ -4578,7 +5009,8 @@ PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
           "fusion_train", "fusion_host", "cn_reference", "cn_main", "cn_train",
-          "compat_reference", "compat_main", "host_data", "converge", "graph_grads",
+          "compat_reference", "compat_main", "compat_depth", "host_data", "converge",
+          "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
           "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
 ON_REQUEST = ("fusion_host", "host_data", "converge", "graph_grads", "replay_records",
@@ -4672,6 +5104,10 @@ def main(argv=None) -> int:
     if "compat_main" in phases:
         compat = phase_compat_main(smi)
         launches["compat_serve"], launches["compat_train"] = compat["serve"], compat["train"]
+    if "compat_depth" in phases:
+        compat = phase_compat_depth(smi)
+        launches["compat_depth_serve"] = compat["serve"]
+        launches["compat_depth_train"] = compat["train"]
     if "host_data" in phases:
         phase_host_data(smi)
     if "converge_controlnet" in phases:
@@ -4735,12 +5171,20 @@ def main(argv=None) -> int:
                 ("cn_serve", "sample() of one 512^2 image, controlnet_sd15 (20 DDIM steps, "
                              "CFG)"),
                 ("cn_train", "eager f32 train step of controlnet_sd15, 4 x 512^2"),
-                ("compat_serve", "predict() of one image, summed over the nine compat_main "
+                ("compat_serve", "predict() of one image, summed over the twelve compat_main "
                                  "configurations (upernet_r50, deeplabv3plus_r50-d8, "
                                  "ocrnet_hr18, segformer_mit-b0, dpt_vit-b16, encnet_r50-d8, "
-                                 "ccnet_r50-d8, emanet_r50-d8, fast_scnn)"),
-                ("compat_train", "3 eager train steps at batch 2, summed over the nine "
-                                 "compat_main configurations"))
+                                 "ccnet_r50-d8, emanet_r50-d8, fast_scnn, "
+                                 "twins_pcpvt-s_upernet, twins_svt-s_upernet, "
+                                 "upernet_beit-base), and DiffSwin-T's eval forward"),
+                ("compat_train", "3 eager train steps at batch 2, summed over the twelve "
+                                 "compat_main configurations and DiffSwin-T"),
+                ("compat_depth_serve", "predict() of one 480x640 frame (AdaBins 416x544), "
+                                       "summed over the six compat_depth configurations "
+                                       "(densedepth_r50, bts_r50, adabins_efnetb5, "
+                                       "depthformer_swint, binsformer_swint, newcrfs_swint)"),
+                ("compat_depth_train", "3 eager train steps at 2 x 416x544, summed over the "
+                                       "six compat_depth configurations"))
             if key in launches}
     print(json.dumps(phase_seconds()), flush=True)
     print(smi, flush=True)

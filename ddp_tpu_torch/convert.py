@@ -47,7 +47,22 @@ so only beside its params, where the ``Dense_0`` shows); the Encoding's
 ``scale`` is its ``weight``; ``codewords``, K-Net's ``kernels``,
 Segmenter's ``cls_emb`` and CGNet's ``prelu`` keep their names; EMANet's
 batch stat ``bases`` is the buffer ``bases`` (no ``num_batches_tracked``:
-it is no BatchNorm). Leaves are numpy arrays (or
+it is no BatchNorm). Part II-b/c (``nn/transformer_backbones.py``,
+``nn/diffswin.py``, ``nn/necks.py``, ``nn/depth_heads.py``) carries the flax
+names too, with two layouts of their own:
+
+  - flax ``ConvTranspose`` (Feature2Pyramid's ``up4_a{i}``, ``up4_b{i}``,
+    ``up2_{i}``; ``transpose_kernel=False``, SAME at k = s = 2): flax
+    computes out[s·i + j] = x[i]·w[k − 1 − j] where torch's
+    ``ConvTranspose2d`` takes W[j], so the kernel [kh, kw, in, out] becomes
+    [in, out, kh, kw] with both spatial axes reversed (a copy, not a view);
+  - flax ``MultiHeadDotProductAttention`` (AdaBins' ``attn{i}``): the
+    ``query``/``key``/``value`` kernels [E, H, D] -> weight [H·D, E], ``out``
+    [H, D, E] -> [E, H·D], the biases [H, D] -> [H·D];
+
+and the bare parameters BEiT's ``rel_pos_table``, ``gamma1``, ``gamma2``,
+HAHI's ``level_embed``, the mViT's ``pos`` and BinsFormer's ``query_feat``
+keep their names. Leaves are numpy arrays (or
 anything ``np.asarray`` takes); the state_dict holds views of them, not
 copies. A flax leaf with no rule raises.
 """
@@ -90,11 +105,20 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  # part II: the Encoding's codewords, K-Net's kernels,
                  # Segmenter's class embedding, CGNet's PReLU slopes
                  "codewords": "codewords", "kernels": "kernels", "cls_emb": "cls_emb",
-                 "prelu": "prelu"}
+                 "prelu": "prelu",
+                 # part II-b/c: BEiT's relative-position table and layer
+                 # scales, HAHI's level embedding, the mViT's positions,
+                 # BinsFormer's bin queries
+                 "rel_pos_table": "rel_pos_table", "gamma1": "gamma1", "gamma2": "gamma2",
+                 "level_embed": "level_embed", "pos": "pos", "query_feat": "query_feat"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var", "bases": "bases"}
 _BN_STATS = ("mean", "var")
 # top-level modules whose leaves keep their flax names and layouts
 _VERBATIM_PREFIX = "lidar_"
+# Feature2Pyramid's flax ConvTranspose modules
+_CONV_TRANSPOSE = re.compile(r"^up(4_[ab]|2_)\d+$")
+# flax MultiHeadDotProductAttention's DenseGeneral children
+_MHA = ("query", "key", "value", "out")
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -139,11 +163,18 @@ def _module_path(path: Tuple[str, ...], token_convs: Set[Tuple[str, ...]] = froz
     return tuple(out)
 
 
-def _to_torch(leaf_name: str, value) -> torch.Tensor:
-    """A view of the (transposed) leaf; ``load_state_dict`` copies it."""
+def _to_torch(leaf_name: str, value, module: str = "") -> torch.Tensor:
+    """A view of the (transposed) leaf of flax module ``module``;
+    ``load_state_dict`` copies it."""
     a = np.asarray(value)
-    if leaf_name == "kernel":
+    if leaf_name == "kernel" and _CONV_TRANSPOSE.match(module):
+        a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+    elif leaf_name == "kernel" and a.ndim == 3 and module in _MHA:
+        a = (a.reshape(-1, a.shape[-1]) if module == "out" else a.reshape(a.shape[0], -1)).T
+    elif leaf_name == "kernel":
         a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    elif leaf_name == "bias" and a.ndim == 2 and module in _MHA:
+        a = a.reshape(-1)
     with warnings.catch_warnings():
         # arrays from jax are read-only; the view is only ever read
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
@@ -175,7 +206,7 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
         if leaf not in _PARAM_LEAVES:
             raise KeyError(f"no rule for flax leaf {'/'.join(path)}")
         key = ".".join(_module_path(tuple(mod), token_convs) + (_PARAM_LEAVES[leaf],))
-        sd[key] = _to_torch(leaf, value)
+        sd[key] = _to_torch(leaf, value, mod[-1] if mod else "")
     for path, value in _walk(batch_stats or {}):
         same = _verbatim(path, value)
         if same is not None:

@@ -75,6 +75,12 @@ def promoted(module: nn.Module, *args: torch.Tensor) -> torch.Tensor:
     return functional_call(module, {n: p.to(dtype) for n, p in params.items()}, args)
 
 
+def trunc_normal(shape, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """flax ``trunc_normal_init(std)`` (``ddp_tpu/nn/common.py:23``): N(0, 1)
+    truncated to ±2, times ``std``, with no variance correction."""
+    return nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=gen) * std
+
+
 FLAX_MOMENTUM = 0.9
 
 

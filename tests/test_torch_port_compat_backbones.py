@@ -2,7 +2,8 @@
 vit}.py``) against the JAX package's, on the CPU.
 
 Weights: the flax variable tree of each module is shaped by ``jax.eval_shape``
-(no JAX init is compiled) and filled with seeded numpy values (kernels
+(no JAX init is compiled; ``flax_shapes.shapes_of`` traces JAX's random
+draws as zeros, which halves the shape pass) and filled with seeded numpy values (kernels
 N(0, 1/fan_in), biases and BN means N(0, 0.1²), scales 1 + N(0, 0.1²), BN
 variances U(0.5, 1.5)), so that every leaf carries signal; ``convert.py``
 carries them across. The JAX side is two jitted calls (every case's eval
@@ -37,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as fnn
+from flax_shapes import shapes_of
 
 from ddp_tpu.nn import mit as jmit
 from ddp_tpu.nn import mobile_hrnet as jmh
@@ -161,7 +163,7 @@ def jax_cases():
     for name, (jmod, _, shape) in CASES.items():
         xs[name] = _inputs(shape)
         variables[name] = fill_variables(
-            jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), xs[name])))
+            shapes_of(jmod, xs[name]))
     ev = jax.jit(lambda vs, xx: {n: CASES[n][0].apply(vs[n], xx[n], train=False)
                                  for n in CASES})(variables, xs)
     with float64():
