@@ -15,8 +15,11 @@
     python3 chip_smoke.py --phases build,converge_controlnet   # the ControlNet end check
     python3 chip_smoke.py --phases build,host_data         # the host's decode and batch times
     python3 chip_smoke.py --phases build,compat_reference,compat_main   # the compat zoo
+    python3 chip_smoke.py --phases build,dist,tools,dist_two   # data-parallel and the tools
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
+A CLI named below runs as its main(argv) in this process (what
+``python -m`` runs, without a new interpreter and CUDA context).
 A busy share is the union of the intervals of the kernels and copies that
 the card ran in one profiled call over that call's wall time. A profiled
 eager call also gives the MSDA op's device ms: the kernels launched in its
@@ -62,8 +65,9 @@ ms_deform_attn range and by the backward nodes made there.
   9. graph   - the train step as one CUDA-graph dispatch
                (make_chunked_train_step) at ade20k_swin_t, 2 x 512^2, f32
                and bf16, from the end of the lr warm-up: the eager step and
-               graphed chunks of 1 and 10 steps from one state and batch,
-               each replay held to the eager steps from the same generator
+               a graphed chunk of 10 steps (timed) and one captured alike
+               (10 steps in f32, 4 in bf16) from one state and batch, its
+               replay held to the eager steps from the same generator
                state, tensor by tensor, with PyTorch's deterministic
                algorithms on; wall ms per step, img/s, the device
                busy share and the kernels' launches per replayed step (both
@@ -75,6 +79,28 @@ ms_deform_attn range and by the backward nodes made there.
                logs and checkpoints land at the JAX loop's steps, the card
                runs the kernels in the replays of steps 31-50 (profiled),
                and a resume from the step-90 checkpoint continues the run.
+ 10a. dist   - the data-parallel step at world 1: an NCCL group in this
+               process, ade20k_swin_t at 2 x 512^2, f32: the eager step's
+               kernel launches with the gradient all-reduce, a 2-step CUDA
+               graph with the all-reduce captured held to the eager steps
+               without a group (graph's limits), step ms with and without
+               the collective (eager, graphed), and what a profile of one
+               replay shows of the collective.
+ 10b. tools  - the model tools on the card at ade20k_swin_t: image_demo on
+               a 512^2 PNG, publish_model of 1- and 2-step checkpoints,
+               image_demo --ckpt, model_ensemble and confusion_matrix on
+               tests/data/ade, get_flops at 512^2, and flip_tta and
+               multi_scale_flip_tta of sample() at 512^2 against the plain
+               path (the main phase's limits), with encode_map launches.
+ 10c. dist_two - (only when named) two processes of one gloo group on
+               cuda:0 train ade20k_swin_t eagerly for 2 steps on a global
+               batch of 2, held to two 1-process runs on the whole batch:
+               the ranks' logs equal, losses 1e-5 relative (+ 3 x the
+               1-process runs' spread), each first-step gradient tensor
+               within 1e-3 of its L2 + 3 x two summation orders' distance,
+               each parameter tensor after 2 steps within 1e-2 of its
+               update (L2); the gloo all-reduce's wall ms; reported, not
+               held, a 1-process run without cuDNN against the reference.
  11. msda_main - serving with the msda decoder: ade20k_swin_t_msda at full
                width and depth, its weights seeded random tensors under
                mmseg's names, torch.save'd and loaded onto the card by
@@ -88,8 +114,8 @@ ms_deform_attn range and by the backward nodes made there.
  12. msda_train - training with the msda decoder at 2 x 512^2: one step with
                fixed draws through the kernels and through the plain
                versions, one eager step in f32 and in bf16 (launch counts,
-               loss, peak memory), and a graphed chunk of 10 steps held to
-               the eager steps as in graph (f32 and bf16).
+               loss, peak memory), and a graphed chunk of 10 steps (4 held
+               to the eager steps as in graph; f32 and bf16).
  13. city_main - serving the Cityscapes ConvNeXt segmentor on one 1024 x
                2048 image: cityscapes_convnext_t with the msda overrides
                (decoder_attn=msda, 8 heads: the released checkpoints' shape),
@@ -105,8 +131,8 @@ ms_deform_attn range and by the backward nodes made there.
  14. city_train - cityscapes_convnext_t at 4 x 512 x 1024 (the reference's
                per-GPU batch) as msda_train does it: fixed draws through the
                kernels and the plain versions, eager f32 and bf16 steps
-               (launches 1/1/2/2), a graphed chunk of 10 steps held to the
-               eager steps (f32 and bf16, deterministic algorithms on).
+               (launches 1/1/2/2), a graphed chunk of 10 steps (4 held to
+               the eager steps; f32 and bf16, deterministic algorithms on).
  15. city_data - the entry points on the card: python -m
                ddp_tpu_torch.tools.train smoke on tests/data/cityscapes
                (files through data/image_io.py: read_image), 20 iterations,
@@ -129,8 +155,8 @@ ms_deform_attn range and by the backward nodes made there.
                kitti_swin_t on one 352 x 1216 frame.
  18. depth_train - nyu_swin_t at 2 x 416 x 544 (the reference's per-GPU
                batch), procedural depth maps: the eager step and graphed
-               chunks of 1 and 10 steps, f32 and bf16, held to the eager
-               steps as in graph; no kernel launched.
+               chunks of 1 and 10 steps (4 held), f32 and bf16, held to
+               the eager steps as in graph; no kernel launched.
  19. depth_data - the entry points on an NYU-layout tree of full-size PNGs
                (480 x 640 RGB, 16-bit depth in mm, from write_png):
                tools.train converge_depth for 20 iterations at 416 x 544
@@ -189,7 +215,7 @@ ms_deform_attn range and by the backward nodes made there.
                and 4 (f32): s per image, images/s, busy share of a 5-step
                call (profiled and unprofiled), device ms by kernel family and
                SDPA backend, peak memory, no kernel launched;
-               tools.control_demo as a subprocess (exit 0, a PNG).
+               tools.control_demo (exit 0, a PNG).
  28. cn_train - controlnet_sd15 at 4 x 512^2 on synthetic fill50k: eager f32
                and bf16 steps (s, forward / backward / optimizer s, img/s,
                peak memory), the frozen parts bitwise unchanged and the
@@ -1589,13 +1615,20 @@ def check_capture_failure():
     return err
 
 
+# the steps of a graphed chunk held to the eager steps (graph_vs_eager) where
+# the case holds fewer than the chunk's: under deterministic algorithms the
+# eager steps are the phase's cost, and 3 x this many run per case
+HELD_STEPS = 4
+
+
 def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: int = 2,
-               batch=None, per_step: dict = PER_STEP):
+               batch=None, per_step: dict = PER_STEP, held_steps: int = HELD_STEPS):
     """``cfg`` (ade20k_swin_t, ade20k_swin_t_msda, cityscapes_convnext_t or
     nyu_swin_t) at b crops of its size (``batch``; train_batch's when None):
     the eager step and the graphed chunks of ``ns`` steps from one state and
     one batch, the card's kernels held to ``per_step`` launches per step
-    (the depther's path runs none). The optimizer starts
+    (the depther's path runs none); a chunk of min(n, ``held_steps``) steps,
+    captured alike, held to the eager steps. The optimizer starts
     at the end of the lr warm-up (lr 6e-5, as a run resumed there): at the
     first steps' lr (below 1e-7) an update is a few ulps of a parameter near
     1 (the norms' weights), so one rounding of p - u.lr is a third of it and
@@ -1633,17 +1666,20 @@ def graph_case(cfg, mixed: bool, smi: str, profile: str = None, ns=(1, 10), b: i
                      **eager_busy, "launches_profiled": eager_launches,
                      "live_before_gb": live, "peak_mem_gb": eager_peak}}
     for n in ns:
-        reps = 5 if n == 1 else 3
+        reps = 5 if n == 1 else 2
         chunk_batch = stacked(batch, n)
         # held with PyTorch's deterministic algorithms on (graph and eager
         # alike): without them its index_add_/index_put_ sum by atomics in an
         # order that follows the card's timing, which differs between eager
         # launches and a replay (phase graph_grads); what remains is the
         # port's own atomics (squash_dtable into the table, the CE sums)
+        t_held = time.perf_counter()
         with deterministic_algorithms(True):
-            held = make_chunked_train_step(n, mixed_precision=mixed)
-            held(state, chunk_batch)  # the first chunk: eager on the capture stream, then capture
-            check = graph_vs_eager(state, held, eager, batch, n)
+            held_n = min(n, held_steps)
+            held = make_chunked_train_step(held_n, mixed_precision=mixed)
+            held(state, stacked(batch, held_n))  # eager on the capture stream, then capture
+            check = graph_vs_eager(state, held, eager, batch, held_n)
+        check["wall_s"] = time.perf_counter() - t_held
         del held
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1679,9 +1715,11 @@ def phase_graph(smi: str, profile: str = None):
     from ddp_tpu_torch.config import get_config
 
     cfg = get_config("ade20k_swin_t")
-    launches = graph_case(cfg, False, smi, profile)
+    # chunks of 10 only (the dist phase holds a 2-step graph, with the
+    # all-reduce, to the eager steps in f32); f32 holds all 10 steps
+    launches = graph_case(cfg, False, smi, profile, ns=(10,), held_steps=10)
     torch.cuda.empty_cache()
-    graph_case(cfg, True, smi, profile)
+    graph_case(cfg, True, smi, profile, ns=(10,))
     torch.cuda.empty_cache()
     return launches
 
@@ -2121,8 +2159,8 @@ def train_paths(cfg, b: int, phase: str, smi: str, profile: str = None):
     """``cfg`` at full width and depth, b crops of its size: one step with
     fixed draws through the kernels and through the plain versions, one eager
     step in f32 and in bf16 (the kernels' launch counts, loss, peak memory),
-    and a graphed chunk of 10 steps held to the eager steps (graph_case, f32
-    and bf16). Returns (launches of the eager f32 step, per replayed step)."""
+    and a graphed chunk of 10 steps (4 held to the eager steps; graph_case,
+    f32 and bf16). Returns (launches of the eager f32 step, per replayed step)."""
     from ddp_tpu_torch.config import build_model
     from ddp_tpu_torch.train.optim import make_optimizer
     from ddp_tpu_torch.train.step import TrainState, make_train_step
@@ -2424,7 +2462,7 @@ def _host_ms(fn, reps: int) -> float:
 
 
 def phase_city_data(smi: str):
-    """The entry points on real-format data: ``python -m
+    """The entry points on real-format data (``run_cli``): ``python -m
     ddp_tpu_torch.tools.train smoke`` on tests/data/cityscapes (20
     iterations, 10 per dispatch), then ``python -m ddp_tpu_torch.tools.test``
     on its workdir in whole and slide modes (a 32 x 64 crop of the 48 x 96
@@ -2441,24 +2479,14 @@ def phase_city_data(smi: str):
     root = os.path.dirname(os.path.abspath(__file__))
     workdir = os.path.join(root, CITY_DIR, "smoke")
     shutil.rmtree(workdir, ignore_errors=True)
-    sets = ["data.dataset=cityscapes", "data.data_root=tests/data/cityscapes",
+    sets = ["data.dataset=cityscapes",
+            f"data.data_root={os.path.join(root, 'tests', 'data', 'cityscapes')}",
             "model.num_classes=19"]
     line = re.compile(r"\[seed 0\] aAcc [\d.]+ \| mIoU [\d.]+ \| mAcc [\d.]+")
-
-    def run(args, name):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
-                              text=True, timeout=600)
-        sec = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"city_data {name}: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-        return proc.stdout, sec
-
-    _, train_s = run(["ddp_tpu_torch.tools.train", "smoke", "--workdir", workdir,
-                      "--set", *sets, "runtime.total_iters=20", "runtime.steps_per_dispatch=10",
-                      "runtime.log_interval=10", "runtime.ckpt_interval=20",
-                      "optim.total_steps=20"], "train")
+    _, train_s = run_cli("ddp_tpu_torch.tools.train", [
+        "smoke", "--workdir", workdir, "--set", *sets, "runtime.total_iters=20",
+        "runtime.steps_per_dispatch=10", "runtime.log_interval=10", "runtime.ckpt_interval=20",
+        "optim.total_steps=20"])
     logs = _log_steps(workdir)
     out = {"phase": "city_data", "train": {"wall_s": train_s,
                                            "log_steps": [r["step"] for r in logs],
@@ -2469,8 +2497,8 @@ def phase_city_data(smi: str):
     for mode, extra in (("whole", []), ("slide", ["runtime.test_mode=slide",
                                                   "runtime.test_crop=(32,64)",
                                                   "runtime.test_stride=(16,32)"])):
-        text, sec = run(["ddp_tpu_torch.tools.test", "smoke", "--workdir", workdir, "--set",
-                         *sets, *extra], f"test {mode}")
+        text, sec = run_cli("ddp_tpu_torch.tools.test", ["smoke", "--workdir", workdir,
+                                                         "--set", *sets, *extra])
         if "restored step 20" not in text or not line.search(text):
             raise AssertionError(f"city_data test {mode}: output {text!r}")
         out[f"test_{mode}"] = {"wall_s": sec, "lines": text.strip().splitlines()}
@@ -2817,7 +2845,7 @@ def depth_decode(root: str, tree: str) -> dict:
 
 
 def phase_depth_data(smi: str):
-    """The depth entry points on real-format files (nyu_tree): python -m
+    """The depth entry points on real-format files (nyu_tree; run_cli): python -m
     ddp_tpu_torch.tools.train converge_depth on it for 20 iterations at
     416 x 544 crops, batch 16, then python -m ddp_tpu_torch.tools.test on its
     workdir: each must exit 0 and print its metric line. The host's decode
@@ -2826,21 +2854,10 @@ def phase_depth_data(smi: str):
     tree = nyu_tree(root)
     workdir = os.path.join(root, DEPTH_DIR, "train")
     sets = ["data.dataset=nyu", f"data.data_root={tree}"]
-
-    def run(args, name):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
-                              text=True, timeout=600)
-        sec = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"depth_data {name}: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
-        return proc.stdout, sec
-
-    _, train_s = run(["ddp_tpu_torch.tools.train", "converge_depth", "--workdir", workdir,
-                      "--set", *sets, "data.crop_size=(416,544)", "runtime.total_iters=20",
-                      "runtime.steps_per_dispatch=10", "runtime.log_interval=10",
-                      "runtime.ckpt_interval=20", "optim.total_steps=20"], "train")
+    _, train_s = run_cli("ddp_tpu_torch.tools.train", [
+        "converge_depth", "--workdir", workdir, "--set", *sets, "data.crop_size=(416,544)",
+        "runtime.total_iters=20", "runtime.steps_per_dispatch=10", "runtime.log_interval=10",
+        "runtime.ckpt_interval=20", "optim.total_steps=20"])
     logs = _log_steps(workdir)
     out = {"phase": "depth_data", "tree": "nyu layout, 480x640 PNG frames, 4 train 2 test",
            "train": {"wall_s": train_s, "log_steps": [r["step"] for r in logs],
@@ -2849,8 +2866,9 @@ def phase_depth_data(smi: str):
             0 < r["loss"] < float("inf") for r in logs):
         raise AssertionError(f"depth_data train: logs {logs}")
     line = re.compile(r"a1 [\d.]+ \| a2 [\d.]+ \| a3 [\d.]+ \| abs_rel [\d.]+ .*\(n=2\)")
-    text, test_s = run(["ddp_tpu_torch.tools.test", "converge_depth", "--workdir", workdir,
-                        "--uncertainty", "--set", *sets, "model.diffusion.randsteps=2"], "test")
+    text, test_s = run_cli("ddp_tpu_torch.tools.test", [
+        "converge_depth", "--workdir", workdir, "--uncertainty", "--set", *sets,
+        "model.diffusion.randsteps=2"])
     if "restored step 20" not in text or not line.search(text) or "hypothesis std" not in text:
         raise AssertionError(f"depth_data test: output {text!r}")
     out["test"] = {"wall_s": test_s, "lines": text.strip().splitlines()}
@@ -3276,14 +3294,7 @@ def phase_bev_train(smi: str, profile: str = None):
     root = os.path.dirname(os.path.abspath(__file__))
     workdir = os.path.join(root, BEV_DIR, "smoke_bev")
     shutil.rmtree(os.path.join(root, BEV_DIR), ignore_errors=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.tools.train", "smoke_bev",
-                           "--workdir", workdir], cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"bev_train: tools.train smoke_bev exit {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    _, cli_s = run_cli("ddp_tpu_torch.tools.train", ["smoke_bev", "--workdir", workdir])
     logs = _log_steps(workdir)
     if logs[-1]["step"] != 60 or not all(0 < r["loss"] < float("inf") for r in logs):
         raise AssertionError(f"bev_train: tools.train smoke_bev logs {logs}")
@@ -3294,7 +3305,7 @@ def phase_bev_train(smi: str, profile: str = None):
           "bev_pool_alone": pool, "host_batch_s": host,
           "host_batch": f"bev_batch_iterator, {want} scenes of 6 x 256x704 with the 3D aug "
                         "(the first includes the iterator's start)",
-          "train_cli_smoke_bev": {"exit": proc.returncode, "wall_s": cli_s,
+          "train_cli_smoke_bev": {"exit": 0, "wall_s": cli_s,
                                   "log_steps": [r["step"] for r in logs],
                                   "loss_first_last": [logs[0]["loss"], logs[-1]["loss"]]},
           "card": smi})
@@ -3844,7 +3855,7 @@ def phase_cn_main(smi: str):
     and its profiled device ms over its unprofiled wall time), the device ms
     by kernel family and the SDPA backend of that call, peak memory, 0
     launches of the five kernels; python -m ddp_tpu_torch.tools.control_demo
-    on the card (a new process: build, 4 samples, a PNG). Returns (model,
+    on the card (run_cli: its own build, 4 samples, a PNG). Returns (model,
     launches)."""
     from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.models.controlnet import part_sizes
@@ -3903,21 +3914,16 @@ def phase_cn_main(smi: str):
     shutil.rmtree(os.path.join(root, CN_DIR), ignore_errors=True)
     png = os.path.join(root, CN_DIR, "demo.png")
     os.makedirs(os.path.dirname(png), exist_ok=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "ddp_tpu_torch.tools.control_demo", "--preset",
-                           "controlnet_sd15", "--workdir", os.path.join(root, CN_DIR, "none"),
-                           "--index", "3", "--num-samples", "4", "--steps", "20", "--scale",
-                           "9.0", "--out", png], cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    demo_s = time.perf_counter() - t0
-    if proc.returncode != 0 or not os.path.exists(png):
-        raise AssertionError(f"cn_main: control_demo exit {proc.returncode}\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    text, demo_s = run_cli("ddp_tpu_torch.tools.control_demo", [
+        "--preset", "controlnet_sd15", "--workdir", os.path.join(root, CN_DIR, "none"),
+        "--index", "3", "--num-samples", "4", "--steps", "20", "--scale", "9.0", "--out", png])
+    if not os.path.exists(png):
+        raise AssertionError(f"cn_main: control_demo wrote no {png}\n{text[-2000:]}")
     from PIL import Image
 
-    line["control_demo"] = {"exit": proc.returncode, "wall_s": demo_s,
+    line["control_demo"] = {"exit": 0, "wall_s": demo_s,
                             "png_shape": list(np.asarray(Image.open(png)).shape),
-                            "stdout_tail": proc.stdout.strip().splitlines()[-2:]}
+                            "stdout_tail": text.strip().splitlines()[-2:]}
     shutil.rmtree(os.path.join(root, CN_DIR), ignore_errors=True)
     line.update(wall_s=time.perf_counter() - t_phase, card=smi)
     emit(line)
@@ -5004,8 +5010,435 @@ def phase_compat_depth(smi: str):
     return launches
 
 
+# --- data-parallel training and the tools ------------------------------------------
+
+DIST_DIR = os.path.join("work_dirs", "chip_smoke_dist")
+TOOLS_DIR = os.path.join("work_dirs", "chip_smoke_tools")
+ADE_FIXTURE = os.path.join("tests", "data", "ade")
+
+
+def free_port() -> str:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def collective_kernels(p) -> dict:
+    """What a profile shows of the gradient all-reduce: NCCL's kernels (by
+    name) and device-to-device copies, their count and device ms."""
+    out = {"nccl_kernels": 0, "nccl_device_ms": 0.0, "dtod_copies": 0, "dtod_device_ms": 0.0,
+           "nccl_kernel_names": []}
+    for e in device_kernels(p):
+        if re.search("nccl", e.key, re.I):
+            out["nccl_kernels"] += e.count
+            out["nccl_device_ms"] += e.device_time_total / 1e3
+            out["nccl_kernel_names"].append(e.key[:80])
+        elif re.search(r"memcpy dtod|device -> device", e.key, re.I):
+            out["dtod_copies"] += e.count
+            out["dtod_device_ms"] += e.device_time_total / 1e3
+    return out
+
+
+def dist_state(cfg):
+    """ade20k_swin_t's train state from seed 0, the optimizer at the end of
+    the lr warm-up (graph_case's reason)."""
+    from ddp_tpu_torch.config import build_model
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState
+
+    model = build_model(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(cfg.optim, model),
+                       torch.Generator(device="cuda").manual_seed(0))
+    state.optimizer.count = cfg.optim.warmup_steps
+    return state
+
+
+def phase_dist(smi: str):
+    """The data-parallel train step at world 1 in this process: an NCCL
+    group on 127.0.0.1, ade20k_swin_t at 2 x 512^2, f32 (TF32 off). The
+    eager step with the gradient all-reduce (the four kernels' launches); a
+    2-step CUDA graph with the all-reduce captured, its replay held to the
+    eager steps without a process group from the same state and generator
+    (graph_vs_eager, PyTorch's deterministic algorithms on); step ms with and
+    without the collective, eager and graphed; what a profile of one replay
+    shows of the collective."""
+    import torch.distributed as dist
+
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from ddp_tpu_torch.train.step import make_chunked_train_step, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config("ade20k_swin_t")
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=free_port())
+    device = init_distributed()
+    mesh = make_mesh()
+    state = dist_state(cfg)
+    batch = train_batch(cfg, 2)
+    eager = make_train_step()
+    reset_all_launches()
+    eager(state, batch)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != PER_STEP:
+        raise AssertionError(f"dist: the eager step with the all-reduce launched {launches}")
+    eager_ms = wall_s(lambda: eager(state, batch), reps=3, warmup=0) * 1e3
+    n = 2
+    chunk_batch = stacked(batch, n)
+    timed_chunk = make_chunked_train_step(n)
+    timed_chunk(state, chunk_batch)  # eager on the capture stream, then the capture
+    graph_ms = wall_s(lambda: timed_chunk(state, chunk_batch), reps=3, warmup=0) * 1e3 / n
+    p, wall = profiled(lambda: timed_chunk(state, chunk_batch), timed=True)
+    replay = dict(busy(p, wall), **collective_kernels(p))
+    replay["launches_per_replayed_step"] = {k: v / n for k, v in kernel_launches(p).items()}
+    if replay["launches_per_replayed_step"] != PER_STEP:
+        raise AssertionError(f"dist: the card ran {replay} in one replay")
+    del timed_chunk
+    torch.cuda.empty_cache()
+    with deterministic_algorithms(True):
+        held = make_chunked_train_step(n)
+        held(state, chunk_batch)
+
+        def replay_then_leave(state, batches):
+            logs = held(state, batches)
+            torch.cuda.synchronize()
+            dist.destroy_process_group()  # the eager steps below run without a group
+            return logs
+
+        check = graph_vs_eager(state, replay_then_leave, eager, batch, n)
+    del held
+    torch.cuda.empty_cache()
+    eager_alone_ms = wall_s(lambda: eager(state, batch), reps=3, warmup=0) * 1e3
+    alone = make_chunked_train_step(n)
+    alone(state, chunk_batch)
+    graph_alone_ms = wall_s(lambda: alone(state, chunk_batch), reps=3, warmup=0) * 1e3 / n
+    del alone
+    torch.cuda.empty_cache()
+    emit({"phase": "dist", "preset": cfg.name, "img": [2, 512, 512, 3],
+          "dtype": "float32, tf32 off", "group": "nccl, world 1, in this process",
+          "device": str(device), "mesh": [list(mesh.shape), list(mesh.mesh_dim_names)],
+          "capture_error_mode": "thread_local", "launches_eager_step": launches,
+          "eager_ms_per_step": {"with_all_reduce": eager_ms, "without_group": eager_alone_ms},
+          "graph_ms_per_step": {"with_all_reduce": graph_ms, "without_group": graph_alone_ms,
+                                "n": n},
+          "profiled_replay": replay, "graph_vs_eager_without_group": check,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
+    return launches
+
+
+def run_tool(module, argv) -> str:
+    """A tool's main(argv) in this process: its standard output (exit 0)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{module.__name__} {argv}: exit {rc}\n{out.getvalue()}")
+    return out.getvalue()
+
+
+def run_cli(module: str, argv) -> tuple:
+    """``python -m module *argv`` as its ``main(argv)`` in this process,
+    without an interpreter and a CUDA context of its own to start (seconds
+    each): (its standard output, wall s); it must exit 0."""
+    import importlib
+
+    t0 = time.perf_counter()
+    text = run_tool(importlib.import_module(module), list(argv))
+    sec = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return text, sec
+
+
+def phase_tools(smi: str):
+    """The model tools on the card at ade20k_swin_t: image_demo on a 512^2
+    PNG (random init), publish_model of a 1-step and a 2-step checkpoint,
+    image_demo --ckpt, model_ensemble (both) and confusion_matrix on
+    tests/data/ade, get_flops at 512^2; flip_tta and multi_scale_flip_tta of
+    sample() at 512^2 through the kernels and the plain versions (the serving
+    limits), with their encode_map launches."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data.image_io import write_png
+    from ddp_tpu_torch.data.seg_datasets import normalize_image
+    from ddp_tpu_torch.evaluation.slide import flip_tta, multi_scale_flip_tta
+    from ddp_tpu_torch.tools import (confusion_matrix, get_flops, image_demo, model_ensemble,
+                                     publish_model, segmentor)
+    from ddp_tpu_torch.train.checkpoint import CheckpointManager
+    from ddp_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    cfg = get_config("ade20k_swin_t")
+    rng = np.random.default_rng(0)
+    png = os.path.join(TOOLS_DIR, "in.png")
+    write_png(png, rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+    out, secs, launches = {}, {}, {}
+
+    def timed(name, module, argv):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out[name] = run_tool(module, argv).strip().splitlines()[-3:]
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = all_launches()["encode_map"]
+
+    timed("image_demo", image_demo, ["ade20k_swin_t", png, "--out",
+                                     os.path.join(TOOLS_DIR, "pred.png")])
+    state = dist_state(cfg)
+    step, batch = make_train_step(), train_batch(cfg, 2)
+    run = os.path.join(TOOLS_DIR, "run")
+    ckpt, published = CheckpointManager(run), []
+    for s in (1, 2):
+        step(state, batch)
+        state.step = s
+        ckpt.save(s, state)
+        line = run_tool(publish_model, [run, os.path.join(TOOLS_DIR, "ade"), "--step", str(s)])
+        published.append(line.split(" -> ")[1].split(" (")[0])
+    del state, step
+    torch.cuda.empty_cache()
+    ade = ["--set", f"data.data_root={ADE_FIXTURE}"]
+    timed("image_demo_ckpt", image_demo, ["ade20k_swin_t", png, "--ckpt", published[0],
+                                          "--out", os.path.join(TOOLS_DIR, "pred_ckpt.png")])
+    timed("model_ensemble", model_ensemble, ["ade20k_swin_t"] + published + ade)
+    timed("confusion_matrix", confusion_matrix, ["ade20k_swin_t", "--ckpt", published[0],
+                                                 "--out", os.path.join(TOOLS_DIR, "cm.npy")]
+          + ade)
+    timed("get_flops", get_flops, ["ade20k_swin_t", "--size", "512"])
+    want = {"image_demo": 3, "image_demo_ckpt": 3, "model_ensemble": 2 * 2 * 3,
+            "confusion_matrix": 2 * 3}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"tools: encode_map launches {launches}, want {want}")
+    cm = np.load(os.path.join(TOOLS_DIR, "cm.npy"))
+    if cm.shape != (150, 150) or cm.sum() <= 0:
+        raise AssertionError(f"tools: confusion matrix {cm.shape}, {cm.sum()} pixels")
+
+    model = segmentor(cfg, published[0], torch.device("cuda"))
+    img = torch.from_numpy(normalize_image(
+        rng.uniform(0, 255, (1, 512, 512, 3)).astype(np.float32))).cuda()
+    tta = {}
+    for name, fn, n_calls in (("flip_tta", flip_tta, 2),
+                              ("multi_scale_flip_tta", multi_scale_flip_tta, 12)):
+        def call():
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            return fn(lambda x: model.sample(x, generator=gen), img)
+
+        reset_all_launches()
+        t0 = time.perf_counter()
+        probs = call()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n_encode = all_launches()["encode_map"]
+        with plain_kernels():
+            plain = call()
+        diff, agree = compare_probs(probs, plain)
+        check_probs(probs, (1, 512, 512, cfg.model.num_classes))
+        tta[name] = {"encode_map_launches": n_encode, "sample_calls": n_calls, "s": sec,
+                     "max_abs_prob_diff_vs_plain": diff, "argmax_agreement_vs_plain": agree}
+        if n_encode != 3 * n_calls or not (diff <= 1e-4 and agree >= 0.999):
+            raise AssertionError(f"tools {name}: {tta[name]}")
+        del probs, plain
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "tools", "preset": cfg.name, "image": [512, 512],
+          "eval_data": ADE_FIXTURE + " (2 val images of 64 x 48)", "outputs": out,
+          "seconds": secs, "encode_map_launches": launches, "tta": tta,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
+    return {"image_demo": launches["image_demo"],
+            "flip_tta": tta["flip_tta"]["encode_map_launches"],
+            "multi_scale_flip_tta": tta["multi_scale_flip_tta"]["encode_map_launches"]}
+
+
+def dist_two_steps(state, batch, deterministic: bool = True, cudnn: bool = True):
+    """The first step's gradients (the generator put back after), then two
+    eager steps, deterministic algorithms on (or off), cuDNN on (or off:
+    PyTorch's own convolutions, another summation order): (gradients by
+    name, logs)."""
+    from ddp_tpu_torch.train.step import make_train_step
+
+    step = make_train_step()
+    # only cuDNN's switch: torch.backends.cudnn.flags() would also set TF32 on
+    prev, torch.backends.cudnn.enabled = torch.backends.cudnn.enabled, cudnn
+    try:
+        with deterministic_algorithms(deterministic):
+            gen = state.generator.get_state()
+            grads, _ = step.grads(state, batch)
+            state.generator.set_state(gen)
+            names = [k for k, _ in state.model.named_parameters()]
+            grads = {k: g.detach().clone() for k, g in zip(names, grads)}
+            reset_all_launches()
+            logs = [{k: v.item() for k, v in step(state, batch).items()} for _ in range(2)]
+    finally:
+        torch.backends.cudnn.enabled = prev
+    if all_launches() != {k: 2 * v for k, v in PER_STEP.items()}:
+        raise AssertionError(f"dist_two: 2 steps launched {all_launches()}")
+    return grads, logs
+
+
+def dist_two_rank(rank: int, port: str, out: str) -> int:
+    """One of dist_two's two processes: a gloo group of 2 on CUDA tensors
+    (both on cuda:0), ade20k_swin_t on its image of the global batch of 2
+    (``dist_two_steps``); the logs, the first step's averaged gradients
+    (rank 0), the parameters after and the wall ms of a gloo all-reduce of
+    the gradients' size to ``out``."""
+    import torch.distributed as dist
+
+    from ddp_tpu_torch.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    cfg = get_config("ade20k_swin_t")
+    state = dist_state(cfg)
+    batch = {k: v[rank:rank + 1] for k, v in train_batch(cfg, 2).items()}
+    grads, logs = dist_two_steps(state, batch)
+    n = sum(p.numel() for p in state.model.parameters())
+    g = torch.ones(n, device="cuda")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(g)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save({"logs": logs, "grads": {k: v.cpu() for k, v in grads.items()} if rank == 0
+                else None, "params": {k: p.detach().cpu() for k, p in
+                                      state.model.named_parameters()},
+                "all_reduce_ms": ms, "numel": n}, out)
+    dist.destroy_process_group()
+    return 0
+
+
+# dist_two's limits. Two ranks sum in another order than one process: the
+# first step's gradient tensor within TOL_GRAD_TWO_RANKS of its L2 + 1e-6 of
+# all the gradients' L2 (a gradient that is 0 in exact arithmetic is all
+# rounding) + 3 x the L2 between two 1-process runs that sum in two orders
+# (deterministic algorithms on and off); a parameter tensor after 2 steps within
+# TOL_UPDATE_TWO_RANKS of its update's L2, as AdamW divides each gradient
+# element by its own magnitude, so a near-zero element's rounding moves its
+# update by up to +-lr (1.1e-3 of the update of aux_head.conv0.norm.bias on
+# an H100). A per-rank BatchNorm, per-rank draws or unaveraged gradients
+# each fail both limits by more than 50x on an H100
+TOL_GRAD_TWO_RANKS = 1e-3
+TOL_UPDATE_TWO_RANKS = 1e-2
+
+
+def phase_dist_two(smi: str):
+    """Two processes of one gloo group on cuda:0 (NCCL refuses two ranks on
+    one GPU) train ade20k_swin_t eagerly for 2 steps on a global batch of 2
+    (one image each, f32, deterministic algorithms on), held to two runs of
+    the 1-process eager steps on the whole batch: both ranks' logs equal,
+    each step's loss within 1e-5 relative (+ 3 x the two 1-process runs'
+    spread), the first step's averaged gradients and each parameter tensor
+    after 2 steps within TOL_GRAD_TWO_RANKS's and TOL_UPDATE_TWO_RANKS's
+    limits. Reported beside them, not held: a 1-process run without cuDNN
+    (another summation order) against the reference, by the same limits."""
+    t_phase = time.perf_counter()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    port = free_port()
+    outs = [os.path.join(DIST_DIR, f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-two-rank",
+                               str(r), "--port", port, "--out", outs[r]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        from ddp_tpu_torch.config import get_config
+
+        cfg = get_config("ade20k_swin_t")
+        batch = train_batch(cfg, 2)
+        runs = []
+        for deterministic, cudnn in ((True, True), (True, True), (False, True), (True, False)):
+            state = dist_state(cfg)
+            before = params_of(state)
+            grads, logs = dist_two_steps(state, batch, deterministic, cudnn)
+            runs.append((grads, logs, params_of(state)))
+            del state
+            torch.cuda.empty_cache()
+        logs_out = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs_out):
+        if p.returncode != 0:
+            raise AssertionError(f"dist_two: a rank failed:\n{log[-3000:]}")
+    ranks = [torch.load(o, weights_only=True) for o in outs]
+    (grads_a, logs_a, params_a), (_, logs_b, _), (grads_c, _, _), (grads_d, _, params_d) = runs
+    ranks_agree = ranks[0]["logs"] == ranks[1]["logs"]
+    loss = [r["loss"] for r in ranks[0]["logs"]]
+    ref = [r["loss"] for r in logs_a]
+    spread = [abs(x["loss"] - y["loss"]) for x, y in zip(logs_a, logs_b)]
+    loss_ok = all(abs(g - e) <= 1e-5 * abs(e) + 3.0 * s for g, e, s in zip(loss, ref, spread))
+    got_g = {k: v.cuda() for k, v in ranks[0]["grads"].items()}
+    dg, order = l2_by_tensor(got_g, grads_a), l2_by_tensor(grads_c, grads_a)
+    norm_g = {k: g.double().norm().item() for k, g in grads_a.items()}
+    floor = 1e-6 * sum(v * v for v in norm_g.values()) ** 0.5
+    grad_ratio = {k: dg[k] / (TOL_GRAD_TWO_RANKS * norm_g[k] + floor + 3.0 * order[k])
+                  for k in dg}
+    worst_grad = max(grad_ratio, key=grad_ratio.get)
+    max_share = {k: (got_g[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for k, g in grads_a.items()}
+    # reported, not held: the 1-process run without cuDNN (its convolutions'
+    # sums in PyTorch's own order) against the reference, beside the 2 ranks'
+    # distance: the size of a change of summation order where the ranks' split
+    # of the batch changes one
+    no_cudnn = l2_by_tensor(grads_d, grads_a)
+    all_l2 = lambda d: sum(v * v for v in d.values()) ** 0.5  # noqa: E731
+    upd_a = l2_by_tensor(params_a, before)
+    off_params = l2_by_tensor(params_d, params_a)
+    cudnn_off = {"grads_worst_over_limit": max(
+                     no_cudnn[k] / (TOL_GRAD_TWO_RANKS * norm_g[k] + floor + 3.0 * order[k])
+                     for k in no_cudnn),
+                 "params_worst_over_limit": max(
+                     off_params[k] / (TOL_UPDATE_TWO_RANKS * upd_a[k]) if upd_a[k] else
+                     (0.0 if off_params[k] == 0 else float("inf")) for k in off_params),
+                 "worst_tensor_l2": no_cudnn[worst_grad], "all_l2": all_l2(no_cudnn),
+                 "two_ranks_all_l2": all_l2(dg), "all_grads_l2": all_l2(norm_g),
+                 "params_l2_over_update": all_l2(off_params) / all_l2(upd_a)}
+    got = {k: v.cuda() for k, v in ranks[0]["params"].items()}
+    dist_l2, upd = l2_by_tensor(got, params_a), l2_by_tensor(params_a, before)
+    param_ratio = {k: dist_l2[k] / (TOL_UPDATE_TWO_RANKS * upd[k]) if upd[k] else
+                   (0.0 if dist_l2[k] == 0 else float("inf")) for k in dist_l2}
+    worst_param = max(param_ratio, key=param_ratio.get)
+    out = {"phase": "dist_two", "preset": cfg.name, "group": "gloo, 2 processes on cuda:0",
+           "global_batch": [2, 512, 512, 3], "dtype": "float32, tf32 off",
+           "ranks_logged_alike": ranks_agree, "loss_two_ranks": loss, "loss_one_process": ref, "loss_one_process_again":
+               [r["loss"] for r in logs_b], "grad_norm_two_ranks":
+               [r["grad_norm"] for r in ranks[0]["logs"]],
+           "grad_norm_one_process": [r["grad_norm"] for r in logs_a], "losses_ok": loss_ok,
+           "first_step_grads": {
+               "worst_tensor": worst_grad, "worst_over_limit": grad_ratio[worst_grad],
+               "worst_l2": dg[worst_grad], "its_l2": norm_g[worst_grad],
+               "its_two_orders_l2": order[worst_grad],
+               "largest_max_abs_diff_share": max(max_share.values()),
+               "its_tensor": max(max_share, key=max_share.get),
+               "one_process_without_cudnn": cudnn_off,
+               "limit": f"per tensor: L2 <= {TOL_GRAD_TWO_RANKS} x L2 of the gradient + 1e-6 "
+                        "x L2 of all the gradients + 3 x L2 between 1-process runs with "
+                        "deterministic algorithms on and off"},
+           "params_after_2_steps": {
+               "worst_tensor": worst_param, "worst_over_limit": param_ratio[worst_param],
+               "tensors_over_1e-3_of_update": sum(r > 0.1 for r in param_ratio.values()),
+               "l2_over_update": (sum(v * v for v in dist_l2.values())
+                                  / sum(v * v for v in upd.values())) ** 0.5,
+               "limit": f"per tensor: L2 <= {TOL_UPDATE_TWO_RANKS} x L2 of the update"},
+           "all_reduce_wall_ms": ranks[0]["all_reduce_ms"],
+           "all_reduce_numel": ranks[0]["numel"], "wall_s": time.perf_counter() - t_phase,
+           "card": smi}
+    emit(out)
+    if not (ranks_agree and loss_ok and grad_ratio[worst_grad] <= 1.0
+            and param_ratio[worst_param] <= 1.0):
+        raise AssertionError(f"dist_two: {out}, rank 1 logged {ranks[1]['logs']}")
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
-          "table_grad", "graph", "loop", "msda_main", "msda_train", "city_main", "city_train",
+          "table_grad", "graph", "loop", "dist", "tools", "dist_two", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
           "fusion_train", "fusion_host", "cn_reference", "cn_main", "cn_train",
@@ -5013,7 +5446,8 @@ PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "
           "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
           "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
-ON_REQUEST = ("fusion_host", "host_data", "converge", "graph_grads", "replay_records",
+ON_REQUEST = ("dist_two", "fusion_host", "host_data", "converge", "graph_grads",
+              "replay_records",
               "converge_msda",
               "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
               "converge_controlnet")
@@ -5025,11 +5459,17 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
-                         "but fusion_host, host_data, converge, graph_grads, replay_records, "
+                         "but dist_two, fusion_host, host_data, converge, graph_grads, replay_records, "
                          "converge_msda, "
                          "converge_depth, converge_bev, converge_bev_fusion, "
                          "converge_seg_quarter and converge_controlnet; serve needs main)")
+    # one of dist_two's processes (chip_smoke.py starts them itself)
+    ap.add_argument("--dist-two-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_two_rank is not None:
+        return dist_two_rank(args.dist_two_rank, args.port, args.out)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
         ap.error(f"--phases takes a subset of {','.join(PHASES)}; serve needs main")
@@ -5056,6 +5496,17 @@ def main(argv=None) -> int:
         launches["graph"] = phase_graph(smi, args.profile)
     if "loop" in phases:
         launches["loop_wrappers"], launches["loop"] = phase_loop(smi)
+    if "dist" in phases:
+        launches["dist"] = phase_dist(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "tools" in phases:
+        for key, n in phase_tools(smi).items():
+            launches[f"tools_{key}"] = dict(NO_KERNELS, encode_map=n)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dist_two" in phases:
+        phase_dist_two(smi)
     if "msda_main" in phases:
         launches["msda_serve"] = phase_msda_main(smi)
     if "msda_train" in phases:
@@ -5143,6 +5594,12 @@ def main(argv=None) -> int:
                 ("loop", "train() on converge_seg_window, steps 31-50 (2 replays), profiled"),
                 ("loop_wrappers", "train() on converge_seg_window, 100 steps: wrapper counts "
                                   "(the eager first chunk and the capture)"),
+                ("dist", "eager train step of ade20k_swin_t under an NCCL group of 1, with "
+                         "the gradient all-reduce"),
+                ("tools_image_demo", "tools/image_demo.py on one 512^2 PNG, ade20k_swin_t"),
+                ("tools_flip_tta", "flip_tta of sample() on one 512^2 image (2 calls)"),
+                ("tools_multi_scale_flip_tta", "multi_scale_flip_tta of sample() on one 512^2 "
+                                               "image (6 scales x 2 flips)"),
                 ("msda_serve", "sample() call of ade20k_swin_t_msda"),
                 ("msda_train", "eager train step of ade20k_swin_t_msda"),
                 ("msda_graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t_msda), "

@@ -19,7 +19,7 @@ segmentors (``nuscenes_camera``, ``nuscenes_fusion``), the end checks
 ``smoke``, ``smoke_bev`` and ``smoke_fusion``, and ``build_model``. The
 defaults are the JAX package's (``decoder_attn="msda"`` among them). The JAX
 package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
-queue 1).
+queue 3).
 """
 from __future__ import annotations
 
@@ -43,29 +43,29 @@ class ModelConfig:
     aux_weight: float = 0.4
     drop_path_rate: float = 0.3
     self_aligned: bool = False
-    loss_at: str = "full"  # 'full' (reference parity) | 'quarter'
     # decoder: 'msda' = the reference's deformable attention (8 heads, 1
     # level, 4 points: the shape of every released checkpoint; the JAX
     # package's default); 'window' = the JAX package's dense shifted-window
     # attention (16x16 windows, 4 heads in its seg presets)
     decoder_attn: str = "msda"
     decoder_window: int = 8
+    # recompute each decoder layer in the backward pass (the JAX package's
+    # jax.checkpoint): kept for the presets' parity; build_model refuses it
+    # (not ported: ROADMAP.md queue 3)
+    decoder_remat: bool = False
+    loss_at: str = "full"  # 'full' (reference parity) | 'quarter'
     decoder_film: str = "v1"  # 'v1' | 'v2' | 'v3'
     # 'sine' | 'learned' (tables of 50 rows and columns, mmseg's default and
     # the JAX package's max(50, h) for grids up to 50)
     decoder_pos: str = "sine"
-    decoder_layers: int = 6
-    decoder_heads: int = 8
-    decoder_ffn_dim: int = 1024
-    # recompute each decoder layer in the backward pass (the JAX package's
-    # jax.checkpoint): kept for the presets' parity; build_model refuses it
-    # (not ported: ROADMAP.md queue 1)
-    decoder_remat: bool = False
     # depth: the head variant ('deform' | 'upconv' | 'spade'), its output
     # activation ('relu', the reference's | 'softplus', which never stops
     # learning) and the metric range the latent is normalised over
     depth_head_variant: str = "deform"
     depth_act: str = "relu"
+    decoder_layers: int = 6
+    decoder_heads: int = 8
+    decoder_ffn_dim: int = 1024
     max_depth: float = 10.0
     min_depth: float = 1e-3
     # ControlNet (task='controlnet'; SD 1.5 defaults, 'tiny' and 'small' scales
@@ -115,6 +115,7 @@ class DataConfig:
     data_root: str = "data/ade/ADEChallengeData2016"
     crop_size: Tuple[int, int] = (512, 512)
     batch_size: int = 16  # global training batch
+    num_workers: int = 2  # read by no loader, as in the JAX package (ROADMAP.md queue 2)
     # train-pipeline knobs (mmseg transforms.py semantics)
     ratio_range: Tuple[float, float] = (0.5, 2.0)
     cat_max_ratio: float = 0.75

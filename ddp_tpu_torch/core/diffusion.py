@@ -14,6 +14,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.global_batch import global_draw
 from .schedules import (
     get_log_snr_fn,
     log_snr_to_alpha_sigma,
@@ -50,7 +51,8 @@ def sample_times(batch: int, sample_range: Tuple[float, float],
                  device=None) -> torch.Tensor:
     """t ~ U(sample_range) per sample, float32 [batch] (reference ddp.py:156-158)."""
     lo, hi = sample_range
-    u = torch.rand(batch, generator=generator, dtype=torch.float32, device=device)
+    u = global_draw(lambda s: torch.rand(s, generator=generator, dtype=torch.float32,
+                                         device=device), (batch,))
     return lo + (hi - lo) * u
 
 

@@ -7,7 +7,7 @@
 from __future__ import annotations
 
 
-def make_train_iter(cfg):
+def make_train_iter(cfg, rank=None, world=None):
     """The infinite train batch iterator for a Config. Segmentation: the
     procedural ``SyntheticSegDataset`` (``data.dataset="synthetic"``) or an
     ADE20K or Cityscapes tree under ``data.data_root`` (``SegDataset``),
@@ -24,11 +24,16 @@ def make_train_iter(cfg):
     or a fill50k tree (``Fill50kDataset``) at ``model.cn_image_size``, through
     ``controlnet_batch_iterator``. A tree whose train split holds nothing raises
     FileNotFoundError. Under ``torch.distributed`` each process gets its
-    rank's slice of every global batch."""
-    import torch.distributed as dist
+    rank's slice of every global batch (a given ``world`` overrides the
+    process group's, rank 0 by default: ``world=1`` gives whole global
+    batches)."""
+    from ..parallel.mesh import world as group_world
 
-    rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
-                   else (0, 1))
+    if world is None:
+        g_rank, world = group_world()
+        rank = g_rank if rank is None else rank
+    elif rank is None:
+        rank = 0
     d = cfg.data
     m = cfg.model
     if m.task == "controlnet":

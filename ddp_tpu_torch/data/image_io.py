@@ -13,6 +13,9 @@ and gives what Pillow gives: ``np.asarray(Image.open(path))``, or with
 2, 4 or 8 bits) and 16-bit grayscale, not interlaced; other files raise,
 naming what they hold. Cityscapes is PNG only.
 
+``write_png`` writes an 8-bit grayscale or RGB PNG (every row filtered
+None), as the tools write their maps.
+
 PNG rows are filtered against the row above and the pixel to the left (five
 filter types, one per row). The Average and Paeth predictors take the
 already decoded left neighbour, so a row cannot be decoded in one vector
@@ -162,3 +165,20 @@ def read_image(path: str, rgb: bool = False) -> np.ndarray:
     raise ImportError(
         f"{path}: no JPEG decoder: the port reads JPEG through Pillow, which is not "
         "installed here (a decoder of its own is queued in ROADMAP.md queue 1)")
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """A PNG of ``img``: [H, W] uint8 grayscale or [H, W, 3] uint8 RGB."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    rgb = img.ndim == 3
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if rgb else 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))

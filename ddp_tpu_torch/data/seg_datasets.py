@@ -4,7 +4,11 @@
     rest shift by -1) and Cityscapes (labelIds -> the 19 trainIds) file lists
     (mmseg's ``ADE20KDataset`` and ``CityscapesDataset``);
   - ``SyntheticSegDataset``, the procedural dataset;
-  - ``seg_batch_iterator``, the train batch iterator.
+  - ``seg_batch_iterator``, the train batch iterator;
+  - the metadata the tools render with (``PALETTES``, ``NUM_CLASSES``),
+    ``normalize_image``, the generic folder dataset ``CustomSegDataset``,
+    the ``RepeatDataset`` and ``ConcatDataset`` wrappers, and
+    ``build_eval_dataset`` (``ddp_tpu/data/seg_datasets.py:186-330``).
 
 Files are read by ``data/image_io.py: read_image`` (Pillow where it is
 installed; without it a PNG by the port's own decoder and no JPEG), which
@@ -20,7 +24,7 @@ from __future__ import annotations
 import os
 import queue as queue_mod
 import threading
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -180,3 +184,137 @@ def prefetched(make_batch: Callable[[int, int], Dict[str, np.ndarray]], length: 
             yield q.get()
     finally:
         stop.set()
+
+
+# ---------------------------------------------------------------------------
+# metadata, the generic folder dataset and the wrappers (mmseg custom.py and
+# dataset_wrappers.py)
+# ---------------------------------------------------------------------------
+
+CITYSCAPES_CLASSES = (
+    "road", "sidewalk", "building", "wall", "fence", "pole", "traffic light",
+    "traffic sign", "vegetation", "terrain", "sky", "person", "rider", "car",
+    "truck", "bus", "train", "motorcycle", "bicycle")
+
+CITYSCAPES_PALETTE = [
+    [128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156],
+    [190, 153, 153], [153, 153, 153], [250, 170, 30], [220, 220, 0],
+    [107, 142, 35], [152, 251, 152], [70, 130, 180], [220, 20, 60],
+    [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100], [0, 80, 100],
+    [0, 0, 230], [119, 11, 32]]
+
+
+def voc_palette(n: int = 21) -> List[List[int]]:
+    """The PASCAL-VOC palette (its bit-interleave formula)."""
+    pal = np.zeros((n, 3), np.uint8)
+    for i in range(n):
+        c, j = i, 0
+        while c:
+            for ch in range(3):
+                pal[i, ch] |= ((c >> ch) & 1) << (7 - j)
+            c >>= 3
+            j += 1
+    return pal.tolist()
+
+
+def _procedural_palette(n: int) -> List[List[int]]:
+    return np.random.default_rng(42).integers(0, 255, (n, 3)).tolist()
+
+
+PALETTES = {
+    "cityscapes": CITYSCAPES_PALETTE,
+    "voc": voc_palette(21),
+    "ade20k": _procedural_palette(150),
+    "coco_stuff": _procedural_palette(171),
+    "loveda": _procedural_palette(7),
+    "potsdam": _procedural_palette(6),
+    "vaihingen": _procedural_palette(6),
+    "isaid": _procedural_palette(16),
+}
+
+NUM_CLASSES = {
+    "ade20k": 150, "cityscapes": 19, "voc": 21, "coco_stuff": 171,
+    "loveda": 7, "potsdam": 6, "vaihingen": 6, "isaid": 16,
+}
+
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+def normalize_image(img: np.ndarray, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> np.ndarray:
+    return ((img - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+            ).astype(np.float32)
+
+
+class CustomSegDataset:
+    """A generic (img_dir, ann_dir, suffixes) folder dataset, mmseg's
+    ``CustomDataset`` pattern (VOC, COCO-Stuff, LoveDA, Potsdam, iSAID
+    layouts through the arguments), read by ``read_image``."""
+
+    def __init__(self, img_dir: str, ann_dir: str, img_suffix: str = ".jpg",
+                 seg_map_suffix: str = ".png", reduce_zero_label: bool = False,
+                 label_map: Optional[np.ndarray] = None):
+        self.img_dir, self.ann_dir = img_dir, ann_dir
+        self.reduce_zero_label = reduce_zero_label
+        self.label_map = label_map
+        self.items = []
+        if os.path.isdir(img_dir):
+            for f in sorted(os.listdir(img_dir)):
+                if f.endswith(img_suffix):
+                    self.items.append((os.path.join(img_dir, f), os.path.join(
+                        ann_dir, f[:-len(img_suffix)] + seg_map_suffix)))
+
+    def __len__(self):
+        return len(self.items)
+
+    def load(self, idx: int) -> Dict[str, np.ndarray]:
+        img_path, ann_path = self.items[idx]
+        img = read_image(img_path, rgb=True).astype(np.float32)
+        label = read_image(ann_path).astype(np.int32)
+        if self.reduce_zero_label:
+            label = np.where(label == 0, 255, label - 1).astype(np.int32)
+        if self.label_map is not None:
+            label = self.label_map[np.clip(label, 0, 255)]
+        return {"image": img, "label": label}
+
+
+class RepeatDataset:
+    """A dataset repeated ``times`` per epoch."""
+
+    def __init__(self, ds, times: int):
+        self.ds, self.times = ds, times
+
+    def __len__(self):
+        return len(self.ds) * self.times
+
+    def load(self, idx: int):
+        return self.ds.load(idx % len(self.ds))
+
+
+class ConcatDataset:
+    """Datasets one after another."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._cum = np.cumsum([len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._cum[-1])
+
+    def load(self, idx: int):
+        di = int(np.searchsorted(self._cum, idx, side="right"))
+        prev = 0 if di == 0 else int(self._cum[di - 1])
+        return self.datasets[di].load(idx - prev)
+
+
+def build_eval_dataset(data_cfg) -> Iterator[Dict[str, np.ndarray]]:
+    """The val samples of a DataConfig, each image ``normalize_image``d
+    (ImageNet statistics): 64 synthetic ones, or the ``val`` split of an
+    ADE20K or Cityscapes tree."""
+    if data_cfg.dataset == "synthetic":
+        ds = SyntheticSegDataset(length=64)
+    else:
+        ds = SegDataset(data_cfg.data_root, split="val", dataset=data_cfg.dataset)
+    for i in range(len(ds)):
+        s = ds.load(i)
+        yield {"image": normalize_image(s["image"]), "label": s["label"]}

@@ -54,6 +54,7 @@ from ..nn.losses import sigmoid_focal_loss
 from ..nn.swin import SwinTransformer, swin_variant
 from ..nn.time_embed import TimeMLP
 from ..ops.resize import resize
+from ..parallel.global_batch import global_draw
 
 MAP_CLASSES = ("drivable_area", "ped_crossing", "walkway", "stop_line", "carpark_area",
                "divider")
@@ -166,8 +167,9 @@ class DDPBEVCamera(nn.Module):
             t = diff.sample_times(b, self.diffusion.sample_range, generator, x.device)
         log_snr = self.diffusion.log_snr_fn(t.float())
         if noise is None:
-            noise = torch.randn(latent.shape, generator=generator, dtype=latent.dtype,
-                                device=x.device)
+            noise = global_draw(lambda s: torch.randn(s, generator=generator,
+                                                      dtype=latent.dtype, device=x.device),
+                                latent.shape)
         noised = diff.q_sample(latent, log_snr, noise.reshape(latent.shape).to(latent.dtype))
         logits = self.denoise_logits(x, noised, log_snr)
         losses: Dict[str, torch.Tensor] = {}

@@ -52,6 +52,7 @@ from ..nn.losses import sig_loss
 from ..nn.swin import SwinTransformer, swin_variant
 from ..nn.time_embed import TimeMLP
 from ..ops.resize import resize
+from ..parallel.global_batch import global_draw
 
 
 class DDPDepther(nn.Module):
@@ -130,8 +131,9 @@ class DDPDepther(nn.Module):
             t = diff.sample_times(b, self.diffusion.sample_range, generator, x.device)
         gamma = right_pad_dims_to(latent.ndim, cosine_gamma(t))
         if noise is None:
-            noise = torch.randn(latent.shape, generator=generator, dtype=latent.dtype,
-                                device=x.device)
+            noise = global_draw(lambda s: torch.randn(s, generator=generator,
+                                                      dtype=latent.dtype, device=x.device),
+                                latent.shape)
         noise = noise.reshape(latent.shape).to(latent.dtype)
         corrupted = torch.sqrt(gamma) * latent + torch.sqrt(1.0 - gamma) * noise
         pred = self.denoise_depth(x, corrupted, t)

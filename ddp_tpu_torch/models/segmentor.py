@@ -44,6 +44,7 @@ from ..nn.time_embed import TimeMLP
 from ..ops import q_sample
 from ..ops.resize import resize, resize_nearest
 from ..ops.upsample_ce import upsample_ce
+from ..parallel.global_batch import global_draw
 
 
 def latent_grid(backbone_type: str, input_size: Tuple[int, int]) -> Tuple[int, int]:
@@ -135,8 +136,9 @@ class DDPSegmentor(nn.Module):
         log_snr = self.diffusion.log_snr_fn(t.float())
         alpha, sigma = log_snr_to_alpha_sigma(log_snr)
         if noise is None:
-            noise = torch.randn((b * h * w, table.shape[-1]), generator=generator,
-                                dtype=table.dtype, device=labels.device)
+            noise = global_draw(lambda s: torch.randn(s, generator=generator, dtype=table.dtype,
+                                                      device=labels.device),
+                                (b * h * w, table.shape[-1]))
         rows = q_sample.q_sample(labels.reshape(-1), table, self.bit_scale,
                                  alpha.repeat_interleave(h * w),
                                  sigma.repeat_interleave(h * w),
@@ -168,8 +170,8 @@ class DDPSegmentor(nn.Module):
             # noise at t = 1 and re-embeds the model's own prediction; stage 2
             # corrupts that with the same noise (self_aligned_ddp.py:149-173)
             if noise is None:
-                noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                    device=x.device)
+                noise = global_draw(lambda s: torch.randn(s, generator=generator, dtype=x.dtype,
+                                                          device=x.device), x.shape)
             noise = noise.reshape(x.shape).to(x.dtype)
             with torch.no_grad():
                 log_snr1 = cfg.log_snr_fn(torch.ones(b, dtype=x.dtype, device=x.device))

@@ -7,7 +7,10 @@ Randomness: ``drop_path`` and ``dropout`` draw their masks from the
 ``torch.Generator`` the caller passes (``F.dropout`` takes none), with flax's
 semantics: keep with probability 1 − rate and scale the kept values by
 1 / (1 − rate); drop path draws one mask entry per sample. Both are the
-identity outside training or at rate 0.
+identity outside training or at rate 0. In a data-parallel step a mask is
+this rank's rows of the global batch's (``parallel/global_batch.py``), and
+BatchNorm's statistics are over the global batch, as flax's are over a
+mesh-sharded batch.
 
 BatchNorm parity trap: flax normalises with, and updates its running
 variance by, the biased batch variance E[x²] − E[x]² (and momentum 0.9 on
@@ -28,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel.global_batch import active_world, all_reduce_sum, global_draw
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax ``nn.gelu`` (tanh approximation)."""
@@ -39,7 +44,8 @@ _ACTS = {"relu": F.relu, "gelu": gelu, "silu": F.silu, None: None}
 
 def _keep_mask(shape, rate: float, generator: Optional[torch.Generator],
                device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    draw = global_draw(lambda s: torch.rand(s, generator=generator, device=device), shape)
+    return draw < 1.0 - rate
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -89,8 +95,16 @@ def _flax_batch_stats(bn: nn.modules.batchnorm._BatchNorm, xf: torch.Tensor, dim
     """The batch mean and biased variance of ``xf`` over ``dims``, and flax's
     update of ``bn``'s running statistics:
     ``running = 0.9 · running + 0.1 · batch``."""
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    if active_world()[1] > 1:
+        # over the global batch: one all-reduce of (Σx, Σx², n)
+        c = bn.num_features
+        n = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), n]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    else:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1.0 - FLAX_MOMENTUM) * mean)
         bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1.0 - FLAX_MOMENTUM) * var)

@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.upsample_ce import upsample_ce_fwd_plain
+from ..ops.upsample_ce import global_accuracy, upsample_ce_fwd_plain
+from ..parallel.global_batch import active_world, all_reduce_sum, sum_over_ranks
 
 
 def cross_entropy_seg(logits: torch.Tensor, labels: torch.Tensor,
@@ -41,9 +42,12 @@ def cross_entropy_seg(logits: torch.Tensor, labels: torch.Tensor,
 
 def seg_accuracy(logits: torch.Tensor, labels: torch.Tensor,
                  ignore_index: int = 255) -> torch.Tensor:
+    """Correct over valid pixels; in a data-parallel step, of the global
+    batch."""
     valid = labels != ignore_index
     correct = valid & (torch.argmax(logits, dim=-1) == labels)
-    return correct.sum() / torch.clamp(valid.sum(), min=1)
+    counts = sum_over_ranks(torch.stack([correct.sum(), valid.sum()]))
+    return counts[0] / torch.clamp(counts[1], min=1)
 
 
 def cross_entropy_seg_upsampled(logits: torch.Tensor, labels: torch.Tensor, scale: int,
@@ -57,7 +61,7 @@ def cross_entropy_seg_upsampled(logits: torch.Tensor, labels: torch.Tensor, scal
     sums, _ = upsample_ce_fwd_plain(logits, labels, scale, ignore_index)
     loss = sums[0] / labels.numel()
     if with_acc:
-        return loss, sums[2] / torch.clamp(sums[1], min=1.0)
+        return loss, global_accuracy(sums[2], sums[1])
     return loss
 
 
@@ -70,10 +74,18 @@ def sig_loss(pred: torch.Tensor, gt: torch.Tensor, valid: Optional[torch.Tensor]
     valid pixel it is sqrt(1e-12)."""
     if valid is None:
         valid = gt > 0
-    n = torch.clamp(valid.sum(), min=1)
     g = torch.log(pred + eps) - torch.log(torch.where(valid, gt, 1.0) + eps)
     g = torch.where(valid, g, 0.0)
-    dg = (g * g).sum() / n - lam * (g.sum() / n) ** 2
+    if active_world()[1] > 1:
+        # over the global batch (as JAX's over a mesh-sharded one): one
+        # all-reduce of (Σg², Σg, n)
+        sums = all_reduce_sum(torch.stack([(g * g).sum(), g.sum(),
+                                           valid.sum().to(g.dtype)]))
+        n = torch.clamp(sums[2], min=1)
+        dg = sums[0] / n - lam * (sums[1] / n) ** 2
+    else:
+        n = torch.clamp(valid.sum(), min=1)
+        dg = (g * g).sum() / n - lam * (g.sum() / n) ** 2
     return torch.sqrt(torch.clamp(dg, min=1e-12))
 
 

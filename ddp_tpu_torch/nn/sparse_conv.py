@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.global_batch import all_reduce_sum
+
 
 def _gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """x [V, C] and a rulebook [K, V'] (-1 = none) -> [V', K·C]: row o holds
@@ -107,8 +109,9 @@ class MaskedBatchNorm(nn.Module):
     the reference's spconv tensors hold only active voxels. flax's names and
     update: parameters ``scale`` and ``bias``, buffers ``mean`` and ``var``;
     in training the statistics are the float32 mean and the biased variance
-    over the rows where ``mask`` is set, and the running update is ``0.99 ·
-    old + 0.01 · new`` (biased variance too); eps 1e-3. ``(x − mean) ·
+    over the rows where ``mask`` is set (in a data-parallel step, of every
+    rank), and the running update is ``0.99 · old + 0.01 · new`` (biased
+    variance too); eps 1e-3. ``(x − mean) ·
     rsqrt(var + eps)`` is computed in x's type (bf16 under the mixed-precision
     policy), after float32 statistics."""
 
@@ -124,11 +127,14 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
+            # in a data-parallel step over every rank's active rows: the
+            # sums go through all_reduce_sum (the identity at world 1)
             w = mask.float()[:, None]
-            n = torch.clamp(w.sum(), min=1.0)
             xf = x.float()
-            mean = (xf * w).sum(dim=0) / n
-            var = ((xf - mean) ** 2 * w).sum(dim=0) / n
+            sums = all_reduce_sum(torch.cat([(xf * w).sum(dim=0), w.sum().reshape(1)]))
+            n = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / n
+            var = all_reduce_sum(((xf - mean) ** 2 * w).sum(dim=0)) / n
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

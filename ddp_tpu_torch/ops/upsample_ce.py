@@ -33,6 +33,7 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
+from ..parallel.global_batch import sum_over_ranks
 from .q_sample import _acc
 
 # launches of each CUDA kernel since the last reset (chip_smoke.py reads them)
@@ -334,5 +335,12 @@ def upsample_ce(logits: torch.Tensor, labels: torch.Tensor, scale: int,
                              scale, ignore_index)
     loss = sums[0] / labels.numel()
     if with_acc:
-        return loss, (sums[2] / torch.clamp(sums[1], min=1.0)).detach()
+        return loss, global_accuracy(sums[2].detach(), sums[1].detach())
     return loss
+
+
+def global_accuracy(correct: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """correct / max(count, 1); in a data-parallel step, of the global batch
+    (the sums of every rank, as JAX's over the mesh-sharded batch)."""
+    sums = sum_over_ranks(torch.stack([correct, count]))
+    return sums[0] / torch.clamp(sums[1], min=1.0)

@@ -1,7 +1,8 @@
 """Training CLI (port of ``tools/train.py``).
 
     python -m ddp_tpu_torch.tools.train PRESET [--workdir DIR] [--resume]
-        [--set model.bit_scale=0.1 optim.lr=1e-4 ...] [--device cpu]
+        [--set model.bit_scale=0.1 optim.lr=1e-4 ...] [--device cpu] [--distributed]
+    torchrun --nproc_per_node=N -m ddp_tpu_torch.tools.train PRESET --distributed
 
 Builds the preset's config with the overrides, its train batch iterator
 (``data/__init__.py: make_train_iter``: synthetic data, an ADE20K or
@@ -9,8 +10,12 @@ Cityscapes tree for a segmentor, a nyu, kitti, sunrgbd or cityscapes depth
 split for a depther such as ``nyu_swin_t``, under ``data.data_root``; the
 synthetic camera rig for a BEV preset such as ``smoke_bev``) and runs
 ``train/loop.py: train``
-on the card (``--device cpu`` for the CPU). The JAX tool's ``--yaml`` overlay
-and ``--distributed`` multi-device run are not ported (ROADMAP.md queue 1).
+on the card (``--device cpu`` for the CPU). ``--distributed`` joins the
+process group torchrun's environment describes (``parallel/mesh.py:
+init_distributed``: ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo`` with
+``--device cpu``), and the run is data-parallel: each process trains on its
+rank's rows of every global batch of ``data.batch_size``. The JAX tool's
+``--yaml`` overlay is not ported (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--set", nargs="*", default=[], metavar="K=V")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--distributed", action="store_true",
+                   help="join torchrun's process group (nccl; gloo with --device cpu)")
     return p.parse_args(argv)
 
 
@@ -33,14 +40,23 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from ..config import get_config
     from ..data import make_train_iter
+    from ..parallel.mesh import init_distributed
     from ..train.loop import train
+
+    device = init_distributed(args.device) if args.distributed else args.device
 
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if args.workdir:
         overrides["runtime.workdir"] = args.workdir
     cfg = get_config(args.preset, overrides)
     os.makedirs(cfg.runtime.workdir, exist_ok=True)
-    train(cfg, make_train_iter(cfg), resume=args.resume, device=args.device)
+    try:
+        train(cfg, make_train_iter(cfg), resume=args.resume, device=device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return 0
 
 

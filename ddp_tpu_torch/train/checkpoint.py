@@ -7,11 +7,14 @@ A checkpoint holds the model's state_dict (parameters and BN statistics),
 the optimizer's moments and count, the step, the generator's state and a
 JSON-able meta dict. Files are ``<workdir>/ckpts/step_<n>.pt`` and
 ``<workdir>/ckpts_best/step_<n>.pt``; a save writes a temporary file and
-renames it, so a reader never sees half a checkpoint.
+renames it, so a reader never sees half a checkpoint. ``publish`` strips a
+checkpoint to the model state for the tools (``read_published``).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import io
 import json
 import os
 import re
@@ -77,6 +80,28 @@ def read_model(workdir: str, step: Optional[int] = None
     payload = torch.load(os.path.join(d, f"step_{step}.pt"), map_location="cpu",
                          weights_only=True)
     return step, payload["model"]
+
+
+def publish(workdir: str, out_prefix: str, step: Optional[int] = None
+            ) -> Tuple[int, str, int]:
+    """The model state (parameters and BN statistics) of the checkpoint of
+    ``step`` (the latest when None) under ``<workdir>/ckpts``, without the
+    optimizer, generator and meta, ``torch.save``d to
+    ``<out_prefix>-<the first 8 hex digits of its sha256>.pt``, as the
+    reference names a published file: (step, path, bytes)."""
+    step, sd = read_model(workdir, step)
+    buf = io.BytesIO()
+    torch.save(sd, buf)
+    blob = buf.getvalue()
+    path = f"{out_prefix}-{hashlib.sha256(blob).hexdigest()[:8]}.pt"
+    with open(path, "wb") as f:
+        f.write(blob)
+    return step, path, len(blob)
+
+
+def read_published(path: str) -> Dict[str, torch.Tensor]:
+    """A published model state (``publish``) on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class CheckpointManager:

@@ -12,7 +12,15 @@ random draw of the run comes from one ``torch.Generator`` on the device,
 seeded from ``runtime.seed`` and saved in each checkpoint, so a resumed run
 continues the uninterrupted one.
 
-Not in this slice: multi-device training.
+Data-parallel (``torchrun``, ``parallel/mesh.py: init_distributed``): each
+process runs this loop on ``cuda:LOCAL_RANK`` with its rank's rows of every
+global batch (the iterators of ``data/__init__.py: make_train_iter`` slice
+by rank), the train step averages the gradients over the ranks
+(``train/step.py``), and every rank seeds the one generator alike and draws
+its rows of the global batch's draws, so that a run of n processes computes
+what one process computes on the global batch. A checksum of the parameters
+is checked against rank 0's at the start; only rank 0 writes checkpoints,
+``train_log.jsonl`` and events, and every rank restores on ``resume``.
 """
 from __future__ import annotations
 
@@ -23,9 +31,12 @@ from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, build_model
 from ..device import resolve_device
+from ..evaluation.dist import broadcast_from_host0
+from ..parallel.mesh import shard_batch_chunk, world
 from .checkpoint import CheckpointManager
 from .optim import make_optimizer
 from .step import TrainState, make_chunked_train_step
@@ -88,6 +99,31 @@ class MetricLogger:
                                        if isinstance(v, (int, float))})
 
 
+# the tasks whose data-parallel step the 2-process test holds to one process
+DISTRIBUTED_TASKS = ("seg", "depth", "bev", "bev_fusion")
+
+
+def params_checksum(model: torch.nn.Module) -> torch.Tensor:
+    """[Σ p, Σ p²] over the parameters and buffers, in float64."""
+    sd = [v.detach().double() for v in model.state_dict().values() if v.is_floating_point()]
+    return torch.stack([sum(v.sum() for v in sd), sum((v * v).sum() for v in sd)])
+
+
+def check_distributed(cfg: Config) -> None:
+    """Raise where a data-parallel run would not compute the 1-process run
+    on the global batch: a task the 2-process test does not cover, or a
+    global batch that does not divide over the ranks."""
+    n = world()[1]
+    if n == 1:
+        return
+    if cfg.model.task not in DISTRIBUTED_TASKS:
+        raise NotImplementedError(f"task {cfg.model.task!r} under {n} processes: its "
+                                  "data-parallel step is not held to one process by a test "
+                                  "(ROADMAP.md queue 3)")
+    if cfg.data.batch_size % n:
+        raise ValueError(f"global batch {cfg.data.batch_size} must divide over {n} processes")
+
+
 def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
           eval_fn: Optional[Callable[[TrainState, int], Dict[str, float]]] = None,
           resume: bool = False, device=None,
@@ -103,9 +139,16 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     ``resume`` it must yield the batches from the restored step on.
     ``init_params``: a state_dict (parameters and BN statistics) loaded
     strictly into the fresh model before the optimizer is built, as the JAX
-    loop's ``init_params`` replaces its init."""
+    loop's ``init_params`` replaces its init. Under a process group each
+    rank's ``data_iter`` yields its rows of the global batches and the run
+    is data-parallel (module docstring)."""
     rt = cfg.runtime
+    check_distributed(cfg)
+    rank = world()[0]
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                      torch.cuda.current_device())))
     model = build_model(cfg.model, device=dev, seed=rt.seed, input_size=cfg.data.crop_size)
     if init_params is not None:
         model.load_state_dict(init_params)
@@ -121,17 +164,25 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
         state = ckpt.restore(state)
         start_step = state.step
         print(f"resumed from step {start_step}", flush=True)
+    if dist.is_initialized():
+        mine = params_checksum(model)
+        if not torch.equal(broadcast_from_host0(mine), mine):
+            raise RuntimeError(f"rank {rank}: parameters differ from rank 0's at the start "
+                               f"(checksum {mine.tolist()})")
 
-    logger = MetricLogger(rt.workdir, rt.log_interval, tensorboard=rt.tensorboard)
+    logger = (MetricLogger(rt.workdir, rt.log_interval, tensorboard=rt.tensorboard)
+              if rank == 0 else None)
 
     def crossed(prev: int, now: int, interval: int) -> bool:
         return now // interval > prev // interval or now == rt.total_iters
 
     def eval_ckpt_hooks(prev: int, now: int) -> None:
-        if crossed(prev, now, rt.ckpt_interval):
+        if rank == 0 and crossed(prev, now, rt.ckpt_interval):
             ckpt.save(now, state, meta=ckpt_meta)
         if eval_fn is not None and crossed(prev, now, rt.eval_interval):
             metrics = eval_fn(state, now)
+            if rank:
+                return
             logger.log_eval(now, metrics)
             if ckpt.save_best_if(now, state, metrics, meta=ckpt_meta):
                 print(f"[best @ {now}] {rt.save_best}={metrics.get(rt.save_best)}", flush=True)
@@ -152,12 +203,14 @@ def train(cfg: Config, data_iter: Iterator[Dict[str, np.ndarray]],
     while step < rt.total_iters:
         n = min(spd, rt.total_iters - step)
         chunk = [next(data_iter) for _ in range(n)]
-        logs = chunk_fn(state, {k: stack_batches([c[k] for c in chunk]) for k in keys})
+        batches = shard_batch_chunk({k: stack_batches([c[k] for c in chunk]) for k in keys},
+                                    cfg.data.batch_size)
+        logs = chunk_fn(state, batches)
         prev, step = step, step + n
         crossings = [s for s in range(prev + 1, step + 1) if s % rt.log_interval == 0]
         if prev == start_step and prev + 1 not in crossings:
             crossings.insert(0, prev + 1)
-        if crossings:
+        if crossings and logger is not None:
             logs_host = {k: v.cpu().numpy() for k, v in logs.items()}
             for at in crossings:
                 logger.log(at, {k: float(v[at - prev - 1]) for k, v in logs_host.items()},

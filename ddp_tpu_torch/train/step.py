@@ -36,6 +36,14 @@ from ``state.generator``; a batch may carry ``t`` [B] and ``noise``
 
 ``make_chunked_train_step`` (``ddp_tpu/train/state.py:177-205``) runs n such
 steps per call; on CUDA they are one CUDA-graph replay.
+
+Under a ``torch.distributed`` process group (``parallel/mesh.py``) the batch
+is this rank's rows of the global batch, as the JAX step's batch is sharded
+over the mesh: the step computes BatchNorm statistics, ``sig_loss``,
+accuracies and its draws over the global batch (``parallel/global_batch.py``)
+and averages the float32 gradients over the ranks before the optimizer (so
+the clip sees the global gradient) and the logs after, each in one bucketed
+all-reduce. A graphed chunk captures the all-reduce.
 """
 from __future__ import annotations
 
@@ -44,9 +52,12 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel.global_batch import global_batch, mean_over_ranks
+from ..parallel.mesh import world
 from .optim import AdamW
 
 
@@ -129,25 +140,42 @@ class TrainStep:
 
     def grads(self, state: TrainState, batch: Dict[str, torch.Tensor]
               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
-        model = state.model
-        model.train()
+        """The gradients and logs of one step. Under a process group the
+        batch is this rank's rows of the global batch: the forward and
+        backward run inside ``global_batch()`` (BatchNorm statistics,
+        ``sig_loss`` and accuracies over the global batch, draws of its
+        rows), the gradients are averaged over the ranks, and so are the
+        logs."""
         b = batch[self.batch_keys[0]].shape[0]
         if b % self.microbatch:
             raise ValueError(f"batch {b} does not split into {self.microbatch} chunks")
+        n_ranks = world()[1]
+        if n_ranks > 1 and self.microbatch > 1:
+            raise NotImplementedError(
+                "microbatch > 1 under a process group of more than one rank: the JAX step "
+                "chunks the global batch, so each chunk would take rows of every rank "
+                "(ROADMAP.md queue 3)")
+        model = state.model
+        model.train()
         params = dict(model.named_parameters())
         leaves = list(params.values())
         total: Optional[List[torch.Tensor]] = None
         chunk_logs = []
-        for i in range(self.microbatch):
-            loss, logs = self._loss(model, params,
-                                    _chunk(batch, i, self.microbatch, self.batch_keys[0]),
-                                    state.generator)
-            g = [x.float() for x in param_grads(loss.float(), leaves)]
-            total = g if total is None else torch._foreach_add(total, g)
-            chunk_logs.append({k: v.detach().float() for k, v in logs.items()})
+        with global_batch():
+            for i in range(self.microbatch):
+                loss, logs = self._loss(model, params,
+                                        _chunk(batch, i, self.microbatch, self.batch_keys[0]),
+                                        state.generator)
+                g = [x.float() for x in param_grads(loss.float(), leaves)]
+                total = g if total is None else torch._foreach_add(total, g)
+                chunk_logs.append({k: v.detach().float() for k, v in logs.items()})
         if self.microbatch > 1:
             torch._foreach_div_(total, float(self.microbatch))
         logs = {k: torch.stack([c[k] for c in chunk_logs]).mean() for k in chunk_logs[0]}
+        if dist.is_initialized():
+            total = mean_over_ranks(total)
+            if n_ranks > 1:
+                logs = dict(zip(logs, mean_over_ranks([torch.stack(list(logs.values()))])[0]))
         return total, logs
 
     def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -265,7 +293,11 @@ class ChunkedTrainStep:
         graph.register_generator_state(state.generator)
         step = state.step
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self._stream):
+        # under a process group the gradient all-reduce is captured too; the
+        # NCCL watchdog thread queries events meanwhile, which a global-mode
+        # capture would count as an error of the capture
+        mode = "thread_local" if dist.is_initialized() else "global"
+        with torch.cuda.graph(graph, stream=self._stream, capture_error_mode=mode):
             logs = self._steps(state, inputs, rows)
         torch.cuda.synchronize(device)
         self.capture_s[rows.shape[0]] = time.perf_counter() - t0
