@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases build,host_data         # the host's decode and batch times
     python3 chip_smoke.py --phases build,compat_reference,compat_main   # the compat zoo
     python3 chip_smoke.py --phases build,dist,tools,dist_two   # data-parallel and the tools
+    python3 chip_smoke.py --phases build,lidar_zoo         # the lidar pieces, decoder_remat
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
 A CLI named below runs as its main(argv) in this process (what
@@ -91,7 +92,12 @@ ms_deform_attn range and by the backward nodes made there.
                image_demo --ckpt, model_ensemble and confusion_matrix on
                tests/data/ade, get_flops at 512^2, and flip_tta and
                multi_scale_flip_tta of sample() at 512^2 against the plain
-               path (the main phase's limits), with encode_map launches.
+               path (the main phase's limits), with encode_map launches; the
+               data tools: prepare_nuscenes on tests/data/nuscenes_raw,
+               convert_datasets cityscapes on a copy of tests/data/cityscapes,
+               browse_dataset smoke, and tools.train smoke --yaml on the card
+               and the CPU, each exit 0 with outputs held to the CPU's
+               (data_tools_check).
  10c. dist_two - (only when named) two processes of one gloo group on
                cuda:0 train ade20k_swin_t eagerly for 2 steps on a global
                batch of 2, held to two 1-process runs on the whole batch:
@@ -248,6 +254,24 @@ ms_deform_attn range and by the backward nodes made there.
                train steps at batch 2 with the port's AdamW (step ms, peak
                memory, a finite loss that moves, EncNet's SE loss, EMANet's
                bases moved); 0 launches of the five kernels.
+ 30b. lidar_zoo - the lidar pieces and decoder_remat: (a) tiny SECOND,
+               SECONDFPN, PillarFeatureNet, DLA, VoVNet, DepthLSSTransform and
+               SparseEncoder on the card and on the CPU from the same weights
+               (eval outputs 1e-4 x max|y| + 1e-6 in float32, each gradient
+               1e-4 of its max + 1e-9 of the largest in float64),
+               point_pillars_scatter and densify bitwise; (b) at published
+               widths (random weights, f32): SparseEncoder -> SECOND ->
+               SECONDFPN on the rig's dense sweep at nuscenes_fusion's grid
+               and capacities, DepthLSSTransform on 6 cameras with the depth
+               canvas of 10 sweeps, PointPillars SECFPN (30,000 pillars of <=
+               64 points, a 400^2 canvas), DLA-34 and VoVNet-V2-19-slim on 6 x
+               256 x 704: forward and forward + backward ms (median of 3),
+               peak GB, 0 launches of the five kernels; (c) decoder_remat on
+               ade20k_swin_t_msda at 2 x 512^2, f32: the remat step held to
+               the step without as graph is held to eager, the same kernel
+               launches (wrappers and a profile), a graphed remat chunk of 2
+               held to its eager steps, eager and graphed ms and peak GB with
+               and without remat.
  31. fusion_host - (only when named) the host's fusion_batch_iterator
                batch of 8 nuscenes_fusion scenes: the rig's sweeps and dense
                clouds filling every capacity.
@@ -5245,13 +5269,102 @@ def phase_tools(smi: str):
         del probs, plain
     del model
     torch.cuda.empty_cache()
+    data_tools = data_tools_check()
     emit({"phase": "tools", "preset": cfg.name, "image": [512, 512],
           "eval_data": ADE_FIXTURE + " (2 val images of 64 x 48)", "outputs": out,
           "seconds": secs, "encode_map_launches": launches, "tta": tta,
-          "wall_s": time.perf_counter() - t_phase, "card": smi})
+          "data_tools": data_tools, "wall_s": time.perf_counter() - t_phase, "card": smi})
     return {"image_demo": launches["image_demo"],
             "flip_tta": tta["flip_tta"]["encode_map_launches"],
             "multi_scale_flip_tta": tta["multi_scale_flip_tta"]["encode_map_launches"]}
+
+
+YAML_OVERLAY = """# tools.train smoke --yaml: 4 float32 steps, logged at steps 1, 2 and 4
+runtime:
+  total_iters: 4
+  log_interval: 2
+  ckpt_interval: 4
+  mixed_precision: false
+data.batch_size: 2
+"""
+
+
+def data_tools_check() -> dict:
+    """The data tools and --yaml through run_cli, each exit 0, outputs held
+    to the CPU's: prepare_nuscenes on a copy of tests/data/nuscenes_raw (its
+    infos read back by NuScenesFusionDataset, every map mask set),
+    convert_datasets cityscapes on a copy of tests/data/cityscapes (each
+    trainId PNG equal to the labelId -> trainId table applied to its
+    labelIds PNG), browse_dataset smoke (its six PNGs written at the crop's
+    size; the CPU tests hold them bitwise to JAX's) and tools.train smoke
+    --yaml on the card and with --device cpu (the overlay's steps logged by
+    both with the same lr and log keys, finite losses: the two devices'
+    generators draw different t and noise, so the losses are not compared)."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data.bev_datasets import NuScenesFusionDataset
+    from ddp_tpu_torch.data.image_io import read_image
+    from ddp_tpu_torch.data.seg_datasets import CITYSCAPES_LABEL2TRAIN
+
+    out, secs = {}, {}
+    nusc = os.path.join(TOOLS_DIR, "nuscenes_raw")
+    shutil.copytree(os.path.join("tests", "data", "nuscenes_raw"), nusc)
+    _, secs["prepare_nuscenes"] = run_cli("ddp_tpu_torch.tools.prepare_nuscenes", [
+        "--data-root", nusc, "--max-sweeps", "2", "--grid", "40", "--patch", "16.0"])
+    ds = NuScenesFusionDataset(nusc, "train", image_size=(32, 88), out_grid=40,
+                               sparse_shape=(80, 80, 41), caps=(4000, 2000, 1000, 500, 500),
+                               voxel_size=(0.2, 0.2, 0.2))
+    masks = [np.load(os.path.join(nusc, "maps_bev", f))["masks"]
+             for f in sorted(os.listdir(os.path.join(nusc, "maps_bev")))]
+    out["prepare_nuscenes"] = {"samples": len(ds), "masks": len(masks),
+                               "voxel_feats_nonzero": bool(ds.load(0)["voxel_feats"].any())}
+    if not (len(ds) == len(masks) == 2 and all(m.any() for m in masks)
+            and out["prepare_nuscenes"]["voxel_feats_nonzero"]):
+        raise AssertionError(f"tools prepare_nuscenes: {out['prepare_nuscenes']}")
+    city = os.path.join(TOOLS_DIR, "cityscapes")
+    shutil.copytree(os.path.join("tests", "data", "cityscapes"), city)
+    _, secs["convert_datasets"] = run_cli("ddp_tpu_torch.tools.convert_datasets",
+                                          ["cityscapes", city])
+    pngs = 0
+    for dirpath, _, files in os.walk(os.path.join(city, "gtFine")):
+        for f in files:
+            if f.endswith("_labelTrainIds.png"):
+                src = read_image(os.path.join(dirpath, f.replace("_labelTrainIds", "_labelIds")))
+                want = CITYSCAPES_LABEL2TRAIN[np.clip(src.astype(np.int32), 0, 255)]
+                if not np.array_equal(read_image(os.path.join(dirpath, f)), want):
+                    raise AssertionError(f"tools convert_datasets: {f} differs")
+                pngs += 1
+    out["convert_datasets"] = {"train_id_pngs": pngs}
+    browse = os.path.join(TOOLS_DIR, "browse")
+    _, secs["browse_dataset"] = run_cli("ddp_tpu_torch.tools.browse_dataset", [
+        "--preset", "smoke", "--num", "3", "--out", browse])
+    crop = tuple(get_config("smoke").data.crop_size)
+    shapes = {f: read_image(os.path.join(browse, f)).shape for f in sorted(os.listdir(browse))}
+    out["browse_dataset"] = {"pngs": len(shapes)}
+    if sorted(shapes) != [f"sample_{i}_{k}.png" for i in range(3) for k in ("ann", "img")] or any(
+            sh[:2] != crop for sh in shapes.values()):
+        raise AssertionError(f"tools browse_dataset: {shapes}")
+    overlay = os.path.join(TOOLS_DIR, "overlay.yaml")
+    with open(overlay, "w") as f:
+        f.write(YAML_OVERLAY)
+    logs = {}
+    for dev in ("cuda", "cpu"):
+        wd = os.path.join(TOOLS_DIR, f"yaml_{dev}")
+        argv = ["smoke", "--workdir", wd, "--yaml", overlay]
+        _, secs[f"train_yaml_{dev}"] = run_cli("ddp_tpu_torch.tools.train",
+                                               argv + (["--device", "cpu"] if dev == "cpu"
+                                                       else []))
+        logs[dev] = [r for r in _log_steps(wd) if "loss" in r]
+    steps = {dev: [r["step"] for r in rows] for dev, rows in logs.items()}
+    lrs = {dev: [r["lr"] for r in rows] for dev, rows in logs.items()}
+    keys = {dev: sorted(rows[0]) for dev, rows in logs.items()}
+    finite = all(np.isfinite(r["loss"]) for rows in logs.values() for r in rows)
+    out["train_yaml"] = {"steps": steps, "lr": lrs, "keys_equal": keys["cuda"] == keys["cpu"],
+                         "finite": finite,
+                         "losses": {dev: [r["loss"] for r in rows] for dev, rows in logs.items()}}
+    if not (steps["cuda"] == steps["cpu"] == [1, 2, 4] and lrs["cuda"] == lrs["cpu"]
+            and keys["cuda"] == keys["cpu"] and finite):
+        raise AssertionError(f"tools train --yaml: {out['train_yaml']}")
+    return {"outputs": out, "seconds": secs}
 
 
 def dist_two_steps(state, batch, deterministic: bool = True, cudnn: bool = True):
@@ -5437,12 +5550,395 @@ def phase_dist_two(smi: str):
         raise AssertionError(f"dist_two: {out}, rank 1 logged {ranks[1]['logs']}")
 
 
+# --- the lidar pieces and decoder_remat ------------------------------------------
+
+NO_LAUNCHES = dict.fromkeys(PER_STEP, 0)
+# the card vs CPU limits of lidar_zoo's tiny modules (compat_reference's)
+ZOO_OUT_REL, ZOO_GRAD_REL = 1e-4, 1e-4
+
+
+def _dla_unreached(model) -> tuple:
+    """DLA's projections in a tree of more than one level: JAX computes and
+    drops them, so the loss reaches none of their parameters."""
+    from ddp_tpu_torch.nn.dla_vovnet import _Tree
+
+    return tuple(f"{name}.{leaf}" for name, m in model.named_modules()
+                 if isinstance(m, _Tree) and m.levels > 1 and hasattr(m, "project")
+                 for leaf in ("project.weight", "project_bn.weight", "project_bn.bias"))
+
+
+class SparseSECOND(torch.nn.Module):
+    """BEVFusion's lidar path as one module: SparseEncoder of one sweep ->
+    its dense BEV -> SECOND -> SECONDFPN (NHWC)."""
+
+    def __init__(self, encoder, second, fpn):
+        super().__init__()
+        self.encoder, self.second, self.fpn = encoder, second, fpn
+
+    def forward(self, voxel_feats, rulebooks):
+        return self.fpn(self.second(self.encoder(voxel_feats, rulebooks)[None]))
+
+
+class PointPillars(torch.nn.Module):
+    """PillarFeatureNet -> point_pillars_scatter onto an nx x ny canvas ->
+    SECOND -> SECONDFPN (NHWC)."""
+
+    def __init__(self, pfn, second, fpn, nx: int, ny: int):
+        super().__init__()
+        self.pfn, self.second, self.fpn, self.nx, self.ny = pfn, second, fpn, nx, ny
+
+    def forward(self, feats, counts, coords, valid):
+        from ddp_tpu_torch.nn.second import point_pillars_scatter
+
+        canvas = point_pillars_scatter(self.pfn(feats, counts, coords), coords, valid,
+                                       self.nx, self.ny)
+        return self.fpn(self.second(canvas))
+
+
+def _pillars(pts, pc_range, voxel_size, max_points: int, max_pillars: int):
+    """Hard-voxelized pillars of ``pts`` [P, 4] as PillarFeatureNet's inputs
+    [1, P', N, 4], counts, (ix, iy) coords and the valid mask."""
+    from ddp_tpu_torch import native
+
+    vox, coords, counts, n = native.hard_voxelize(pts, pc_range, voxel_size, max_points,
+                                                  max_pillars)
+    valid = np.arange(max_pillars) < n
+    return [torch.from_numpy(a)[None] for a in (vox, counts, coords[:, :2].copy(), valid)]
+
+
+def _sweeps(mc, n: int = 10, points: int = 40_000):
+    """n past sweeps of the rig's dense cloud (seeded), each turned and moved
+    a little and 0.05 s older than the one after it."""
+    out = []
+    for i in range(n):
+        pts, _ = dense_cloud(mc, points, seed=100 + i)
+        a = 0.002 * (i + 1)
+        rot = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+        out.append({"points": pts, "sensor2lidar_rotation": rot,
+                    "sensor2lidar_translation": np.array([0.5 * (i + 1), 0.0, 0.0]),
+                    "timestamp": -0.05 * (i + 1)})
+    return out
+
+
+def lidar_tiny_cases(g):
+    """The tiny lidar modules with their inputs (CPU tensors), forward and
+    loss (compat_reference's form: one float input, the rest captured and
+    moved to its device), and the parameters the loss cannot reach."""
+    from ddp_tpu_torch import native
+    from ddp_tpu_torch.data.bev_datasets import SyntheticBEVDataset, rasterize_lidar_depth
+    from ddp_tpu_torch.nn.bev import DepthLSSTransform
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.dla_vovnet import DLA, VoVNet
+    from ddp_tpu_torch.nn.second import SECOND, SECONDFPN, PillarFeatureNet
+    from ddp_tpu_torch.nn.sparse_conv import (SparseEncoder, build_sparse_encoder_rulebooks,
+                                              mean_voxel_features)
+
+    def seeded(m, seed):
+        init_params_(m, seed)
+        return m
+
+    def mapped(m, *args):  # move the captured inputs to x's device (floats in its type)
+        def cast(a, x):
+            if isinstance(a, dict):
+                return {k: cast(v, x) for k, v in a.items()}
+            return a.to(x.device, x.dtype) if a.is_floating_point() else a.to(x.device)
+
+        fwd = lambda mod, x: mod(x, *(cast(a, x) for a in args))  # noqa: E731
+        return fwd, (lambda mod, x: _sq_loss(_tuple(fwd(mod, x))))
+
+    cases = {}
+    second = seeded(SECOND(8, (8, 16), (1, 2), (1, 2)), 1)
+    cases["second"] = (second, torch.randn(2, 16, 16, 8, generator=g), *mapped(second), ())
+    fpn = seeded(SECONDFPN((8, 8), (8, 8), (0.5, 2)), 2)
+    xs = torch.randn(2, 16 * 16 * 8 + 4 * 4 * 8, generator=g)
+    split = (lambda x: [x[:, :2048].reshape(2, 16, 16, 8), x[:, 2048:].reshape(2, 4, 4, 8)])
+    cases["second_fpn"] = (fpn, xs, lambda m, x: m(split(x)),
+                           lambda m, x: _sq_loss(_tuple(m(split(x)))), ())
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-4, 4, (3000, 4)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-1, 1, 3000)
+    feats, counts, coords, valid = _pillars(pts, (-4.0, -4.0, -2.0, 4.0, 4.0, 2.0),
+                                            (0.5, 0.5, 4.0), 6, 80)
+    pfn = seeded(PillarFeatureNet(4, (8, 16), (0.5, 0.5), (-4.0, -4.0), with_distance=True), 3)
+    cases["pillar_feature_net"] = (pfn, feats, *mapped(pfn, counts, coords), ())
+    dla = seeded(DLA(3, levels=(1, 1, 1, 1, 2, 1), channels=(4, 8, 8, 16, 24, 32)), 4)
+    cases["dla"] = (dla, torch.randn(2, 32, 32, 3, generator=g), *mapped(dla),
+                    _dla_unreached(dla))
+    vov = seeded(VoVNet(3, (4, 8), (8, 16), (1, 2), 2), 5)
+    cases["vovnet"] = (vov, torch.randn(2, 16, 16, 3, generator=g), *mapped(vov), ())
+    lss_kw = dict(image_size=(32, 64), feature_size=(4, 8), xbound=(-8.0, 8.0, 1.0),
+                  ybound=(-8.0, 8.0, 1.0), dbound=(1.0, 9.0, 1.0))
+    lss = seeded(DepthLSSTransform(8, 8, **lss_kw), 6)
+    rig = [torch.from_numpy(a)[None] for a in SyntheticBEVDataset(2, (32, 64), scope=8.0).rig()]
+    cloud = rng.uniform(-8, 8, (3000, 5)).astype(np.float32)
+    canvas = torch.from_numpy(rasterize_lidar_depth(cloud, *(r[0].numpy() for r in rig),
+                                                    (32, 64)))[None]
+    cases["depth_lss"] = (lss, torch.randn(1, 2, 4, 8, 8, generator=g),
+                          *mapped(lss, canvas, *rig), ())
+    cloud[:, 2] = rng.uniform(-4.8, 3.0, 3000)
+    vox, vcoords, vcounts, nv = native.hard_voxelize(cloud, (-8.0, -8.0, -5.0, 8.0, 8.0, 3.2),
+                                                     (0.25, 0.25, 0.2), 4, 400)
+    rb = {k: torch.from_numpy(v) for k, v in build_sparse_encoder_rulebooks(
+        vcoords, nv, (64, 64, 41), (400, 160, 80, 40, 40)).items()}
+    enc = seeded(SparseEncoder(5, 4, 8, ((4,), (8, 8), (8, 8), (8, 8)), 8, 2), 7)
+    cases["sparse_encoder"] = (enc, torch.from_numpy(mean_voxel_features(vox, vcounts)),
+                               *mapped(enc, rb), ())
+    return cases
+
+
+def lidar_reference(smi: str) -> dict:
+    """lidar_zoo (a): each tiny lidar module on the card and on the CPU from
+    the same weights and inputs: eval outputs in float32 within 1e-4 ·
+    max|y| + 1e-6; train-mode gradients of the mean-square loss in float64,
+    each within 1e-4 of its max + 1e-9 of the module's largest;
+    point_pillars_scatter and densify bitwise."""
+    from ddp_tpu_torch.nn.second import point_pillars_scatter
+    from ddp_tpu_torch.nn.sparse_conv import densify
+
+    g = _gen(81)
+    rows, worst = {}, {"out_rel": 0.0, "grad_rel_f64": 0.0}
+    for name, (model, x, fwd, loss_fn, unreached) in lidar_tiny_cases(g).items():
+        res = {dev: {dt: _compat_run(model, x.to(dev), None, dt, fwd, loss_fn, unreached)
+                     for dt in (torch.float32, torch.float64)} for dev in ("cpu", "cuda")}
+        c32, g32 = res["cpu"][torch.float32], res["cuda"][torch.float32]
+        c64, g64 = res["cpu"][torch.float64], res["cuda"][torch.float64]
+        out_rel = max(((a - b).abs().max() / (1e-6 + a.abs().max() * 1.0)).item()
+                      for a, b in zip(c32[0], g32[0]))
+        out_ok = all((a - b).abs().max().item() <= ZOO_OUT_REL * a.abs().max().item() + 1e-6
+                     for a, b in zip(c32[0], g32[0]))
+        top = max(v.abs().max().item() for v in c64[3].values())
+        grad_rel = max(((c64[3][n] - g64[3][n]).abs().max()
+                        / (c64[3][n].abs().max() + 1e-9 * top).clamp_min(1e-300)).item()
+                       for n in c64[3])
+        rows[name] = {"outputs": [list(t.shape) for t in c32[0]], "out_rel_diff": out_rel,
+                      "outputs_within_limit": out_ok, "grad_rel_diff_f64": grad_rel,
+                      "tensors": len(c64[3]), "unreached": len(unreached)}
+        worst["out_rel"] = max(worst["out_rel"], out_rel if out_ok else float("inf"))
+        worst["grad_rel_f64"] = max(worst["grad_rel_f64"], grad_rel)
+    feats = torch.randn(2, 50, 16, generator=g)
+    cells = torch.stack([torch.randperm(400, generator=g)[:50] for _ in range(2)])
+    coords = torch.stack([cells % 20, cells // 20], -1).int()
+    valid = torch.rand(2, 50, generator=g) < 0.9
+    scatter = torch.equal(point_pillars_scatter(feats, coords, valid, 20, 20),
+                          point_pillars_scatter(feats.cuda(), coords.cuda(), valid.cuda(), 20,
+                                                20).cpu())
+    rows_d = torch.randn(2 * 60, 8, generator=g)
+    flat = torch.stack([torch.randperm(8 * 8 * 2, generator=g)[:60] for _ in range(2)]).reshape(-1)
+    dc = torch.stack([flat // 16, (flat // 2) % 8, flat % 2], -1).int()
+    dvalid = torch.rand(120, generator=g) < 0.8
+    dense = torch.equal(densify(rows_d, dc, dvalid, 2, 8, 2),
+                        densify(rows_d.cuda(), dc.cuda(), dvalid.cuda(), 2, 8, 2).cpu())
+    out = {"models": rows, "worst": worst, "scatter_bitwise": scatter,
+           "densify_bitwise": dense,
+           "limits": "outputs 1e-4 x max|y| + 1e-6 (float32); each gradient 1e-4 of its max "
+                     "+ 1e-9 of the module's largest (float64); scatters bitwise"}
+    if not (worst["out_rel"] <= ZOO_OUT_REL and worst["grad_rel_f64"] <= ZOO_GRAD_REL
+            and scatter and dense):
+        emit({"phase": "lidar_zoo", "failed_check": out, "card": smi})
+        raise AssertionError(f"lidar_zoo: card vs CPU {worst}, scatter {scatter}, "
+                             f"densify {dense}")
+    return out
+
+
+def zoo_row(model, args, reps: int = 3) -> dict:
+    """A model at published widths on the card (f32, TF32 off): eval
+    forward ms and forward + backward ms (train mode, the mean-square
+    loss), medians of ``reps`` after one warm-up, peak GB, launches of the
+    five kernels, and finite outputs."""
+    def fwd():
+        with torch.no_grad():
+            return model.eval()(*args)
+
+    def step():
+        model.train()
+        loss = sum(o.float().square().mean() for o in _tuple(model(*args)))
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        return loss
+
+    reset_all_launches()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated() / 1e9
+    out = _tuple(fwd())
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    fwd_ms = wall_s(fwd, reps=reps) * 1e3
+    step_ms = wall_s(step, reps=reps) * 1e3
+    launches = all_launches()
+    row = {"outputs": [list(o.shape) for o in out], "finite": finite,
+           "forward_ms": fwd_ms, "forward_backward_ms": step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "live_before_gb": live,
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "launches": launches}
+    if not finite or launches != NO_LAUNCHES:
+        raise AssertionError(f"lidar_zoo: {row}")
+    return row
+
+
+def lidar_published(smi: str) -> dict:
+    """lidar_zoo (b): the lidar pieces at published widths (random weights,
+    seed 0), each through zoo_row."""
+    from ddp_tpu_torch import native
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.data.bev_datasets import SyntheticBEVDataset, rasterize_lidar_depth
+    from ddp_tpu_torch.data.transforms_3d import multi_sweep_points
+    from ddp_tpu_torch.nn.bev import DepthLSSTransform
+    from ddp_tpu_torch.nn.common import init_params_
+    from ddp_tpu_torch.nn.dla_vovnet import DLA, VoVNet
+    from ddp_tpu_torch.nn.second import SECOND, SECONDFPN, PillarFeatureNet
+    from ddp_tpu_torch.nn.sparse_conv import (SparseEncoder, build_sparse_encoder_rulebooks,
+                                              mean_voxel_features)
+
+    mc = get_config("nuscenes_fusion").model
+    g = _gen(91)
+    rows, host = {}, {}
+
+    def built(m):
+        init_params_(m, 0)
+        return m.cuda()
+
+    # BEVFusion's lidar path on the rig's dense sweep at nuscenes_fusion's
+    # voxel grid and capacities
+    pts, pc_range = dense_cloud(mc)
+    t0 = time.perf_counter()
+    vox, coords, counts, nv = native.hard_voxelize(pts, pc_range, mc.bev_voxel_size, 10,
+                                                   mc.bev_voxel_caps[0])
+    rb = build_sparse_encoder_rulebooks(coords, nv, mc.bev_sparse_shape, mc.bev_voxel_caps)
+    host["sparse_s"] = time.perf_counter() - t0
+    model = built(SparseSECOND(SparseEncoder(5), SECOND(256, (128, 256), (5, 5), (1, 2)),
+                               SECONDFPN((128, 256), (256, 256), (1, 2))))
+    rows["sparse_encoder_second_secondfpn"] = dict(zoo_row(model, (
+        torch.from_numpy(mean_voxel_features(vox, counts)).cuda(),
+        {k: torch.from_numpy(v).cuda() for k, v in rb.items()})), voxels=nv,
+        sparse_shape=list(mc.bev_sparse_shape), caps=list(mc.bev_voxel_caps))
+    del model
+    # DepthLSSTransform on 6 cameras: the depth canvas of the key sweep and
+    # 10 past sweeps
+    t0 = time.perf_counter()
+    rig = SyntheticBEVDataset(6, (256, 704), scope=51.2).rig()
+    cloud = multi_sweep_points(pts, _sweeps(mc), np.random.default_rng(0), sweeps_num=10)
+    canvas = rasterize_lidar_depth(cloud, *rig, (256, 704))
+    host["depth_canvas_s"] = time.perf_counter() - t0
+    lss = built(DepthLSSTransform(256))
+    rows["depth_lss_transform"] = dict(zoo_row(lss, (
+        torch.randn(1, 6, 32, 88, 256, generator=g).cuda(), torch.from_numpy(canvas)[None].cuda(),
+        *(torch.from_numpy(a)[None].cuda() for a in rig))), points=len(cloud),
+        canvas_pixels_set=int((canvas > 0).sum()))
+    del lss
+    # PointPillars SECFPN on nuScenes: 0.25 m pillars over +-50 m (a 400^2
+    # canvas), <= 64 points in each of <= 30,000 pillars, 64 channels
+    t0 = time.perf_counter()
+    feats, counts_p, coords_p, valid = _pillars(pts[:, :4].copy(), (-50.0, -50.0, -5.0, 50.0,
+                                                                    50.0, 3.0),
+                                                (0.25, 0.25, 8.0), 64, 30_000)
+    host["pillars_s"] = time.perf_counter() - t0
+    pp = built(PointPillars(PillarFeatureNet(4, (64,), (0.25, 0.25), (-50.0, -50.0)),
+                            SECOND(64, (64, 128, 256), (3, 5, 5), (2, 2, 2)),
+                            SECONDFPN((64, 128, 256), (128, 128, 128), (1, 2, 4)), 400, 400))
+    rows["pointpillars_secfpn"] = dict(zoo_row(pp, tuple(t.cuda() for t in (
+        feats, counts_p, coords_p, valid))), pillars=int(valid.sum()))
+    del pp
+    for name, m in (("dla34", DLA()), ("vovnet_v2_19_slim", VoVNet())):
+        rows[name] = zoo_row(built(m), (torch.randn(6, 256, 704, 3, generator=g).cuda(),))
+        del m
+    return {"models": rows, "host_s": host}
+
+
+def remat_case(smi: str) -> dict:
+    """lidar_zoo (c): decoder_remat on ade20k_swin_t_msda at 2 x 512^2, f32,
+    from one state (the end of the lr warm-up) and batch: the eager step with
+    and without remat (the flag toggled on the one model) held as graph is
+    held to eager (first loss 1e-5 relative; each parameter tensor within
+    1e-3 of its update + 3 x two runs' distance without remat), the launches
+    of the five kernels in a remat step (the wrappers' counts, and a
+    profile's) equal to the step's without, a graphed remat chunk of 2 steps
+    held to its eager steps (deterministic algorithms on), and the eager
+    and graphed step ms and peak GB with and without remat."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.train.step import make_chunked_train_step, make_train_step
+
+    cfg = get_config("ade20k_swin_t_msda")
+    state = dist_state(cfg)
+    encoder = state.model.decode_head.encoder
+    batch = train_batch(cfg, 2)
+    eager = make_train_step()
+    out = {"preset": cfg.name, "img": [2, *cfg.data.crop_size, 3], "dtype": "float32, tf32 off"}
+    eager(state, batch)  # fill the device caches (masks, reference points)
+    before = snapshot(state)
+    params_0 = {k: before[0][k] for k, _ in state.model.named_parameters()}
+    runs = {}
+    for key, remat in (("plain", False), ("plain_again", False), ("remat", True)):
+        restore(state, before)
+        encoder.remat = remat
+        reset_all_launches()
+        logs = eager(state, batch)
+        runs[key] = (logs["loss"].item(), params_of(state), all_launches())
+    restore(state, before)
+    loss_rel = abs(runs["remat"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    params_ok, params = check_by_tensor(runs["plain"][1], runs["remat"][1], params_0,
+                                        l2_by_tensor(runs["plain_again"][1], runs["plain"][1]))
+    _, profiled_launches = profile_call(lambda: eager(state, batch))
+    out["remat_vs_plain"] = {"loss_plain": runs["plain"][0], "loss_remat": runs["remat"][0],
+                             "loss_rel_diff": loss_rel, "params": params,
+                             "launches_plain": runs["plain"][2],
+                             "launches_remat": runs["remat"][2],
+                             "launches_remat_profiled": profiled_launches}
+    restore(state, before)
+    for key, remat in (("plain", False), ("remat", True)):
+        encoder.remat = remat
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_s(lambda: eager(state, batch), reps=3) * 1e3
+        row = {"eager_ms": ms, "eager_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic_algorithms(True):
+            chunk = make_chunked_train_step(2)
+            chunk(state, stacked(batch, 2))  # eager on the capture stream, then capture
+            # the capture's peak: the graph's pool holds what its steps keep
+            row["graph_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if remat:
+                row["graph_vs_eager"] = graph_vs_eager(state, chunk, eager, batch, 2)
+        row["graph_ms_per_step"] = wall_s(lambda: chunk(state, stacked(batch, 2)), reps=3) * 500
+        out[key] = row
+        del chunk
+        torch.cuda.empty_cache()
+    encoder.remat = False
+    ok = (loss_rel <= 1e-5 and params_ok and runs["remat"][2] == runs["plain"][2] == PER_STEP
+          and profiled_launches == PER_STEP)
+    if not ok:
+        emit({"phase": "lidar_zoo", "failed_check": out, "card": smi})
+        raise AssertionError(f"lidar_zoo remat: loss rel {loss_rel}, {params}, launches "
+                             f"{runs['remat'][2]} / {profiled_launches}")
+    return out
+
+
+def phase_lidar_zoo(smi: str) -> dict:
+    """The lidar pieces card vs CPU and at published widths, and
+    decoder_remat (lidar_tiny_cases, lidar_published, remat_case)."""
+    t0 = time.perf_counter()
+    reference = lidar_reference(smi)
+    published = lidar_published(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_case(smi)
+    emit({"phase": "lidar_zoo", "reference": reference, "published": published,
+          "decoder_remat": remat, "wall_s": time.perf_counter() - t0, "card": smi})
+    return {"lidar_zoo": {k: sum(r["launches"][k] for r in published["models"].values())
+                          for k in PER_STEP},
+            "remat_train": remat["remat_vs_plain"]["launches_remat"]}
+
+
 PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "train",
           "table_grad", "graph", "loop", "dist", "tools", "dist_two", "msda_main", "msda_train", "city_main", "city_train",
           "city_data", "depth_reference", "depth_main", "depth_train", "depth_data",
           "bev_reference", "bev_main", "bev_train", "fusion_reference", "fusion_main",
           "fusion_train", "fusion_host", "cn_reference", "cn_main", "cn_train",
-          "compat_reference", "compat_main", "compat_depth", "host_data", "converge",
+          "compat_reference", "compat_main", "compat_depth", "lidar_zoo", "host_data",
+          "converge",
           "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
           "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
@@ -5559,6 +6055,10 @@ def main(argv=None) -> int:
         compat = phase_compat_depth(smi)
         launches["compat_depth_serve"] = compat["serve"]
         launches["compat_depth_train"] = compat["train"]
+    if "lidar_zoo" in phases:
+        launches.update(phase_lidar_zoo(smi))
+        gc.collect()
+        torch.cuda.empty_cache()
     if "host_data" in phases:
         phase_host_data(smi)
     if "converge_controlnet" in phases:
@@ -5641,7 +6141,13 @@ def main(argv=None) -> int:
                                        "(densedepth_r50, bts_r50, adabins_efnetb5, "
                                        "depthformer_swint, binsformer_swint, newcrfs_swint)"),
                 ("compat_depth_train", "3 eager train steps at 2 x 416x544, summed over the "
-                                       "six compat_depth configurations"))
+                                       "six compat_depth configurations"),
+                ("lidar_zoo", "the lidar pieces at published widths (SparseEncoder -> SECOND -> "
+                              "SECONDFPN, DepthLSSTransform, PointPillars SECFPN, DLA-34, "
+                              "VoVNet-V2-19-slim): 4 eval forwards and 4 forward + backward "
+                              "passes each, summed"),
+                ("remat_train", "eager train step of ade20k_swin_t_msda with decoder_remat, "
+                                "2 x 512^2, f32"))
             if key in launches}
     print(json.dumps(phase_seconds()), flush=True)
     print(smi, flush=True)

@@ -16,14 +16,15 @@ segmentors (``nuscenes_camera``, ``nuscenes_fusion``), the end checks
 ``converge_seg_quarter``, ``converge_seg_w16h4``, ``converge_depth``,
 ``converge_bev``, ``converge_bev_fusion`` and ``converge_controlnet``, the SD
 1.5 ControlNet fine-tune ``controlnet_sd15``, the test presets ``tiny_seg``,
-``smoke``, ``smoke_bev`` and ``smoke_fusion``, and ``build_model``. The
-defaults are the JAX package's (``decoder_attn="msda"`` among them). The JAX
-package's YAML overlay is not ported (no PyYAML on the card; ROADMAP.md
-queue 3).
+``smoke``, ``smoke_bev`` and ``smoke_fusion``, ``build_model`` and
+``load_yaml_overlay`` (through a reader of the YAML subset overlays use:
+the card has no PyYAML). The defaults are the JAX package's
+(``decoder_attn="msda"`` among them).
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -185,6 +186,190 @@ def apply_overrides(cfg: Config, overrides: Dict[str, Any]) -> Config:
     for k, v in overrides.items():
         cfg = _replace_path(cfg, k, v)
     return cfg
+
+
+# YAML 1.1 scalars that PyYAML resolves to a type this reader does not
+# take (yes/no/on/off booleans, octal, hexadecimal, sexagesimal and
+# underscored numbers, .inf, .nan): refused rather than read as strings
+_YAML_REFUSED = re.compile(
+    r"^(yes|Yes|YES|no|No|NO|on|On|ON|off|Off|OFF"
+    r"|[-+]?0[0-9_]+|[-+]?0[xob][0-9a-fA-F_]+|[-+]?[0-9][0-9_]*(:[0-5]?[0-9])+(\.[0-9_]*)?"
+    r"|[-+]?[0-9][0-9_]*_[0-9_]*(\.[0-9_]*)?([eE][-+]?[0-9]+)?"
+    r"|[-+]?\.(inf|Inf|INF)|\.(nan|NaN|NAN))$")
+_YAML_INT = re.compile(r"^[-+]?(0|[1-9][0-9]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?([0-9]+\.[0-9]*|\.[0-9]+|[0-9]+(?=[eE]))([eE][-+]?[0-9]+)?$")
+_YAML_WORDS = {"null": None, "Null": None, "NULL": None, "~": None, "true": True, "True": True,
+               "TRUE": True, "false": False, "False": False, "FALSE": False}
+
+
+def _yaml_fail(where: str, msg: str, line: str) -> ValueError:
+    return ValueError(f"{where}: {msg}: {line.strip()!r}")
+
+
+def _yaml_uncomment(line: str) -> str:
+    """``line`` without a ``#`` comment (one at the start or after a space,
+    outside quotes), right-stripped."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"" and (i == 0 or line[i - 1] in " [,:"):
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _yaml_quoted(text: str, where: str, line: str) -> Tuple[str, str]:
+    """A quoted scalar at the start of ``text`` -> (its value, the rest)."""
+    q, out, i = text[0], [], 1
+    while i < len(text):
+        ch = text[i]
+        if q == "'" and ch == "'":
+            if text[i + 1:i + 2] == "'":
+                out.append("'")
+                i += 2
+                continue
+            return "".join(out), text[i + 1:]
+        if q == '"' and ch == "\\":
+            esc = {"\\": "\\", '"': '"', "n": "\n", "t": "\t"}.get(text[i + 1:i + 2])
+            if esc is None:
+                raise _yaml_fail(where, "an escape outside \\\\ \\\" \\n \\t", line)
+            out.append(esc)
+            i += 2
+            continue
+        if q == '"' and ch == '"':
+            return "".join(out), text[i + 1:]
+        out.append(ch)
+        i += 1
+    raise _yaml_fail(where, "an unterminated quoted string", line)
+
+
+def _yaml_scalar(text: str, where: str, line: str):
+    """One scalar of the subset: quoted, null, true/false, int, float (an
+    exponent without a dot, ``1e-4``, is a float here; PyYAML reads it as a
+    string, which a float field's override turns into the same float), or a
+    plain string."""
+    text = text.strip()
+    if not text:
+        raise _yaml_fail(where, "an empty value", line)
+    if text[0] in "'\"":
+        value, rest = _yaml_quoted(text, where, line)
+        if rest.strip():
+            raise _yaml_fail(where, "text after a quoted string", line)
+        return value
+    if text in _YAML_WORDS:
+        return _YAML_WORDS[text]
+    if _YAML_REFUSED.match(text):
+        raise _yaml_fail(where, "a YAML 1.1 scalar outside the subset", line)
+    if _YAML_INT.match(text):
+        return int(text)
+    if _YAML_FLOAT.match(text):
+        return float(text)
+    if text[0] in "-?:,[]{}#&*!|>%@`" or ": " in text or text.endswith(":"):
+        raise _yaml_fail(where, "YAML outside the subset", line)
+    return text
+
+
+def _yaml_value(text: str, where: str, line: str):
+    """A scalar or a flow list of scalars."""
+    if not text.startswith("["):
+        return _yaml_scalar(text, where, line)
+    if not text.endswith("]"):
+        raise _yaml_fail(where, "a flow list that does not end the line", line)
+    inner, items = text[1:-1].strip(), []
+    while inner:
+        if inner[0] in "'\"":
+            value, inner = _yaml_quoted(inner, where, line)
+            inner = inner.strip()
+        else:
+            cut = inner.find(",")
+            cut = len(inner) if cut < 0 else cut
+            value, inner = _yaml_scalar(inner[:cut], where, line), inner[cut:]
+            if isinstance(value, str) and value[:1] in "[{":
+                raise _yaml_fail(where, "a nested flow collection", line)
+        items.append(value)
+        if inner and not inner.startswith(","):
+            raise _yaml_fail(where, "a flow list item not followed by a comma", line)
+        inner = inner[1:].strip()
+        if not inner and text[1:-1].rstrip().endswith(","):
+            raise _yaml_fail(where, "a trailing comma", line)
+    return items
+
+
+def parse_yaml_subset(text: str, name: str = "<yaml>") -> Dict[str, Any]:
+    """The YAML subset that overlays use, without PyYAML (the card has
+    none): block mappings nested by space indentation, ``#`` comments, and
+    as values plain and quoted strings, ints, floats, ``true``/``false``,
+    ``null`` and flow lists of scalars. Anything else (sequences of ``-``
+    items, flow mappings, anchors, tags, block scalars, tabs, documents)
+    raises ValueError naming the file and the line. An empty file is {}."""
+    rows = []
+    for no, raw in enumerate(text.splitlines(), 1):
+        body = _yaml_uncomment(raw)
+        if not body.strip():
+            continue
+        indent = len(body) - len(body.lstrip(" "))
+        if body[indent] == "\t":
+            raise _yaml_fail(f"{name}:{no}", "a tab in the indentation", raw)
+        rows.append((no, indent, body.strip(), raw))
+
+    def block(i: int, indent: int) -> Tuple[Dict[str, Any], int]:
+        out: Dict[str, Any] = {}
+        while i < len(rows):
+            no, ind, body, raw = rows[i]
+            where = f"{name}:{no}"
+            if ind < indent:
+                break
+            if ind > indent:
+                raise _yaml_fail(where, "an unexpected indentation", raw)
+            if body[0] in "'\"":
+                key, rest = _yaml_quoted(body, where, raw)
+            else:
+                cut = body.find(": ")
+                cut = len(body) - 1 if cut < 0 and body.endswith(":") else cut
+                if cut <= 0:
+                    raise _yaml_fail(where, "not a 'key: value' line", raw)
+                key, rest = body[:cut], body[cut:]
+                if key[0] in "-?:,[]{}#&*!|>%@`":
+                    raise _yaml_fail(where, "YAML outside the subset", raw)
+            if not rest.startswith(":"):
+                raise _yaml_fail(where, "not a 'key: value' line", raw)
+            rest = rest[1:].strip()
+            i += 1
+            if rest:
+                out[key] = _yaml_value(rest, where, raw)
+            elif i < len(rows) and rows[i][1] > indent:
+                out[key], i = block(i, rows[i][1])
+            else:
+                out[key] = None
+        return out, i
+
+    if not rows:
+        return {}
+    tree, i = block(0, rows[0][1])
+    if i < len(rows):
+        no, _, _, raw = rows[i]
+        raise _yaml_fail(f"{name}:{no}", "an indentation below the first key's", raw)
+    return tree
+
+
+def load_yaml_overlay(cfg: Config, path: str) -> Config:
+    """``cfg`` overlaid by a YAML file of dotted keys or nested mappings
+    (``parse_yaml_subset``), as the JAX package's ``load_yaml_overlay``."""
+    with open(path) as f:
+        tree = parse_yaml_subset(f.read(), path)
+    flat: Dict[str, Any] = {}
+    stack = [("", tree)]
+    while stack:
+        prefix, node = stack.pop()
+        for k, v in node.items():
+            if isinstance(v, dict):
+                stack.append((f"{prefix}{k}.", v))
+            else:
+                flat[f"{prefix}{k}"] = v
+    return apply_overrides(cfg, flat)
 
 
 _DATA_ROOTS = {
@@ -600,12 +785,11 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
     ``cfg`` on ``device`` (default "cuda"; raises without a GPU unless a
     device is named), weights drawn from ``seed``. ``input_size``: the image
     size the model is built for (the training crop), which sizes a
-    segmentor's learned position tables."""
+    segmentor's learned position tables. ``cfg.decoder_remat`` recomputes a
+    segmentor's or depther's decoder layers in the backward pass (the JAX
+    package passes it to those two only)."""
     from .nn.common import init_params_
 
-    if cfg.decoder_remat:
-        raise NotImplementedError("decoder_remat (the decoder's layers recomputed in the "
-                                  "backward pass) is not ported")
     if cfg.task == "seg":
         from .models.segmentor import DDPSegmentor
 
@@ -619,7 +803,7 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             decoder_pos=cfg.decoder_pos,
             aux_weight=cfg.aux_weight, drop_path_rate=cfg.drop_path_rate,
             self_aligned=cfg.self_aligned, loss_at=cfg.loss_at, input_size=input_size,
-            device=device)
+            decoder_remat=cfg.decoder_remat, device=device)
     elif cfg.task == "depth":
         from .models.depther import DDPDepther
 
@@ -629,7 +813,8 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0,
             max_depth=cfg.max_depth, min_depth=cfg.min_depth,
             drop_path_rate=cfg.drop_path_rate, decoder_layers=cfg.decoder_layers,
             decoder_heads=cfg.decoder_heads, decoder_ffn_dim=cfg.decoder_ffn_dim,
-            head_variant=cfg.depth_head_variant, depth_act=cfg.depth_act, device=device)
+            head_variant=cfg.depth_head_variant, depth_act=cfg.depth_act,
+            decoder_remat=cfg.decoder_remat, device=device)
     elif cfg.task in ("bev", "bev_fusion"):
         # the JAX package's build_model passes no decoder_window here: the
         # head keeps its default window of 8

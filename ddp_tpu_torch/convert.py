@@ -37,9 +37,12 @@ parameter keeps its name and layout. The compat zoo's modules
 kernels [kh, kw, in/g, out] take the Conv rule to torch's [out, in/g, kh,
 kw]; a ConvModule's ``LayerNorm_0`` is its ``norm``; DAHead's
 ``pam_gamma``/``cam_gamma`` and ViT's ``pos_embed``/``cls_token`` keep their
-names. The fusion model's sparse conv layers (``lidar_*``) keep flax's leaf names
-and layouts (``kernel`` [K, Cin, Cout], ``bn/{scale, bias}``, ``bn/{mean,
-var}``), so their leaves map as they are. The compat zoo's part II
+names. The sparse conv layers (the fusion model's ``lidar_*``,
+``SparseEncoder``'s) keep flax's leaf names and layouts (``kernel`` [K, Cin,
+Cout], ``bn/{scale, bias}``, ``bn/{mean, var}``), so their leaves map as they
+are. The other lidar pieces (``nn/second.py``, ``nn/dla_vovnet.py``,
+``nn/bev.py: DepthLSSTransform``) carry the flax names; SECONDFPN's
+``deconv{i}`` is a flax ``ConvTranspose`` (below). The compat zoo's part II
 (``nn/compat_heads2.py``, ``nn/lightweight.py``) carries the flax names too:
 a ``_TokenConvModule`` (a flax module with a ``Dense_0`` and a
 ``BatchNorm_0`` child) maps them to ``fc1`` and ``norm`` (its batch stats
@@ -52,7 +55,8 @@ it is no BatchNorm). Part II-b/c (``nn/transformer_backbones.py``,
 names too, with two layouts of their own:
 
   - flax ``ConvTranspose`` (Feature2Pyramid's ``up4_a{i}``, ``up4_b{i}``,
-    ``up2_{i}``; ``transpose_kernel=False``, SAME at k = s = 2): flax
+    ``up2_{i}``, SECONDFPN's ``deconv{i}``; ``transpose_kernel=False``, SAME
+    at k = s): flax
     computes out[s·i + j] = x[i]·w[k − 1 − j] where torch's
     ``ConvTranspose2d`` takes W[j], so the kernel [kh, kw, in, out] becomes
     [in, out, kh, kw] with both spatial axes reversed (a copy, not a view);
@@ -113,10 +117,11 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                  "level_embed": "level_embed", "pos": "pos", "query_feat": "query_feat"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var", "bases": "bases"}
 _BN_STATS = ("mean", "var")
-# top-level modules whose leaves keep their flax names and layouts
+# the fusion model's sparse conv layers, found by name where only batch
+# stats are given
 _VERBATIM_PREFIX = "lidar_"
-# Feature2Pyramid's flax ConvTranspose modules
-_CONV_TRANSPOSE = re.compile(r"^up(4_[ab]|2_)\d+$")
+# flax ConvTranspose modules: Feature2Pyramid's and SECONDFPN's
+_CONV_TRANSPOSE = re.compile(r"^(up(4_[ab]|2_)\d+|deconv\d+)$")
 # flax MultiHeadDotProductAttention's DenseGeneral children
 _MHA = ("query", "key", "value", "out")
 
@@ -181,12 +186,29 @@ def _to_torch(leaf_name: str, value, module: str = "") -> torch.Tensor:
         return torch.from_numpy(a)
 
 
-def _verbatim(path: Tuple[str, ...], value) -> Optional[Tuple[str, torch.Tensor]]:
-    """A leaf of a module that carries flax's names and layouts (the fusion
-    model's sparse conv layers, ``lidar_*``: ``kernel`` [K, Cin, Cout],
-    ``bn/{scale, bias}``, batch stats ``bn/{mean, var}``): its dotted path
-    and the leaf as it is; None for every other leaf."""
-    if not path[0].startswith(_VERBATIM_PREFIX):
+def _sparse_layers(params: Mapping, prefix: Tuple[str, ...] = ()) -> Set[Tuple[str, ...]]:
+    """The flax sparse conv layers (``nn/sparse_conv.py: SparseConvLayer``:
+    the fusion model's ``lidar_*``, ``SparseEncoder``'s ``conv_input``,
+    ``enc*``, ``conv_out``): a module with a 3-D ``kernel`` [K, Cin, Cout]
+    beside a ``bn`` child."""
+    found = set()
+    kernel = params.get("kernel")
+    if kernel is not None and np.ndim(kernel) == 3 and isinstance(params.get("bn"), Mapping):
+        found.add(prefix)
+    for k, v in params.items():
+        if isinstance(v, Mapping):
+            found |= _sparse_layers(v, prefix + (str(k),))
+    return found
+
+
+def _verbatim(path: Tuple[str, ...], value, sparse: Set[Tuple[str, ...]]
+              ) -> Optional[Tuple[str, torch.Tensor]]:
+    """A leaf of a sparse conv layer (one of ``sparse``, or a top-level
+    ``lidar_*`` module), which carries flax's names and layouts (``kernel``
+    [K, Cin, Cout], ``bn/{scale, bias}``, batch stats ``bn/{mean, var}``):
+    its dotted path and the leaf as it is; None for every other leaf."""
+    if not (path[0].startswith(_VERBATIM_PREFIX) or path[:-1] in sparse
+            or (path[-2:-1] == ("bn",) and path[:-2] in sparse)):
         return None
     return ".".join(path), _to_torch("", value)
 
@@ -197,8 +219,9 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
     flax leaf that no rule maps."""
     sd: Dict[str, torch.Tensor] = {}
     token_convs = _token_convs(params)
+    sparse = _sparse_layers(params)
     for path, value in _walk(params):
-        same = _verbatim(path, value)
+        same = _verbatim(path, value, sparse)
         if same is not None:
             sd[same[0]] = same[1]
             continue
@@ -208,7 +231,7 @@ def params_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
         key = ".".join(_module_path(tuple(mod), token_convs) + (_PARAM_LEAVES[leaf],))
         sd[key] = _to_torch(leaf, value, mod[-1] if mod else "")
     for path, value in _walk(batch_stats or {}):
-        same = _verbatim(path, value)
+        same = _verbatim(path, value, sparse)
         if same is not None:
             sd[same[0]] = same[1]
             continue

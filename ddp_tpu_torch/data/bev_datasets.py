@@ -1,5 +1,4 @@
-"""BEV map-segmentation data (port of ``ddp_tpu/data/bev_datasets.py:24-358,
-361-421``).
+"""BEV map-segmentation data (port of ``ddp_tpu/data/bev_datasets.py``).
 
   - ``SyntheticBEVDataset``: a procedural camera rig (N outward-looking
     cameras 1.5 m above the ground) with coloured discs on the ground plane,
@@ -20,6 +19,9 @@
     channel), each hard-voxelized and given its rulebooks on the host
     (``ddp_tpu_torch/native``); ``fusion_batch_iterator`` batches
     ``FUSION_BATCH_KEYS``, the rulebooks stacked key by key.
+  - ``rasterize_lidar_depth``: a scene's points projected into each camera
+    as a sparse depth canvas, the input of ``nn/bev.py: DepthLSSTransform``
+    (no JAX path calls it).
 
 A sample is a dict of float32 arrays: ``image`` [N, H, W, 3] (0-255),
 ``cam2lidar_rots`` [N, 3, 3], ``cam2lidar_trans`` [N, 3], ``intrins``
@@ -380,3 +382,32 @@ def fusion_batch_iterator(ds, batch_size: int, seed: int = 0, mean=(123.675, 116
         cursor += batch_size
         if cursor >= len(ds):
             cursor, epoch = 0, epoch + 1
+
+
+def rasterize_lidar_depth(points, camera2lidar_rots, camera2lidar_trans, intrins, post_rots,
+                          post_trans, image_size) -> np.ndarray:
+    """Lidar points [P, >=3] projected into each of N cameras -> a sparse
+    depth canvas [N, H, W, 1] float32 (0: no point), as the reference's
+    BaseDepthTransform projects (vtransforms/base.py): lidar -> camera ->
+    pixel through the intrinsics, then the image augmentation (post rot and
+    trans), rounded to the nearest pixel; points at depth ≤ 1e-3 or outside
+    the image are dropped. Where points share a pixel the nearest wins: they
+    are written in decreasing depth, as JAX's."""
+    h, w = image_size
+    n = intrins.shape[0]
+    canvas = np.zeros((n, h, w, 1), np.float32)
+    xyz = points[:, :3]
+    for i in range(n):
+        cam = (xyz - camera2lidar_trans[i]) @ camera2lidar_rots[i]  # R^T by right-multiplying
+        depth = cam[:, 2]
+        ok = depth > 1e-3
+        uvd = cam @ intrins[i].T
+        uv = uvd[:, :2] / np.maximum(uvd[:, 2:3], 1e-5)
+        uv = uv @ post_rots[i][:2, :2].T + post_trans[i][:2]
+        ui = np.round(uv[:, 0]).astype(np.int64)
+        vi = np.round(uv[:, 1]).astype(np.int64)
+        ok &= (ui >= 0) & (ui < w) & (vi >= 0) & (vi < h)
+        ui, vi, dd = ui[ok], vi[ok], depth[ok]
+        order = np.argsort(-dd)
+        canvas[i, vi[order], ui[order], 0] = dd[order]
+    return canvas

@@ -4,7 +4,8 @@
     rest shift by -1) and Cityscapes (labelIds -> the 19 trainIds) file lists
     (mmseg's ``ADE20KDataset`` and ``CityscapesDataset``);
   - ``SyntheticSegDataset``, the procedural dataset;
-  - ``seg_batch_iterator``, the train batch iterator;
+  - ``seg_batch_iterator``, the batch iterator (the train pipeline, or
+    normalise and pad);
   - the metadata the tools render with (``PALETTES``, ``NUM_CLASSES``),
     ``normalize_image``, the generic folder dataset ``CustomSegDataset``,
     the ``RepeatDataset`` and ``ConcatDataset`` wrappers, and
@@ -29,7 +30,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from .image_io import read_image
-from .pipelines import seg_train_pipeline
+from .pipelines import normalize, pad_to, seg_train_pipeline
 
 # Cityscapes labelId -> trainId (34 entries; 255 = ignore)
 CITYSCAPES_LABEL2TRAIN = np.full(256, 255, np.int32)
@@ -122,18 +123,21 @@ class SyntheticSegDataset:
 
 def seg_batch_iterator(
     ds, batch_size: int, crop: Tuple[int, int], seed: int = 0,
+    img_scale: Optional[Tuple[int, int]] = None, train: bool = True,
     mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375),
     ratio_range=(0.5, 2.0), cat_max_ratio=0.75, flip_prob=0.5,
-    rank: int = 0, world: int = 1,
+    prefetch: int = 2, rank: int = 0, world: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Infinite train batch iterator (the seg train pipeline at img_scale
-    (2048, crop[0])) with a background thread that keeps two batches ready.
+    """Infinite batch iterator: with ``train`` the seg train pipeline at
+    ``img_scale`` (default (2048, crop[0])), else each sample normalised and
+    padded to ``crop``, then cut to ``crop``; a background thread keeps
+    ``prefetch`` batches ready (0: no thread, each batch made when asked).
 
     ``batch_size`` is global. With world > 1 each process yields only its
     rank's contiguous slice of every global batch (the same seed-folded order
     and per-sample augmentation streams on every process, so the global batch
     is consistent, as a DistributedSampler's)."""
-    img_scale = (2048, crop[0])
+    img_scale = img_scale or (2048, crop[0])
     if batch_size % world:
         raise ValueError(f"global batch {batch_size} does not split over {world} processes")
     local = batch_size // world
@@ -143,22 +147,26 @@ def seg_batch_iterator(
         imgs, labels = [], []
         for i in range(rank * local, (rank + 1) * local):
             idx = int(order[(start + i) % len(ds)])
-            rng = np.random.default_rng((seed, epoch, idx))
-            sample = seg_train_pipeline(
-                ds.load(idx), rng, crop, img_scale, ratio_range, cat_max_ratio,
-                flip_prob, mean, std)
+            sample = ds.load(idx)
+            if train:
+                rng = np.random.default_rng((seed, epoch, idx))
+                sample = seg_train_pipeline(sample, rng, crop, img_scale, ratio_range,
+                                            cat_max_ratio, flip_prob, mean, std)
+            else:
+                sample = pad_to(normalize(sample, mean, std), crop)
             imgs.append(sample["image"][: crop[0], : crop[1]])
             labels.append(sample["label"][: crop[0], : crop[1]])
         return {"image": np.stack(imgs), "label": np.stack(labels)}
 
-    return prefetched(make_batch, len(ds), batch_size)
+    return prefetched(make_batch, len(ds), batch_size, prefetch)
 
 
 def prefetched(make_batch: Callable[[int, int], Dict[str, np.ndarray]], length: int,
-               batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+               batch_size: int, depth: int = 2) -> Iterator[Dict[str, np.ndarray]]:
     """The infinite sequence make_batch(epoch, start), start stepping by
     ``batch_size`` through an epoch of ``length`` samples, made by a
-    background thread that keeps two batches ready."""
+    background thread that keeps ``depth`` batches ready (0: made in the
+    caller's thread when asked)."""
     def gen():
         epoch, cursor = 0, 0
         while True:
@@ -168,7 +176,10 @@ def prefetched(make_batch: Callable[[int, int], Dict[str, np.ndarray]], length: 
                 cursor = 0
                 epoch += 1
 
-    q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+    if depth <= 0:
+        yield from gen()
+        return
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
     stop = threading.Event()
 
     def worker():

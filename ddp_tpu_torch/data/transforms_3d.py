@@ -1,5 +1,5 @@
 """BEV 3D train-time augmentations, host-side numpy (port of
-``ddp_tpu/data/transforms_3d.py:27-230``; the reference's
+``ddp_tpu/data/transforms_3d.py``; the reference's
 bev/mmdet3d/datasets/pipelines/transforms_3d.py).
 
   - ``image_aug_3d`` (ImageAug3D): per-camera resize / crop / flip / rotate,
@@ -13,15 +13,19 @@ bev/mmdet3d/datasets/pipelines/transforms_3d.py).
 Every draw comes from the ``np.random.Generator`` passed in. Images are
 float32 [H, W, 3]; the sub-pixel resize and rotate go through Pillow's 'F'
 mode one channel at a time, as the JAX package's do (bitwise the same
-output); without Pillow they raise a named ImportError. The JAX package's
-multi-sweep lidar aggregation (``multi_sweep_points``) has no caller there
-and waits with the compat zoo (ROADMAP.md queue 1 item 3); the nuScenes
-fusion reader loads its sweeps itself (``data/bev_datasets.py``).
+output); without Pillow they raise a named ImportError.
+
+  - ``multi_sweep_points`` (LoadPointsFromMultiSweeps, loading.py:84-230;
+    JAX ``transforms_3d.py:233-279``): past sweeps moved into the key
+    frame's lidar frame, the 5th channel made the time lag, points within
+    ``close_radius`` of the sensor in x and y dropped (``_remove_close``).
+    No JAX path calls it; the nuScenes fusion reader loads its sweeps itself
+    (``data/bev_datasets.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -207,3 +211,47 @@ def grid_mask(imgs: np.ndarray, rng: np.random.Generator, prob: float = 0.7,
     if mode == 1:
         mask = 1.0 - mask
     return imgs * mask[None, :, :, None]
+
+
+def multi_sweep_points(key_points: np.ndarray, sweeps: Sequence[Dict[str, np.ndarray]],
+                       rng: np.random.Generator, sweeps_num: int = 10, timestamp: float = 0.0,
+                       remove_close: bool = True, close_radius: float = 1.0,
+                       test_mode: bool = False) -> np.ndarray:
+    """The key frame's points [P, 5] (x y z intensity time) with
+    ``sweeps_num`` past sweeps in its lidar frame: [sum P, 5], the key
+    frame's time channel 0, each sweep's the lag ``timestamp`` − its own.
+    A sweep is {'points': [P, 5], 'sensor2lidar_rotation': [3, 3],
+    'sensor2lidar_translation': [3], 'timestamp': seconds}. With more
+    sweeps than ``sweeps_num`` a train draw picks them without replacement
+    from ``rng`` (``test_mode``: the first ones); with none, the key frame's
+    points are repeated."""
+    key = key_points.copy()
+    key[:, 4] = 0.0
+    out: List[np.ndarray] = [key]
+    if len(sweeps) == 0:
+        for _ in range(sweeps_num):
+            out.append(_remove_close(key, close_radius) if remove_close else key)
+    else:
+        if len(sweeps) <= sweeps_num:
+            choices = np.arange(len(sweeps))
+        elif test_mode:
+            choices = np.arange(sweeps_num)
+        else:
+            choices = rng.choice(len(sweeps), sweeps_num, replace=False)
+        for idx in choices:
+            sw = sweeps[int(idx)]
+            pts = sw["points"].copy()
+            if remove_close:
+                pts = _remove_close(pts, close_radius)
+            pts[:, :3] = pts[:, :3] @ np.asarray(sw["sensor2lidar_rotation"], np.float32).T
+            pts[:, :3] += np.asarray(sw["sensor2lidar_translation"], np.float32)
+            pts[:, 4] = timestamp - float(sw["timestamp"])
+            out.append(pts)
+    return np.concatenate(out, axis=0)
+
+
+def _remove_close(points: np.ndarray, radius: float = 1.0) -> np.ndarray:
+    """The points outside the square |x| < radius, |y| < radius."""
+    x = np.abs(points[:, 0]) < radius
+    y = np.abs(points[:, 1]) < radius
+    return points[~(x & y)]

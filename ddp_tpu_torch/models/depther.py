@@ -63,7 +63,7 @@ class DDPDepther(nn.Module):
                  drop_path_rate: float = 0.3, decoder_layers: int = 6,
                  decoder_heads: int = 8, decoder_ffn_dim: int = 1024,
                  align_corners: bool = False, head_variant: str = "deform",
-                 depth_act: str = "relu", device=None):
+                 depth_act: str = "relu", decoder_remat: bool = False, device=None):
         super().__init__()
         if backbone_type not in ("swin", "convnext"):
             raise ValueError(f"unknown backbone {backbone_type!r}")
@@ -87,7 +87,7 @@ class DDPDepther(nn.Module):
             self.decode_head = DeformableDepthHead(
                 embed_dims, num_layers=decoder_layers, num_heads=decoder_heads,
                 ffn_dim=decoder_ffn_dim, min_depth=min_depth, variant=head_variant,
-                act=depth_act)
+                act=depth_act, remat=decoder_remat)
             # fusion conv over [features, latent]: 256 + 1 -> 256, bias, no norm
             self.down = ConvModule(embed_dims + 1, embed_dims, (1, 1))
             self.time_mlp = TimeMLP(dim=embed_dims * 4)

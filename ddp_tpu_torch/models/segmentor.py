@@ -66,10 +66,13 @@ class DDPSegmentor(nn.Module):
                  decoder_film: str = "v1", decoder_pos: str = "sine",
                  aux_weight: float = 0.4, drop_path_rate: float = 0.3,
                  self_aligned: bool = False, loss_at: str = "full",
-                 input_size: Optional[Tuple[int, int]] = None, device=None):
+                 input_size: Optional[Tuple[int, int]] = None, decoder_remat: bool = False,
+                 device=None):
         """``input_size``: the image size (H, W) the model is built for; the
         learned position tables are sized for its latent grid, as the JAX
-        package's init sizes them from its input (None: tables of 50)."""
+        package's init sizes them from its input (None: tables of 50).
+        ``decoder_remat``: the decoder's layers recompute their activations
+        in the backward pass (``TimeFiLMEncoder``'s ``remat``)."""
         super().__init__()
         if backbone_type not in ("swin", "convnext"):
             raise ValueError(f"unknown backbone {backbone_type!r}")
@@ -100,7 +103,7 @@ class DDPSegmentor(nn.Module):
                 num_classes, embed_dims, num_layers=decoder_layers,
                 num_heads=decoder_heads, ffn_dim=decoder_ffn_dim,
                 attn_type=decoder_attn, film=decoder_film, pos_type=decoder_pos,
-                window=decoder_window, pos_grid=pos_grid)
+                window=decoder_window, pos_grid=pos_grid, remat=decoder_remat)
             self.aux_head = FCNHead(num_classes, embed_dims, embed_dims)
             # K+1 entries: index num_classes is the ignore/padding class (ddp.py:78)
             self.embedding_table = nn.Embedding(num_classes + 1, embed_dims)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import PGroupNorm, PLayerNorm, PLinear, gelu
+from .common import GroupNorm, PLayerNorm, PLinear, gelu
 
 LN_EPS = 1e-6  # flax's LayerNorm / GroupNorm default
 GN_EPS = 1e-6
@@ -133,7 +133,7 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
-        self.norm = PGroupNorm(32, channels, eps=GN_EPS)
+        self.norm = GroupNorm(32, channels, eps=GN_EPS)
         self.proj_in = PLinear(channels, inner)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(inner, context_dim, heads,
@@ -156,7 +156,7 @@ class VAEAttnBlock(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.norm = PGroupNorm(32, channels, eps=GN_EPS)
+        self.norm = GroupNorm(32, channels, eps=GN_EPS)
         self.q = PLinear(channels, channels)
         self.k = PLinear(channels, channels)
         self.v = PLinear(channels, channels)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import GN_EPS, VAEAttnBlock
-from .common import PConv2d, PGroupNorm
+from .common import PConv2d, GroupNorm
 from .unet import upsample_nearest
 
 
@@ -27,8 +27,8 @@ def _gn(c: int) -> int:
     return math.gcd(32, c)
 
 
-def _norm(c: int) -> PGroupNorm:
-    return PGroupNorm(_gn(c), c, eps=GN_EPS)
+def _norm(c: int) -> GroupNorm:
+    return GroupNorm(_gn(c), c, eps=GN_EPS)
 
 
 class VAEResnetBlock(nn.Module):

@@ -1,4 +1,4 @@
-"""BEV (bird's-eye-view) modules (port of ``ddp_tpu/nn/bev.py:30-283``).
+"""BEV (bird's-eye-view) modules (port of ``ddp_tpu/nn/bev.py``).
 
   - ``frustum_grid`` / ``lss_geometry``: the image frustum's (x_px, y_px,
     depth) points unprojected into the lidar frame through the rig
@@ -7,6 +7,8 @@
     only the top-k depth bins, renormalised) -> voxel indices -> ``bev_pool``
     -> three 3x3 convs (strides 1, 2, 1) with BatchNorm and ReLU (the
     reference's downsample 2, the only one its configs use).
+  - ``DepthLSSTransform``: the same lift and splat after a depth net that
+    also reads the lidar depth canvas (``ddp_tpu/nn/bev.py:286-373``).
   - ``GeneralizedLSSFPN``: the camera neck, top-down concat-then-conv FPN
     (bilinear, align_corners=False).
   - ``BasicBlock`` / ``GeneralizedResNet``: BasicBlock stages over the BEV.
@@ -89,16 +91,14 @@ def _grid(bounds):
     return nx, dx, bx
 
 
-class LSSTransform(nn.Module):
-    """Lift-Splat-Shoot camera -> BEV view transform. ``depth_topk`` > 0 keeps
-    the k most likely depth bins of each pixel, renormalised (0: all bins,
-    the reference's behaviour)."""
+class _LiftSplat(nn.Module):
+    """What both LSS view transforms share: the voxel grid, the softmax depth
+    ⊗ features lift (optionally only the top-k depth bins, renormalised),
+    ``bev_pool`` and the three 3x3 convs (strides 1, 2, 1) with BatchNorm
+    and ReLU (the reference's downsample 2, the only one its configs use).
+    A subclass registers its depth net, then calls ``_add_down``."""
 
-    def __init__(self, in_channels: int, out_channels: int = 80,
-                 image_size: Tuple[int, int] = (256, 704),
-                 feature_size: Tuple[int, int] = (32, 88),
-                 xbound=(-51.2, 51.2, 0.4), ybound=(-51.2, 51.2, 0.4),
-                 zbound=(-10.0, 10.0, 20.0), dbound=(1.0, 60.0, 0.5),
+    def __init__(self, out_channels, image_size, feature_size, xbound, ybound, zbound, dbound,
                  depth_topk: int = 0):
         super().__init__()
         self.out_channels = out_channels
@@ -108,23 +108,23 @@ class LSSTransform(nn.Module):
         self.depth_topk = depth_topk
         self.depth_bins = int(round((dbound[1] - dbound[0]) / dbound[2]))
         self.nx, self.dx, self.bx = _grid((xbound, ybound, zbound))
-        self.depthnet = nn.Conv2d(in_channels, self.depth_bins + out_channels, 1)
-        ch = out_channels
+
+    def _add_down(self) -> None:
+        ch = self.out_channels
         for i, stride in enumerate((1, 2, 1)):
             self.add_module(f"down{i}", Conv2dSame(ch * (self.nx[2] if i == 0 else 1), ch, 3,
                                                    stride))
             self.add_module(f"down_bn{i}", BatchNorm2d(ch, eps=1e-5))
 
-    def forward(self, feats: torch.Tensor, camera2lidar_rots, camera2lidar_trans, intrins,
-                post_rots, post_trans) -> torch.Tensor:
-        """feats [B, N, fH, fW, C] -> BEV features [B, X/2, Y/2, C']."""
-        b, n, fh, fw, c = feats.shape
+    def splat(self, x: torch.Tensor, camera2lidar_rots, camera2lidar_trans, intrins,
+              post_rots, post_trans) -> torch.Tensor:
+        """The depth net's output [B, N, fH, fW, D + C] -> BEV features
+        [B, X/2, Y/2, C]."""
+        b, n, fh, fw, _ = x.shape
         d, ch = self.depth_bins, self.out_channels
-        x = self.depthnet(feats.reshape(b * n, fh, fw, c).permute(0, 3, 1, 2))
-        x = x.permute(0, 2, 3, 1).reshape(b, n, fh, fw, d + ch)
         depth = torch.softmax(x[..., :d], dim=-1)  # [B, N, fH, fW, D]
         feat = x[..., d:]
-        frustum = _frustum_on(self.image_size, self.feature_size, self.dbound, feats.device)
+        frustum = _frustum_on(self.image_size, self.feature_size, self.dbound, x.device)
         geom = lss_geometry(frustum, camera2lidar_rots, camera2lidar_trans, intrins,
                             post_rots, post_trans)  # [B, N, D, fH, fW, 3]
         k = self.depth_topk
@@ -148,6 +148,78 @@ class LSSTransform(nn.Module):
         for i in range(3):
             y = F.relu(getattr(self, f"down_bn{i}")(getattr(self, f"down{i}")(y)))
         return y.permute(0, 2, 3, 1)
+
+
+class LSSTransform(_LiftSplat):
+    """Lift-Splat-Shoot camera -> BEV view transform: a 1x1 depth net, then
+    ``splat``. ``depth_topk`` > 0 keeps the k most likely depth bins of each
+    pixel, renormalised (0: all bins, the reference's behaviour)."""
+
+    def __init__(self, in_channels: int, out_channels: int = 80,
+                 image_size: Tuple[int, int] = (256, 704),
+                 feature_size: Tuple[int, int] = (32, 88),
+                 xbound=(-51.2, 51.2, 0.4), ybound=(-51.2, 51.2, 0.4),
+                 zbound=(-10.0, 10.0, 20.0), dbound=(1.0, 60.0, 0.5),
+                 depth_topk: int = 0):
+        super().__init__(out_channels, image_size, feature_size, xbound, ybound, zbound, dbound,
+                         depth_topk)
+        self.depthnet = nn.Conv2d(in_channels, self.depth_bins + out_channels, 1)
+        self._add_down()
+
+    def forward(self, feats: torch.Tensor, camera2lidar_rots, camera2lidar_trans, intrins,
+                post_rots, post_trans) -> torch.Tensor:
+        """feats [B, N, fH, fW, C] -> BEV features [B, X/2, Y/2, C']."""
+        b, n, fh, fw, c = feats.shape
+        x = self.depthnet(feats.reshape(b * n, fh, fw, c).permute(0, 3, 1, 2))
+        x = x.permute(0, 2, 3, 1).reshape(b, n, fh, fw, -1)
+        return self.splat(x, camera2lidar_rots, camera2lidar_trans, intrins, post_rots,
+                          post_trans)
+
+
+class DepthLSSTransform(_LiftSplat):
+    """Lidar-guided LSS (the reference's vtransforms/depth_lss.py:15-124; JAX
+    ``ddp_tpu/nn/bev.py:286-373``): a sparse per-pixel lidar depth canvas at
+    image resolution (``data/bev_datasets.py: rasterize_lidar_depth``) is
+    encoded by ``dtransform`` (1->8 1x1, 8->32 5x5/4, 32->64 5x5/2, each
+    with BatchNorm and ReLU: /8 to the feature grid), concatenated before
+    the camera features, and a depth net of two 3x3 convs with BatchNorm and
+    ReLU and a 1x1 conv gives D + C channels; then ``splat``. Defaults:
+    BEVFusion's ``depth_lss`` (256x704 images, 32x88 features, 118 bins over
+    ``dbound`` (1, 60, 0.5), 80 channels, a 256² grid over ±51.2 m)."""
+
+    def __init__(self, in_channels: int, out_channels: int = 80,
+                 image_size: Tuple[int, int] = (256, 704),
+                 feature_size: Tuple[int, int] = (32, 88),
+                 xbound=(-51.2, 51.2, 0.4), ybound=(-51.2, 51.2, 0.4),
+                 zbound=(-10.0, 10.0, 20.0), dbound=(1.0, 60.0, 0.5)):
+        super().__init__(out_channels, image_size, feature_size, xbound, ybound, zbound, dbound)
+        cin = 1
+        for i, (f, k, s) in enumerate(((8, 1, 1), (32, 5, 4), (64, 5, 2))):
+            self.add_module(f"dtransform{i}", Conv2dSame(cin, f, k, s, bias=True))
+            self.add_module(f"dtransform_bn{i}", BatchNorm2d(f, eps=1e-5))
+            cin = f
+        c = in_channels
+        for i in range(2):
+            self.add_module(f"depthnet{i}", Conv2dSame(cin + c if i == 0 else c, c, 3,
+                                                       bias=True))
+            self.add_module(f"depthnet_bn{i}", BatchNorm2d(c, eps=1e-5))
+        self.depthnet_out = nn.Conv2d(c, self.depth_bins + out_channels, 1)
+        self._add_down()
+
+    def forward(self, feats: torch.Tensor, depth_canvas: torch.Tensor, camera2lidar_rots,
+                camera2lidar_trans, intrins, post_rots, post_trans) -> torch.Tensor:
+        """feats [B, N, fH, fW, C], depth_canvas [B, N, H, W, 1] -> BEV
+        features [B, X/2, Y/2, C']."""
+        b, n, fh, fw, c = feats.shape
+        dc = depth_canvas.reshape((b * n,) + depth_canvas.shape[2:]).permute(0, 3, 1, 2)
+        for i in range(3):
+            dc = F.relu(getattr(self, f"dtransform_bn{i}")(getattr(self, f"dtransform{i}")(dc)))
+        x = torch.cat([dc, feats.reshape(b * n, fh, fw, c).permute(0, 3, 1, 2)], dim=1)
+        for i in range(2):
+            x = F.relu(getattr(self, f"depthnet_bn{i}")(getattr(self, f"depthnet{i}")(x)))
+        x = self.depthnet_out(x).permute(0, 2, 3, 1).reshape(b, n, fh, fw, -1)
+        return self.splat(x, camera2lidar_rots, camera2lidar_trans, intrins, post_rots,
+                          post_trans)
 
 
 class GeneralizedLSSFPN(nn.Module):

@@ -13,10 +13,10 @@ BatchNorm's statistics are over the global batch, as flax's are over a
 mesh-sharded batch.
 
 BatchNorm parity trap: flax normalises with, and updates its running
-variance by, the biased batch variance E[x²] − E[x]² (and momentum 0.9 on
-the old value); ``torch.nn.BatchNorm2d`` updates with the unbiased one.
-``BatchNorm2d`` here keeps torch's parameters and buffers and does the flax
-update.
+variance by, the biased batch variance E[x²] − E[x]² (flax's momentum, on
+the old value, is 1 − torch's ``momentum``); ``torch.nn.BatchNorm2d``
+updates with the unbiased one. ``BatchNorm2d`` here keeps torch's
+parameters and buffers and does the flax update.
 
 GELU parity trap: flax ``nn.gelu`` defaults to the tanh approximation, so
 every GELU here is ``F.gelu(x, approximate="tanh")``; exact GELU differs by
@@ -87,14 +87,12 @@ def trunc_normal(shape, gen: torch.Generator, std: float = 0.02) -> torch.Tensor
     return nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=gen) * std
 
 
-FLAX_MOMENTUM = 0.9
-
-
 def _flax_batch_stats(bn: nn.modules.batchnorm._BatchNorm, xf: torch.Tensor, dims
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batch mean and biased variance of ``xf`` over ``dims``, and flax's
-    update of ``bn``'s running statistics:
-    ``running = 0.9 · running + 0.1 · batch``."""
+    update of ``bn``'s running statistics: ``running = keep · running +
+    (1 − keep) · batch`` with flax's momentum ``keep = 1 − bn.momentum``
+    (torch's default 0.1 is flax's 0.9; the lidar modules' 0.01 is 0.99)."""
     if active_world()[1] > 1:
         # over the global batch: one all-reduce of (Σx, Σx², n)
         c = bn.num_features
@@ -105,9 +103,10 @@ def _flax_batch_stats(bn: nn.modules.batchnorm._BatchNorm, xf: torch.Tensor, dim
     else:
         mean = xf.mean(dim=dims)
         var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    keep = 1.0 - bn.momentum
     with torch.no_grad():
-        bn.running_mean.copy_(FLAX_MOMENTUM * bn.running_mean + (1.0 - FLAX_MOMENTUM) * mean)
-        bn.running_var.copy_(FLAX_MOMENTUM * bn.running_var + (1.0 - FLAX_MOMENTUM) * var)
+        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
     return mean, var
 
 
@@ -151,7 +150,7 @@ def make_norm(norm: Optional[str], channels: int) -> Optional[nn.Module]:
     if norm is None:
         return None
     if norm == "GN":
-        return nn.GroupNorm(32, channels, eps=1e-5)
+        return GroupNorm(32, channels, eps=1e-5)
     if norm in ("BN", "SyncBN"):
         return BatchNorm2d(channels, eps=1e-5)
     if norm == "LN":
@@ -313,13 +312,25 @@ class PLinear(nn.Linear):
         return F.linear(x.to(dtype), self.weight.to(dtype), _cast(self.bias, dtype))
 
 
-class PGroupNorm(nn.GroupNorm):
-    """``nn.GroupNorm`` (NCHW) in the promoted type (flax ``GroupNorm``)."""
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm`` over NCHW, in the promoted type of the input and
+    the parameters (bf16 against float32 weights computes in float32, as
+    JAX promotes). Unlike ``F.group_norm`` it takes a group that holds one
+    value (32 groups of one channel at 1 x 1: ``smoke``'s FPN top at a 32²
+    image), where flax computes mean = that value and variance 0, so the
+    output is the bias and the input's gradient 0: ``F.group_norm`` refuses
+    such a map, and ``torch.group_norm``'s fused scale and shift leave
+    ~5e-5·|x|·|weight| there. Parameters ``weight`` and ``bias``, as
+    ``nn.GroupNorm``'s."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = promoted_dtype(x, self.weight)
-        return F.group_norm(x.to(dtype), self.num_groups, self.weight.to(dtype),
-                            self.bias.to(dtype), self.eps)
+        if x[0].numel() == self.num_groups:
+            # x − mean is exactly 0 (x · 0 keeps flax's NaN for a NaN input)
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            return x.to(dtype) * 0 + self.bias.to(dtype).reshape(shape)
+        return torch.group_norm(x.to(dtype), self.num_groups, self.weight.to(dtype),
+                                self.bias.to(dtype), self.eps, torch.backends.cudnn.enabled)
 
 
 class PLayerNorm(nn.LayerNorm):

@@ -51,7 +51,7 @@ class DeformableHeadWithTime(nn.Module):
     def __init__(self, num_classes: int, embed_dims: int = 256, num_layers: int = 6,
                  num_heads: int = 8, ffn_dim: int = 1024, attn_type: str = "msda",
                  film: str = "v1", pos_type: str = "sine", window: int = 8,
-                 pos_grid: Tuple[int, int] = (50, 50)):
+                 pos_grid: Tuple[int, int] = (50, 50), remat: bool = False):
         super().__init__()
         if pos_type not in ("sine", "learned"):
             raise ValueError(f"pos_type must be 'sine' or 'learned', got {pos_type!r}")
@@ -63,7 +63,7 @@ class DeformableHeadWithTime(nn.Module):
                 embed_dims // 2, max(50, pos_grid[0]), max(50, pos_grid[1]))
         self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim=ffn_dim,
                                        use_time=True, attn_type=attn_type, window=window,
-                                       film=film)
+                                       film=film, remat=remat)
         self.conv_seg = nn.Conv2d(embed_dims, num_classes, 1)
 
     def forward(self, x: torch.Tensor, time: Optional[torch.Tensor]) -> torch.Tensor:
@@ -106,7 +106,7 @@ class DeformableDepthHead(nn.Module):
 
     def __init__(self, embed_dims: int = 256, num_layers: int = 6, num_heads: int = 8,
                  ffn_dim: int = 1024, min_depth: float = 1e-3, variant: str = "deform",
-                 act: str = "relu", film: str = "v1"):
+                 act: str = "relu", film: str = "v1", remat: bool = False):
         super().__init__()
         if variant not in ("deform", "upconv", "spade"):
             raise ValueError(f"variant must be 'deform', 'upconv' or 'spade', got {variant!r}")
@@ -117,7 +117,8 @@ class DeformableDepthHead(nn.Module):
         self.variant = variant
         self.act = act
         self.encoder = TimeFiLMEncoder(num_layers, embed_dims, num_heads, ffn_dim=ffn_dim,
-                                       use_time=True, attn_type="msda", film=film)
+                                       use_time=True, attn_type="msda", film=film,
+                                       remat=remat)
         if variant == "upconv":
             self.up_conv = ConvModule(embed_dims // 4, embed_dims // 4, (3, 3), act="relu")
             self.conv_depth = nn.Conv2d(embed_dims // 16, 1, 3, padding=1)

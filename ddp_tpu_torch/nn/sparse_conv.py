@@ -1,6 +1,6 @@
 """Sparse 3-D convolution of the lidar branch (port of
-``ddp_tpu/nn/sparse_conv.py:28-106,159-203``): gather-GEMM over host-built
-rulebooks.
+``ddp_tpu/nn/sparse_conv.py``): gather-GEMM over host-built rulebooks, and
+the ``SparseEncoder`` stack.
 
 The host (``ddp_tpu_torch/native``) builds, per sample and with static
 capacities, one rulebook per resolution level: ``gather[k, o]`` is the one
@@ -187,6 +187,44 @@ def densify(rows: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, batch
     flat = torch.where(valid, flat, total + row)
     dense = rows.new_zeros(total + n, c).index_copy(0, flat, rows)
     return dense[:total].reshape(batch, hw, hw, z * c)
+
+
+class SparseEncoder(nn.Module):
+    """The SECOND-style sparse voxel encoder of one sample (JAX
+    ``ddp_tpu/nn/sparse_conv.py:109-156``; mmdet3d sparse_encoder.py):
+    ``conv_input`` and stage 0 (subm at full resolution), stages 1-3 (a
+    strided entry then subm layers), ``conv_out`` (kernel (1, 1, 3), stride
+    (1, 1, 2): 3 offsets), then ``densify`` into [dense_hw, dense_hw,
+    dense_z · Cout], z folded into the channels. The rulebooks are
+    ``build_sparse_encoder_rulebooks``'s, as tensors on the features'
+    device. ``DDPBEVFusion`` runs the same layers inline, batch folded."""
+
+    def __init__(self, in_channels: int, base_channels: int = 16, output_channels: int = 128,
+                 encoder_channels: Sequence[Sequence[int]] = ((16,), (32, 32, 32), (64, 64, 64),
+                                                             (64, 64, 64)),
+                 dense_hw: int = 128, dense_z: int = 2):
+        super().__init__()
+        self.encoder_channels = tuple(tuple(c) for c in encoder_channels)
+        self.dense_hw, self.dense_z = dense_hw, dense_z
+        self.conv_input = SparseConvLayer(in_channels, base_channels)
+        cin = base_channels
+        for si, chans in enumerate(self.encoder_channels):
+            for j, ch in enumerate(chans):
+                self.add_module(f"enc{si}_{j}", SparseConvLayer(cin, ch))
+                cin = ch
+        self.conv_out = SparseConvLayer(cin, output_channels, num_offsets=3)
+
+    def forward(self, voxel_feats: torch.Tensor, rulebooks: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """voxel_feats [cap0, C] (zero-padded rows) -> [hw, hw, z · Cout]."""
+        x = self.conv_input(voxel_feats, rulebooks["subm1"])
+        for si, chans in enumerate(self.encoder_channels):
+            for j in range(len(chans)):
+                rb = f"spconv{si + 1}" if si and j == 0 else f"subm{si + 1}"
+                x = getattr(self, f"enc{si}_{j}")(x, rulebooks[rb])
+        x = self.conv_out(x, rulebooks["down"])
+        return densify(x, rulebooks["down_coords"], rulebooks["down_valid"], 1, self.dense_hw,
+                       self.dense_z)[0]
 
 
 def build_sparse_encoder_rulebooks(

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.deform_attn import ms_deform_attn
 from .common import Mlp
@@ -224,14 +225,20 @@ class TimeFiLMEncoderLayer(nn.Module):
 
 class TimeFiLMEncoder(nn.Module):
     """Stack of ``num_layers`` TimeFiLMEncoderLayer; odd layers shift by window//2
-    (window attention only)."""
+    (window attention only). ``remat``: while gradients are taken, each layer
+    keeps only its input and recomputes its activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant; the JAX package's
+    ``nn.remat``). The layers draw no random numbers, so the recomputation
+    needs no saved RNG state (``preserve_rng_state=False``: it reads none,
+    which a CUDA-graph capture forbids)."""
 
     def __init__(self, num_layers: int = 6, embed_dims: int = 256, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 4, ffn_dim: int = 1024,
                  use_time: bool = True, attn_type: str = "window", window: int = 8,
-                 film: str = "v1"):
+                 film: str = "v1", remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer{i}", TimeFiLMEncoderLayer(
                 embed_dims, num_heads, num_levels, num_points, ffn_dim, use_time, attn_type,
@@ -240,7 +247,12 @@ class TimeFiLMEncoder(nn.Module):
     def forward(self, query: torch.Tensor, time: Optional[torch.Tensor],
                 query_pos: Optional[torch.Tensor], ref_points: Optional[torch.Tensor],
                 spatial_shapes: SpatialShapes) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            query = getattr(self, f"layer{i}")(query, time, query_pos, ref_points,
-                                               spatial_shapes)
+            layer = getattr(self, f"layer{i}")
+            if remat:
+                query = checkpoint(layer, query, time, query_pos, ref_points, spatial_shapes,
+                                   use_reentrant=False, preserve_rng_state=False)
+            else:
+                query = layer(query, time, query_pos, ref_points, spatial_shapes)
         return query

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import GN_EPS, SpatialTransformer
-from .common import PConv2d, PGroupNorm, PLinear
+from .common import PConv2d, GroupNorm, PLinear
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -56,10 +56,10 @@ class ResBlock(nn.Module):
                  use_scale_shift_norm: bool = False):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
-        self.in_norm = PGroupNorm(32, channels, eps=GN_EPS)
+        self.in_norm = GroupNorm(32, channels, eps=GN_EPS)
         self.in_conv = PConv2d(channels, out_channels, 3, padding=1)
         self.emb_proj = PLinear(emb_dim, out_channels * (2 if use_scale_shift_norm else 1))
-        self.out_norm = PGroupNorm(32, out_channels, eps=GN_EPS)
+        self.out_norm = GroupNorm(32, out_channels, eps=GN_EPS)
         self.out_conv = PConv2d(out_channels, out_channels, 3, padding=1, zero_init=True)
         self.skip = PConv2d(channels, out_channels, 1) if out_channels != channels else None
 
@@ -249,7 +249,7 @@ class UNetModel(_TimeEmbed):
             if level != 0:
                 self.add_module(f"up_{level}", Upsample(ch))
                 ds //= 2
-        self.out_norm = PGroupNorm(32, h_ch, eps=GN_EPS)
+        self.out_norm = GroupNorm(32, h_ch, eps=GN_EPS)
         self.out_conv = PConv2d(h_ch, cfg.out_channels, 3, padding=1, zero_init=True)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,

@@ -1,10 +1,13 @@
 """Training CLI (port of ``tools/train.py``).
 
     python -m ddp_tpu_torch.tools.train PRESET [--workdir DIR] [--resume]
-        [--set model.bit_scale=0.1 optim.lr=1e-4 ...] [--device cpu] [--distributed]
+        [--yaml OVERLAY.yaml] [--set model.bit_scale=0.1 optim.lr=1e-4 ...]
+        [--device cpu] [--distributed]
     torchrun --nproc_per_node=N -m ddp_tpu_torch.tools.train PRESET --distributed
 
-Builds the preset's config with the overrides, its train batch iterator
+Builds the preset's config, overlaid by the ``--yaml`` file
+(``config.py: load_yaml_overlay``, the YAML subset overlays use) and then the
+``--set`` overrides, its train batch iterator
 (``data/__init__.py: make_train_iter``: synthetic data, an ADE20K or
 Cityscapes tree for a segmentor, a nyu, kitti, sunrgbd or cityscapes depth
 split for a depther such as ``nyu_swin_t``, under ``data.data_root``; the
@@ -14,8 +17,7 @@ on the card (``--device cpu`` for the CPU). ``--distributed`` joins the
 process group torchrun's environment describes (``parallel/mesh.py:
 init_distributed``: ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo`` with
 ``--device cpu``), and the run is data-parallel: each process trains on its
-rank's rows of every global batch of ``data.batch_size``. The JAX tool's
-``--yaml`` overlay is not ported (ROADMAP.md queue 3).
+rank's rows of every global batch of ``data.batch_size``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ def parse_args(argv=None):
     p.add_argument("preset")
     p.add_argument("--workdir", default=None)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--yaml", default=None, help="a YAML overlay of dotted keys or nested mappings")
     p.add_argument("--set", nargs="*", default=[], metavar="K=V")
     p.add_argument("--device", default=None, help="default: cuda")
     p.add_argument("--distributed", action="store_true",
@@ -38,7 +41,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    from ..config import get_config
+    from ..config import apply_overrides, get_config, load_yaml_overlay
     from ..data import make_train_iter
     from ..parallel.mesh import init_distributed
     from ..train.loop import train
@@ -48,7 +51,10 @@ def main(argv=None) -> int:
     overrides = dict(kv.split("=", 1) for kv in args.set)
     if args.workdir:
         overrides["runtime.workdir"] = args.workdir
-    cfg = get_config(args.preset, overrides)
+    cfg = get_config(args.preset)
+    if args.yaml:
+        cfg = load_yaml_overlay(cfg, args.yaml)
+    cfg = apply_overrides(cfg, overrides)
     os.makedirs(cfg.runtime.workdir, exist_ok=True)
     try:
         train(cfg, make_train_iter(cfg), resume=args.resume, device=device)

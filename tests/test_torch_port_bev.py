@@ -58,6 +58,8 @@ from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train import step as tstep
 from ddp_tpu_torch.train.step import TrainState, make_train_step
 from test_torch_port_convnext import _off_grid
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 RIG = BEV_BATCH_KEYS[:-1]
 

@@ -33,6 +33,7 @@ from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.data import transforms_3d as tt3
 from ddp_tpu_torch.data.bev_datasets import BEV_BATCH_KEYS
 from ddp_tpu_torch.evaluation import convergence as C
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _same(got, want):

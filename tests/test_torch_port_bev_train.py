@@ -25,6 +25,7 @@ from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
 
 import train_from_start
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _bev_batch(b=2, seed=0):

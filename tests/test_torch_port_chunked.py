@@ -25,6 +25,8 @@ from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.loop import train
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 TOTAL = 7
 

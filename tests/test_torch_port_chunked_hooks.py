@@ -24,6 +24,7 @@ from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.train import checkpoint as tckpt
 from ddp_tpu_torch.train.loop import train
 from test_torch_port_chunked import TOTAL, _cfg, _log
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _port_hooks(tmp_path, monkeypatch, rt):

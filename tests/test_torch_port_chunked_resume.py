@@ -10,6 +10,7 @@ from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.train import checkpoint as tckpt
 from ddp_tpu_torch.train.loop import train
 from test_torch_port_chunked import _assert_same_state, _cfg, _log, _skip
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def test_resume_from_chunk_end_checkpoint_is_exact(tmp_path):

@@ -11,6 +11,9 @@ the CPU.
   - The dataclasses' defaults field by field: the same fields but those
     still to port (named in ``NOT_PORTED``: the data loader's worker count),
     the same values.
+  - ``load_yaml_overlay`` (the port's YAML subset reader) against JAX's on
+    overlays the tests write; what the reader does not read raises, naming
+    the line; the train CLI's ``--yaml``.
   - ``get_config`` overrides coerced as the JAX package coerces them
     (bools, ints, floats, tuples, nested dataclasses); an unknown key raises
     in both.
@@ -33,6 +36,8 @@ from ddp_tpu import config as jconfig
 from ddp_tpu_torch import config as tconfig
 from ddp_tpu_torch.tools import test as test_cli
 from ddp_tpu_torch.tools import train as train_cli
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "cityscapes")
 SHARED = sorted(set(tconfig.PRESETS) & set(jconfig.PRESETS))
@@ -118,6 +123,79 @@ def test_unknown_override_raises_as_jax(key):
         tconfig.get_config("smoke", {key: "1"})
     with pytest.raises(KeyError, match="unknown preset"):
         tconfig.get_config("cityscapes_convnext_x")
+
+
+YAML_OVERLAYS = {
+    "nested": """# a comment line
+model:
+  num_classes: 19   # a trailing comment
+  bit_scale: 0.1
+  decoder_attn: 'msda'
+  diffusion:
+    timesteps: 5
+    sample_range: [0.0, 0.5]
+data:
+  crop_size: [48, 96]
+  data_root: "tests/data/cityscapes"
+  mean: [1, 2.5, 3]
+optim:
+  lr: 1e-4
+  weight_decay: 5.0e-3
+runtime:
+  test_mode: slide
+""",
+    "dotted": """model.self_aligned: true
+model.drop_path_rate: 0.25
+runtime.total_iters: 40
+runtime.mixed_precision: false
+'data.dataset': cityscapes
+data.batch_size: +3
+optim.layer_decay_rate: null
+""",
+    "empty": "# nothing but a comment\n\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(YAML_OVERLAYS))
+def test_yaml_overlay_matches_jax(name, tmp_path):
+    """The port's YAML reader (no PyYAML) against the JAX package's
+    ``load_yaml_overlay`` (PyYAML's ``safe_load``) on the same file: the
+    overlaid configs equal field by field, in value and type."""
+    path = str(tmp_path / "overlay.yaml")
+    with open(path, "w") as f:
+        f.write(YAML_OVERLAYS[name])
+    port = _fields(tconfig.load_yaml_overlay(tconfig.get_config("smoke"), path))
+    ref = _fields(jconfig.load_yaml_overlay(jconfig.get_config("smoke"), path))
+    assert set(port) <= set(ref)
+    diff = {k: (v, ref[k]) for k, v in port.items()
+            if v != ref[k] or type(v) is not type(ref[k])}
+    assert not diff
+    if name != "empty":
+        assert port != _fields(tconfig.get_config("smoke"))
+
+
+@pytest.mark.parametrize("text,line", [
+    ("model:\n  num_classes: 19\n   bit_scale: 0.1\n", 3),
+    ("model:\n  - 1\n", 2), ("a: {b: 1}\n", 1), ("a: &x 1\n", 1), ("a: yes\n", 1),
+    ("a: |\n  text\n", 1), ("a: [1, [2]]\n", 1), ("a: 'open\n", 1), ("---\na: 1\n", 1),
+    ("model:\n\tnum_classes: 3\n", 2), ("just text\n", 1)])
+def test_yaml_reader_refuses_what_it_does_not_read(text, line):
+    with pytest.raises(ValueError, match=rf"overlay\.yaml:{line}: "):
+        tconfig.parse_yaml_subset(text, "overlay.yaml")
+
+
+def test_train_cli_reads_the_yaml_overlay(tmp_path, monkeypatch):
+    """``--yaml`` overlays the preset, then ``--set`` overrides it."""
+    path = str(tmp_path / "o.yaml")
+    with open(path, "w") as f:
+        f.write("runtime:\n  total_iters: 3\n  seed: 4\noptim:\n  lr: 2.0e-3\n")
+    seen = {}
+    monkeypatch.setattr("ddp_tpu_torch.train.loop.train",
+                        lambda cfg, it, resume, device: seen.update(cfg=cfg))
+    assert train_cli.main(["smoke", "--device", "cpu", "--workdir", str(tmp_path / "w"),
+                           "--yaml", path, "--set", "runtime.seed=5"]) == 0
+    cfg = seen["cfg"]
+    assert (cfg.runtime.total_iters, cfg.runtime.seed, cfg.optim.lr) == (3, 5, 2e-3)
 
 
 SETS = ["data.dataset=cityscapes", f"data.data_root={DATA}", "model.num_classes=19"]

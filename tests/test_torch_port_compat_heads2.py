@@ -44,19 +44,10 @@ from ddp_tpu_torch.nn import head_registry as treg
 from ddp_tpu_torch.nn.common import init_params_
 from ddp_tpu_torch.nn.lightweight import _CGBlock
 from test_golden_heads import _dense, _layernorm, _softmax
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 K = 5
 PYRAMID = [(2, 16, 16, 8), (2, 8, 8, 16), (2, 4, 4, 32), (2, 2, 2, 64)]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: beside the other test workers an OpenMP team
-    waits at every one of the many small ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def fill_variables(shapes, seed: int = 0):

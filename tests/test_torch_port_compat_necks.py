@@ -41,16 +41,7 @@ from flax_shapes import shapes_of
 from ddp_tpu.nn import necks as jnk
 from ddp_tpu_torch.convert import load_flax, params_from_flax
 from ddp_tpu_torch.nn import necks as tnk
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: beside the other test workers an OpenMP team
-    waits at every one of the many small ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def fill_variables(shapes, seed: int = 0):

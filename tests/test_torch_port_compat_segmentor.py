@@ -58,19 +58,10 @@ from ddp_tpu_torch.nn import mit as tmit
 from ddp_tpu_torch.nn import mobile_hrnet as tmh
 from ddp_tpu_torch.nn import resnet as tres
 from ddp_tpu_torch.nn import vit as tvit
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 K = 5
 B, S = 3, 48
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: beside the other test workers an OpenMP team
-    waits at every one of the many small ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def fill_variables(shapes, seed: int = 0):

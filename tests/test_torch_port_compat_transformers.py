@@ -43,18 +43,9 @@ from ddp_tpu_torch.models import compat_segmentor as tseg
 from ddp_tpu_torch.nn import diffswin as tds
 from ddp_tpu_torch.nn import transformer_backbones as ttb
 from ddp_tpu_torch.nn.common import init_params_
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 K = 5
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: beside the other test workers an OpenMP team
-    waits at every one of the many small ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def fill_variables(shapes, seed: int = 0):

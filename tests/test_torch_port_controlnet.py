@@ -48,17 +48,7 @@ from ddp_tpu_torch.nn import clip_text as tclip
 from ddp_tpu_torch.nn import unet as tunet
 from ddp_tpu_torch.train.optim import make_optimizer
 from ddp_tpu_torch.train.step import TrainState, make_train_step
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the tiny stack runs thousands of small ops, and
-    beside the other test workers' processes on the same cores a team of
-    OpenMP threads waits at every op (a test of 4 s alone took minutes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 TINY = dict(model_channels=32, num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
             num_heads=2, context_dim=16)

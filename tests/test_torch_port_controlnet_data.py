@@ -38,17 +38,7 @@ from ddp_tpu_torch.data import controlnet_data as tdata
 from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.train import ema as tema
 from ddp_tpu_torch.train import torch_import as timport
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the tiny stack runs thousands of small ops, and
-    beside the other test workers' processes on the same cores a team of
-    OpenMP threads waits at every op (a test of 4 s alone took minutes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 FILL50K = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "fill50k")
 TINY = {"model.cn_size": "tiny", "model.cn_image_size": "32", "data.batch_size": "2",

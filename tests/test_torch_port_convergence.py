@@ -14,6 +14,8 @@ from ddp_tpu.data.seg_datasets import SyntheticSegDataset as JSyntheticSegDatase
 from ddp_tpu.evaluation.metrics import SegMetricAccumulator as JSegMetricAccumulator
 from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.evaluation import convergence as C
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 _HARNESS = os.path.join(os.path.dirname(__file__), "..", "tools", "run_convergence.py")
 

@@ -37,6 +37,8 @@ from ddp_tpu_torch.nn import heads as theads
 from ddp_tpu_torch.train import torch_import as TI
 from test_torch_port_segmentor import _jax_sample
 from test_torch_port_train import _batch, _jax_train_forward, _no_dropout
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 HW = (48, 96)  # the tiny Cityscapes files' size
 

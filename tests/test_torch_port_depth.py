@@ -9,7 +9,7 @@ package's, on the CPU. The JAX side is jitted; inputs are seeded numpy.
   - The tiny depther as a whole against JAX's (loss, gradients, the bf16
     step, sample, uncertainty, the bridge): ``test_torch_port_depth_model.py``.
   - The presets and ``build_model``; ``conv_depth``'s bias init;
-    ``build_model`` refuses ``decoder_remat`` (not ported); a depth batch (float label) through the eager step and the
+    ``build_model`` passes ``decoder_remat`` to the decoder; a depth batch (float label) through the eager step and the
     chunked step, which must agree bit for bit on the CPU.
 """
 import dataclasses
@@ -35,6 +35,8 @@ from ddp_tpu_torch.nn import heads as theads
 from ddp_tpu_torch.nn.losses import sig_loss
 from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.step import TrainState, make_chunked_train_step, make_train_step
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 HW = (64, 64)
 
@@ -194,9 +196,12 @@ def _depth_batch(mc, b=2, seed=0):
 
 @pytest.mark.parametrize("task", ["seg", "depth"])
 def test_build_model_refuses_decoder_remat(task):
+    """``decoder_remat`` is ported: ``build_model`` gives the decoder's
+    encoder ``remat`` (it refused the field before the port had it)."""
     mc = get_config("converge_depth" if task == "depth" else "converge_seg_msda").model
-    with pytest.raises(NotImplementedError, match="decoder_remat"):
-        build_model(dataclasses.replace(mc, decoder_remat=True), device="cpu", seed=1)
+    model = build_model(dataclasses.replace(mc, decoder_remat=True), device="cpu", seed=1)
+    assert model.decode_head.encoder.remat
+    assert not build_model(mc, device="cpu", seed=1).decode_head.encoder.remat
 
 
 @pytest.mark.parametrize("mixed", [False, True])

@@ -39,6 +39,8 @@ from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.evaluation import convergence as C
 from ddp_tpu_torch.tools import test as test_cli
 from ddp_tpu_torch.tools import train as train_cli
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 ROOTS = {"nyu": "nyu", "sunrgbd": "sunrgbd", "cityscapes": "cityscapes_depth"}

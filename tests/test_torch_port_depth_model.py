@@ -31,6 +31,7 @@ from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.step import TrainState, make_train_step
 from test_torch_port_depth import (HW, _close, _depth_maps, _jax_model, _model_cfg, _np,
                                    _randn, _t)
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 # --- the tiny depther -----------------------------------------------------------------

@@ -48,6 +48,8 @@ from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.step import TrainState, make_train_step, tree_map
 from test_torch_port_bev import ENCODER_GROUPS, F32_UNDER_BF16, _close, _cos, _FixedRandom, _vec
 from test_torch_port_convnext import _off_grid
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 ARGS = FUSION_BATCH_KEYS[:-1]
 FUSION_GROUPS = ENCODER_GROUPS + ("lidar_", "fuser_conv.")

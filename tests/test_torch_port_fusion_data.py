@@ -43,6 +43,8 @@ from ddp_tpu_torch.train.loop import stack_batches
 from ddp_tpu_torch.train.optim import make_optimizer
 from ddp_tpu_torch.train.step import (TrainState, make_chunked_train_step, make_train_step,
                                       tree_map)
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 NUSC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "nuscenes")
 

@@ -41,6 +41,7 @@ from ddp_tpu_torch.train.optim import make_optimizer
 from ddp_tpu_torch.train.step import TrainState, make_train_step
 from test_torch_port_segmentor import _jax_sample
 from test_torch_port_train import _jax_model
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _tiny(heads=4):

@@ -37,6 +37,8 @@ from ddp_tpu_torch.nn import swin as tswin
 from ddp_tpu_torch.nn import time_embed as ttime
 from ddp_tpu_torch.nn import transformer as ttr
 from ddp_tpu_torch.ops import resize as tresize
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 

@@ -22,6 +22,7 @@ from ddp_tpu_torch.config import get_config
 from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.data import pipelines as tp
 from ddp_tpu_torch.data import seg_datasets as tsd
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _sizes(seed, n):

@@ -17,6 +17,8 @@ import torch
 
 from ddp_tpu.ops.pallas import q_sample as Q
 from ddp_tpu_torch.ops import q_sample as TQ
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 BIT_SCALE = 0.01
 

@@ -37,6 +37,8 @@ from ddp_tpu_torch import config as tconfig
 from ddp_tpu_torch.data import make_train_iter
 from ddp_tpu_torch.data import seg_datasets as tsd
 from ddp_tpu_torch.data.image_io import read_image, read_png
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 

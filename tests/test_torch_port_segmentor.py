@@ -25,6 +25,8 @@ from ddp_tpu.core.diffusion import DiffusionConfig as JDiffusionConfig
 from ddp_tpu.models.segmentor import DDPSegmentor as JDDPSegmentor
 from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.convert import check_complete, load_flax, params_from_flax
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -105,6 +107,31 @@ def test_sample_matches_jax(hw):
     assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
 
 
+def test_smoke_serves_one_32px_image_as_jax():
+    """``smoke`` on a single 32^2 image: the FPN's top level is 1 x 1 with
+    one channel per GroupNorm group, where ``F.group_norm`` refuses; the
+    port's step-1 logits are JAX's within 1e-4 (f32, the same weights)."""
+    from ddp_tpu import config as jconfig
+
+    cfg = get_config("smoke")
+    jm = jconfig.build_model(jconfig.get_config("smoke").model)
+    variables = jax.jit(lambda: _init(jm, (32, 32)))()
+    img = np.random.RandomState(1).randn(1, 32, 32, 3).astype(np.float32)
+    want, j_noise, j_logits = _jax_sample(jm, variables, img)
+
+    tm = build_model(cfg.model, device="cpu", input_size=(32, 32))
+    load_flax(tm, jax.tree_util.tree_map(np.asarray, variables["params"]),
+              jax.tree_util.tree_map(np.asarray, variables["batch_stats"]))
+    tcap = []
+    denoise = tm.denoise_logits
+    tm.denoise_logits = lambda *a: tcap.append(denoise(*a)) or tcap[-1]
+    got = tm.sample(torch.from_numpy(img), init_noise=torch.from_numpy(j_noise)).numpy()
+    assert tcap[0].shape == j_logits.shape
+    np.testing.assert_allclose(tcap[0].numpy(), j_logits, rtol=0, atol=1e-4)
+    assert got.shape == want.shape == (1, 32, 32, cfg.model.num_classes)
+    assert np.isfinite(got).all()
+
+
 def test_port_imports_no_jax():
     code = ("import sys, ddp_tpu_torch, ddp_tpu_torch.models.segmentor, "
             "ddp_tpu_torch.config, ddp_tpu_torch.convert, ddp_tpu_torch.evaluation.batched, "
@@ -118,7 +145,10 @@ def test_port_imports_no_jax():
             "ddp_tpu_torch.evaluation.slide, ddp_tpu_torch.train.torch_import, "
             "ddp_tpu_torch.tools.train, ddp_tpu_torch.tools.test, ddp_tpu_torch.models.bev, "
             "ddp_tpu_torch.nn.bev, ddp_tpu_torch.ops.bev_pool, ddp_tpu_torch.data.bev_datasets, "
-            "ddp_tpu_torch.data.transforms_3d, ddp_tpu_torch.models.depther; "
+            "ddp_tpu_torch.data.transforms_3d, ddp_tpu_torch.models.depther, "
+            "ddp_tpu_torch.nn.second, ddp_tpu_torch.nn.dla_vovnet, "
+            "ddp_tpu_torch.tools.prepare_nuscenes, ddp_tpu_torch.tools.convert_datasets, "
+            "ddp_tpu_torch.tools.browse_dataset; "
             # Pillow only inside read_image's JPEG branch, never at import
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu', 'PIL')); print(bad); "

@@ -23,6 +23,8 @@ from ddp_tpu.evaluation import slide as jslide
 from ddp_tpu_torch.config import build_model, get_config
 from ddp_tpu_torch.convert import load_flax
 from ddp_tpu_torch.evaluation import slide as tslide
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 K = 5
 

@@ -33,6 +33,8 @@ from ddp_tpu import native as jnative
 from ddp_tpu.nn import sparse_conv as jsc
 from ddp_tpu_torch import native
 from ddp_tpu_torch.nn import sparse_conv as tsc
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 # the z extent of nuScenes' grid (41 cells of 0.2 m), a smaller x-y one
 SHAPE = (40, 32, 41)

@@ -40,6 +40,8 @@ from ddp_tpu_torch.data.image_io import read_image, read_png, write_png
 from ddp_tpu_torch.evaluation import slide as tslide
 from ddp_tpu_torch.tools import (analyze_logs, confusion_matrix, get_flops, image_demo,
                                  model_ensemble, print_config, publish_model)
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 ADE = os.path.join(ROOT, "tests", "data", "ade")
@@ -318,16 +320,21 @@ def test_flop_counter_counts_conv_and_linear_by_hand():
         2 * 3 * 9 * 4 * 36 + 2 * 2 * 10 * 5
 
 
-def test_group_norm_one_value_per_group_reference_discrepancy():
-    """torch's GroupNorm refuses a map with one value per group (32 groups of
-    one channel at 1 x 1, as ``smoke``'s FPN top at a 32^2 single image)
-    where flax's computes (x - mean = 0): the port's tools need ``smoke``
-    inputs of 64^2 or a batch of 2."""
+def test_group_norm_one_value_per_group_matches_flax():
+    """A map with one value per group (32 groups of one channel at 1 x 1, as
+    ``smoke``'s FPN top at a 32^2 single image), where ``F.group_norm``
+    refuses: the port's GroupNorm gives flax's output (the bias), float32."""
     import flax.linen as fnn
 
-    x = np.random.default_rng(0).normal(size=(1, 1, 1, 32)).astype(np.float32)
+    from ddp_tpu_torch.nn.common import GroupNorm
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 1, 1, 32)).astype(np.float32)
+    scale, bias = (rng.normal(size=32).astype(np.float32) for _ in range(2))
     gn = fnn.GroupNorm(num_groups=32)
-    y = gn.apply(gn.init(jax.random.PRNGKey(0), x), x)
-    assert np.isfinite(np.asarray(y)).all()
-    with pytest.raises(ValueError, match="more than 1 value per channel"):
-        torch.nn.GroupNorm(32, 32).eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    want = np.asarray(gn.apply({"params": {"scale": scale, "bias": bias}}, x))
+    tg = GroupNorm(32, 32, eps=1e-5).eval()
+    tg.load_state_dict({"weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias)})
+    got = tg(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(want, bias[None, None, None], rtol=0, atol=1e-6)

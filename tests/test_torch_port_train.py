@@ -23,6 +23,7 @@ device in ``test_torch_port_train_loop.py``, the bit-exact resume in
 run spreads them); they import their helpers from here.
 """
 import dataclasses
+import functools
 
 import flax.linen as fnn
 import jax
@@ -126,14 +127,16 @@ def _jax_train_forward(jm, variables, img, gt, t, noise, mixed_precision=False):
     return _np(jax.jit(run)(variables["params"], variables["batch_stats"]))
 
 
-@pytest.mark.parametrize("case", ["full", "quarter", "resize", "self_aligned"])
+@pytest.mark.parametrize("case", ["full", "quarter", "resize", "self_aligned", "remat"])
 def test_train_forward_and_grads_match_jax(case, monkeypatch):
     """'resize': a 66x66 image gives a 17x17 grid, not a x4 of the labels, so
-    both packages take the resize + CE branch."""
+    both packages take the resize + CE branch. 'remat': the decoder's layer
+    recomputed in the backward pass in both packages (``decoder_remat``; one
+    layer: JAX's remat compile of two took 49 s)."""
     cfg = get_config("tiny_seg")
     m = cfg.model
-    kw = {"quarter": dict(loss_at="quarter"), "self_aligned": dict(self_aligned=True)}.get(
-        case, {})
+    kw = {"quarter": dict(loss_at="quarter"), "self_aligned": dict(self_aligned=True),
+          "remat": dict(decoder_remat=True, decoder_layers=1)}.get(case, {})
     hw = (66, 66) if case == "resize" else (64, 64)
     jm = _jax_model(m, decoder_attn="window", **kw)
     variables = jax.jit(lambda: jm.init(
@@ -177,6 +180,48 @@ def test_train_forward_and_grads_match_jax(case, monkeypatch):
     for name, v in params_from_flax(variables["params"], stats_j).items():
         if name.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(sd[name].numpy(), v.numpy(), rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("task,attn", [("seg", "msda"), ("depth", "msda")])
+def test_decoder_remat_step_matches_the_step_without(task, attn):
+    """``decoder_remat`` changes what the backward pass keeps, not what it
+    computes: one f32 train step of the tiny msda segmentor and depther with
+    and without it, the same weights, batch, t and noise: the loss within
+    1e-6 relative, each gradient within 1e-6 of its max, and the
+    checkpointed pass calls each decoder layer twice (the window decoder's
+    remat step is held to JAX's in ``test_train_forward_and_grads_match_jax``)."""
+    preset = "converge_depth" if task == "depth" else "tiny_seg"
+    m = dataclasses.replace(get_config(preset).model, drop_path_rate=0.0)
+    if task == "seg":
+        m = dataclasses.replace(m, decoder_attn=attn)
+    hw = (32, 48) if task == "depth" else (32, 32)
+    rng = np.random.RandomState(3)
+    img = torch.from_numpy(rng.randn(2, *hw, 3).astype(np.float32))
+    gt = (torch.from_numpy(rng.uniform(0.5, 9.0, (2, *hw)).astype(np.float32)) if task == "depth"
+          else torch.from_numpy(_batch(hw)[1]))
+    t = torch.from_numpy(rng.uniform(0.0, 0.999, 2).astype(np.float32))
+    out = {}
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(m, decoder_remat=remat), device="cpu", seed=5)
+        if task == "seg":
+            _no_dropout(model)
+        model.train()
+        calls = []
+        for layer in model.decode_head.encoder.children():
+            layer.forward = functools.partial(
+                lambda fwd, *a: calls.append(1) or fwd(*a), layer.forward)
+        gen = torch.Generator().manual_seed(9)
+        loss, _ = model(img, gt, t=t, generator=gen)
+        loss.backward()
+        out[remat] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()
+                                    if p.grad is not None}, len(calls))
+    (l0, g0, c0), (l1, g1, c1) = out[False], out[True]
+    n_layers = m.decoder_layers
+    assert (c0, c1) == (n_layers, 2 * n_layers)
+    np.testing.assert_allclose(l1, l0, rtol=1e-6)
+    assert g1.keys() == g0.keys() and len(g0) > 50
+    for name, g in g0.items():
+        assert (g1[name] - g).abs().max() <= 1e-6 * g.abs().max(), name
 
 
 def test_bf16_train_step_matches_jax():

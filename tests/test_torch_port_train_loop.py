@@ -16,6 +16,7 @@ from ddp_tpu_torch.data.seg_datasets import SyntheticSegDataset
 from ddp_tpu_torch.train.checkpoint import CheckpointManager
 from ddp_tpu_torch.train.loop import train
 from test_torch_port_train import MEAN, STD
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _batches(ds, batch_size, start=0):

@@ -23,6 +23,7 @@ from ddp_tpu_torch.convert import params_from_flax
 from ddp_tpu_torch.train import optim as toptim
 from ddp_tpu_torch.train.step import TrainState, make_train_step
 from test_torch_port_train import _batch, _jax_model, _no_dropout, _np
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def _opt_cases():

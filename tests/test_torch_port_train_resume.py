@@ -7,6 +7,7 @@ import torch
 from ddp_tpu_torch.data.seg_datasets import SyntheticSegDataset
 from ddp_tpu_torch.train.loop import train
 from test_torch_port_train_loop import _batches, _loop_cfg
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 def test_resume_is_bit_exact(tmp_path):

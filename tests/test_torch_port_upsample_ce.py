@@ -18,6 +18,7 @@ import torch
 from ddp_tpu.nn.losses import cross_entropy_seg_upsampled as jax_oracle
 from ddp_tpu_torch.nn.losses import cross_entropy_seg_upsampled
 from ddp_tpu_torch.ops import upsample_ce as U
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

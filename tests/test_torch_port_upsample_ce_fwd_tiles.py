@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from ddp_tpu_torch.ops import upsample_ce as U
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 PAD = -1e30  # the kernel's logit for a class >= K
 

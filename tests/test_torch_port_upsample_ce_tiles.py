@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ddp_tpu_torch.ops import upsample_ce as U
+from torch_port_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [150, 19])

@@ -25,6 +25,8 @@ import torch
 
 from ddp_tpu.nn import losses as jl
 from ddp_tpu_torch.nn import losses as tl
+from torch_port_threads import _one_torch_thread  # noqa: F401
+
 
 K = 5
 
