@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases build,host_data         # the host's decode and batch times
     python3 chip_smoke.py --phases build,compat_reference,compat_main   # the compat zoo
     python3 chip_smoke.py --phases build,dist,tools,dist_two   # data-parallel and the tools
+                                           # (dist, dist_two: ade20k_swin_t, with
+                                           # microbatch 2 too, and controlnet_sd15)
     python3 chip_smoke.py --phases build,lidar_zoo         # the lidar pieces, decoder_remat
 
 Phases, each printing one JSON line; any failure raises and exits non-zero.
@@ -86,7 +88,16 @@ ms_deform_attn range and by the backward nodes made there.
                graph with the all-reduce captured held to the eager steps
                without a group (graph's limits), step ms with and without
                the collective (eager, graphed), and what a profile of one
-               replay shows of the collective.
+               replay shows of the collective. Two more cases, each an eager
+               step with the all-reduce and a 2-step graph with it captured,
+               one replay profiled, held to eager steps without a group
+               (graph's limits, deterministic algorithms on): ade20k_swin_t
+               at 4 x 512^2 with microbatch 2 (rows dealt by
+               shard_batch_microbatched), 2 q_sample, 2 dtable and 4 + 4
+               upsample_ce launches per step, eager and replayed; and
+               controlnet_sd15 at 4 x 512^2, f32, 0 launches, the frozen
+               tensors bitwise unchanged. These run after cn_train, on
+               cn_main's model where that phase ran.
  10b. tools  - the model tools on the card at ade20k_swin_t: image_demo on
                a 512^2 PNG, publish_model of 1- and 2-step checkpoints,
                image_demo --ckpt, model_ensemble and confusion_matrix on
@@ -98,15 +109,20 @@ ms_deform_attn range and by the backward nodes made there.
                browse_dataset smoke, and tools.train smoke --yaml on the card
                and the CPU, each exit 0 with outputs held to the CPU's
                (data_tools_check).
- 10c. dist_two - (only when named) two processes of one gloo group on
-               cuda:0 train ade20k_swin_t eagerly for 2 steps on a global
-               batch of 2, held to two 1-process runs on the whole batch:
-               the ranks' logs equal, losses 1e-5 relative (+ 3 x the
-               1-process runs' spread), each first-step gradient tensor
-               within 1e-3 of its L2 + 3 x two summation orders' distance,
-               each parameter tensor after 2 steps within 1e-2 of its
-               update (L2); the gloo all-reduce's wall ms; reported, not
-               held, a 1-process run without cuDNN against the reference.
+ 10c. dist_two - (only when named) for each of three cases, two processes
+               of one gloo group on cuda:0 train eagerly for 2 steps on
+               their rows of a global batch, held to two 1-process runs on
+               the whole batch: the ranks' logs equal, losses 1e-5 relative
+               (+ 3 x the 1-process runs' spread), each first-step gradient
+               tensor within 1e-3 of its L2 + 3 x two summation orders'
+               distance, each parameter tensor after 2 steps within 1e-2 of
+               its update (L2); the ranks' peak GB and the gloo all-reduce's
+               wall ms; reported, not held, a 1-process run without cuDNN
+               against the reference. The cases: ade20k_swin_t at a global
+               batch of 2; ade20k_swin_t at 4 with microbatch 2, rows dealt
+               chunk-major; controlnet_sd15 at 2 (one 512^2 image a rank; its
+               control_model's tensors compared after), its 1-process runs
+               after the ranks have gone.
  11. msda_main - serving with the msda decoder: ade20k_swin_t_msda at full
                width and depth, its weights seeded random tensors under
                mmseg's names, torch.save'd and loaded onto the card by
@@ -3955,10 +3971,11 @@ def phase_cn_main(smi: str):
 
 
 def cn_batch(cfg, b: int, device="cuda"):
-    """The first batch of make_train_iter (synthetic fill50k at 512^2) cut to b."""
+    """The first batch of make_train_iter at world 1 (synthetic fill50k at
+    512^2) cut to b, under a process group too."""
     from ddp_tpu_torch.data import make_train_iter
 
-    host = next(make_train_iter(cfg))
+    host = next(make_train_iter(cfg, world=1))
     return {k: torch.from_numpy(v[:b]).to(device) for k, v in host.items()}
 
 
@@ -4030,6 +4047,27 @@ def cn_graph_case(state, batch, mixed: bool, n: int) -> dict:
         torch.cuda.empty_cache()
 
 
+def cn_parts(model) -> tuple:
+    """Host copies of the frozen SD parts' and the ControlNet's tensors."""
+    return ({k: v.detach().cpu() for k, v in model.named_parameters() if k.startswith(CN_FROZEN)},
+            {k: v.detach().cpu() for k, v in model.named_parameters()
+             if k.startswith("control_model")})
+
+
+def cn_parts_moved(model, parts, steps: int) -> tuple:
+    """What training did to ``cn_parts``: (the line's entries, whether the
+    frozen tensors are bitwise unchanged and some ControlNet tensor moved)."""
+    frozen, control = parts
+    changed_frozen = [k for k, v in model.named_parameters()
+                      if k.startswith(CN_FROZEN) and not torch.equal(v.detach().cpu(), frozen[k])]
+    control_changed = sum(not torch.equal(v.detach().cpu(), control[k])
+                          for k, v in model.named_parameters() if k.startswith("control_model"))
+    return ({"frozen_bitwise_unchanged": {"tensors": len(frozen), "changed": changed_frozen[:10],
+                                          "steps_taken": steps},
+             "control_model_tensors_changed": f"{control_changed} of {len(control)}"},
+            not changed_frozen and control_changed > 0)
+
+
 def phase_cn_train(smi: str, model=None, profile: str = None):
     """Training controlnet_sd15 at its batch of 4 x 512^2 on synthetic fill50k
     (data.dataset=synthetic; the SD UNet, VAE and CLIP frozen by lr_mult 0,
@@ -4051,9 +4089,7 @@ def phase_cn_train(smi: str, model=None, profile: str = None):
     if model is None:
         model, _ = cn_model(cfg)
     model.train()
-    frozen = {k: v.detach().cpu() for k, v in model.named_parameters() if k.startswith(CN_FROZEN)}
-    control = {k: v.detach().cpu() for k, v in model.named_parameters()
-               if k.startswith("control_model")}
+    parts = cn_parts(model)
     state = TrainState(model, make_optimizer(cfg.optim, model),
                        torch.Generator(device="cuda").manual_seed(0))
     b = cfg.data.batch_size
@@ -4103,19 +4139,12 @@ def phase_cn_train(smi: str, model=None, profile: str = None):
         torch.cuda.empty_cache()
         line[f"graph_vs_eager_b1_{tag}"] = dict(check, deterministic_algorithms_warnings=warned,
                                                 compared="control_model's tensors and moments")
-    changed_frozen = [k for k, v in model.named_parameters()
-                      if k.startswith(CN_FROZEN) and not torch.equal(v.detach().cpu(), frozen[k])]
-    control_changed = sum(not torch.equal(v.detach().cpu(), control[k])
-                          for k, v in model.named_parameters() if k.startswith("control_model"))
-    line["frozen_bitwise_unchanged"] = {"tensors": len(frozen), "changed": changed_frozen[:10],
-                                        "steps_taken": state.optimizer.count}
-    line["control_model_tensors_changed"] = f"{control_changed} of {len(control)}"
-    line.update(wall_s=time.perf_counter() - t_phase, card=smi)
+    moved, ok = cn_parts_moved(model, parts, state.optimizer.count)
+    line.update(moved, wall_s=time.perf_counter() - t_phase, card=smi)
     emit(line)
-    if changed_frozen or control_changed == 0:
-        raise AssertionError(f"cn_train: frozen tensors changed {changed_frozen[:10]}, "
-                             f"control tensors changed {control_changed}")
-    del state, model, frozen, control
+    if not ok:
+        raise AssertionError(f"cn_train: {moved}")
+    del state, model, parts
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -5065,18 +5094,31 @@ def collective_kernels(p) -> dict:
     return out
 
 
-def dist_state(cfg):
-    """ade20k_swin_t's train state from seed 0, the optimizer at the end of
-    the lr warm-up (graph_case's reason)."""
+def dist_state(cfg, model=None):
+    """cfg's train state: ``model`` (default: built from seed 0), a new
+    optimizer at the end of the lr warm-up (graph_case's reason), a new
+    generator (seed 0)."""
     from ddp_tpu_torch.config import build_model
     from ddp_tpu_torch.train.optim import make_optimizer
     from ddp_tpu_torch.train.step import TrainState
 
-    model = build_model(cfg.model, device="cuda", seed=0)
+    if model is None:
+        model = build_model(cfg.model, device="cuda", seed=0)
     state = TrainState(model, make_optimizer(cfg.optim, model),
                        torch.Generator(device="cuda").manual_seed(0))
     state.optimizer.count = cfg.optim.warmup_steps
     return state
+
+
+def dist_group():
+    """An NCCL group of 1 in this process on 127.0.0.1 (a free port):
+    (device, mesh)."""
+    from ddp_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=free_port())
+    device = init_distributed()
+    return device, make_mesh()
 
 
 def phase_dist(smi: str):
@@ -5091,15 +5133,11 @@ def phase_dist(smi: str):
     import torch.distributed as dist
 
     from ddp_tpu_torch.config import get_config
-    from ddp_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from ddp_tpu_torch.train.step import make_chunked_train_step, make_train_step
 
     t_phase = time.perf_counter()
     cfg = get_config("ade20k_swin_t")
-    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=free_port())
-    device = init_distributed()
-    mesh = make_mesh()
+    device, mesh = dist_group()
     state = dist_state(cfg)
     batch = train_batch(cfg, 2)
     eager = make_train_step()
@@ -5151,6 +5189,118 @@ def phase_dist(smi: str):
           "profiled_replay": replay, "graph_vs_eager_without_group": check,
           "wall_s": time.perf_counter() - t_phase, "card": smi})
     return launches
+
+
+def dist_graph_case(state, batch, expect: dict, microbatch: int = 1,
+                    keys=("image", "label"), keep=None, n: int = 2) -> dict:
+    """A data-parallel step at world 1 under a new NCCL group (dist_group),
+    f32: one eager step with the gradient all-reduce, whose wrappers must
+    count ``expect`` (s, peak GB); an n-step CUDA graph with the all-reduce
+    captured, one replay profiled (the five kernels' launches per replayed
+    step must be ``expect``; busy share, the collective's kernels; peak GB
+    of the capture and replays); then one more replay, after which the group
+    and the graph go, held to n eager steps without the group from the same
+    state and generator (graph_vs_eager, ``keep`` as it takes it, PyTorch's
+    deterministic algorithms on)."""
+    import torch.distributed as dist
+
+    from ddp_tpu_torch.train.step import make_chunked_train_step, make_train_step
+
+    dist_group()
+    eager = make_train_step(microbatch=microbatch, batch_keys=keys)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    eager(state, batch)
+    torch.cuda.synchronize()
+    line = {"microbatch": microbatch, "eager_step_s_with_all_reduce": time.perf_counter() - t0,
+            "eager_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_eager_step": all_launches()}
+    if line["launches_eager_step"] != expect:
+        raise AssertionError(f"dist: the eager step with the all-reduce launched {line}")
+    chunk_batch = stacked(batch, n)
+    with deterministic_algorithms(True) as warned:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # held in a list, so that the graph goes with its last replay
+        box = [make_chunked_train_step(n, microbatch=microbatch, batch_keys=keys)]
+        box[0](state, chunk_batch)  # n eager steps on the capture stream, then the capture
+        p, wall = profiled(lambda: box[0](state, chunk_batch), timed=True)
+        line["graph_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        line["capture_s"] = box[0].capture_s[n]
+        line["profiled_replay"] = dict(busy(p, wall), **collective_kernels(p), n=n)
+        per_step = {k: v / n for k, v in kernel_launches(p).items()}
+        line["launches_per_replayed_step"] = per_step
+        del p
+        if per_step != expect:
+            raise AssertionError(f"dist: the card ran {per_step} per replayed step: {line}")
+
+        def replay_then_leave(state, batches):
+            logs = box.pop()(state, batches)
+            torch.cuda.synchronize()
+            dist.destroy_process_group()  # the eager steps below run without a group
+            gc.collect()
+            torch.cuda.empty_cache()  # and without the graph's pool
+            return logs
+
+        line["graph_vs_eager_without_group"] = graph_vs_eager(state, replay_then_leave, eager,
+                                                              batch, n, keep=keep)
+    line["deterministic_algorithms_warnings"] = warned
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_dist_cases(smi: str, cn=None):
+    """dist's two more cases, each a dist_graph_case: ade20k_swin_t at
+    4 x 512^2 with microbatch 2, its rows dealt by shard_batch_microbatched
+    (at world 1 the whole batch), 2 q_sample, 2 dtable and 4 + 4 upsample_ce
+    launches per step; controlnet_sd15 at its batch of 4 x 512^2 on
+    synthetic fill50k (cn_main's model where that phase ran, else a new
+    one), 0 launches, its graph held on control_model's tensors (the rest
+    frozen by lr_mult 0, too large to snapshot beside the graph), the frozen
+    tensors bitwise unchanged and the ControlNet's changed. Returns the two
+    eager steps' launches."""
+    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.parallel.mesh import shard_batch_microbatched
+    from ddp_tpu_torch.train.optim import make_optimizer
+    from ddp_tpu_torch.train.step import TrainState
+
+    t_phase = time.perf_counter()
+    cfg = get_config("ade20k_swin_t")
+    state = dist_state(cfg)
+    batch = shard_batch_microbatched(train_batch(cfg, 4), 2)
+    mb = dist_graph_case(state, batch, {k: 2 * v for k, v in PER_STEP.items()}, microbatch=2)
+    del state, batch
+    emit({"phase": "dist", "case": "microbatch", "preset": cfg.name, "img": [4, 512, 512, 3],
+          "dtype": "float32, tf32 off", "group": "nccl, world 1, in this process", **mb,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
+    t_case = time.perf_counter()
+    cfg = get_config("controlnet_sd15", {"data.dataset": "synthetic"})
+    build_s = None
+    if cn is None:
+        cn, build_s = cn_model(cfg)
+    cn.train()
+    parts = cn_parts(cn)
+    state = TrainState(cn, make_optimizer(cfg.optim, cn),
+                       torch.Generator(device="cuda").manual_seed(0))
+    line = dist_graph_case(state, cn_batch(cfg, cfg.data.batch_size), NO_KERNELS, keys=CN_KEYS,
+                           keep=lambda k: k.startswith("control_model"))
+    moved, ok = cn_parts_moved(cn, parts, state.optimizer.count)
+    emit({"phase": "dist", "case": "controlnet", "preset": cfg.name,
+          "img": [cfg.data.batch_size, 512, 512, 3], "dtype": "float32, tf32 off",
+          "group": "nccl, world 1, in this process", "model_build_s": build_s, **line, **moved,
+          "graph_vs_eager_compared": "control_model's tensors and moments",
+          "wall_s": time.perf_counter() - t_case, "card": smi})
+    if not ok:
+        raise AssertionError(f"dist: {moved}")
+    del state, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return mb["launches_eager_step"], line["launches_eager_step"]
 
 
 def run_tool(module, argv) -> str:
@@ -5367,14 +5517,38 @@ def data_tools_check() -> dict:
     return {"outputs": out, "seconds": secs}
 
 
-def dist_two_steps(state, batch, deterministic: bool = True, cudnn: bool = True):
-    """The first step's gradients (the generator put back after), then two
-    eager steps, deterministic algorithms on (or off), cuDNN on (or off:
-    PyTorch's own convolutions, another summation order): (gradients by
-    name, logs)."""
+# dist_two's cases: preset, global batch, microbatch
+DIST_TWO_CASES = {"swin": ("ade20k_swin_t", 2, 1), "swin_microbatch": ("ade20k_swin_t", 4, 2),
+                  "controlnet": ("controlnet_sd15", 2, 1)}
+
+
+def dist_two_setup(case: str):
+    """A dist_two case on the card: (cfg, model from seed 0, the global
+    batch, the batch keys, microbatch, the launches two steps must count,
+    which parameters to compare after: ControlNet's control_model, the rest
+    frozen by lr_mult 0)."""
+    from ddp_tpu_torch.config import build_model, get_config
+
+    preset, b, k = DIST_TWO_CASES[case]
+    if case == "controlnet":
+        cfg = get_config(preset, {"data.dataset": "synthetic"})
+        model, _ = cn_model(cfg)
+        return (cfg, model, cn_batch(cfg, b), CN_KEYS, k, NO_KERNELS,
+                lambda name: name.startswith("control_model"))
+    cfg = get_config(preset)
+    return (cfg, build_model(cfg.model, device="cuda", seed=0), train_batch(cfg, b),
+            ("image", "label"), k, {key: 2 * k * v for key, v in PER_STEP.items()}, None)
+
+
+def dist_two_steps(state, batch, expect: dict, microbatch: int = 1, keys=("image", "label"),
+                   deterministic: bool = True, cudnn: bool = True):
+    """The first step's gradients (on the host; the generator put back
+    after), then two eager steps, whose wrappers must count ``expect``,
+    deterministic algorithms on (or off), cuDNN on (or off: PyTorch's own
+    convolutions, another summation order): (gradients by name, logs)."""
     from ddp_tpu_torch.train.step import make_train_step
 
-    step = make_train_step()
+    step = make_train_step(microbatch=microbatch, batch_keys=keys)
     # only cuDNN's switch: torch.backends.cudnn.flags() would also set TF32 on
     prev, torch.backends.cudnn.enabled = torch.backends.cudnn.enabled, cudnn
     try:
@@ -5383,36 +5557,39 @@ def dist_two_steps(state, batch, deterministic: bool = True, cudnn: bool = True)
             grads, _ = step.grads(state, batch)
             state.generator.set_state(gen)
             names = [k for k, _ in state.model.named_parameters()]
-            grads = {k: g.detach().clone() for k, g in zip(names, grads)}
+            grads = {k: g.detach().cpu() for k, g in zip(names, grads)}
             reset_all_launches()
             logs = [{k: v.item() for k, v in step(state, batch).items()} for _ in range(2)]
     finally:
         torch.backends.cudnn.enabled = prev
-    if all_launches() != {k: 2 * v for k, v in PER_STEP.items()}:
-        raise AssertionError(f"dist_two: 2 steps launched {all_launches()}")
+    if all_launches() != expect:
+        raise AssertionError(f"dist_two: 2 steps launched {all_launches()}, not {expect}")
     return grads, logs
 
 
-def dist_two_rank(rank: int, port: str, out: str) -> int:
-    """One of dist_two's two processes: a gloo group of 2 on CUDA tensors
-    (both on cuda:0), ade20k_swin_t on its image of the global batch of 2
-    (``dist_two_steps``); the logs, the first step's averaged gradients
-    (rank 0), the parameters after and the wall ms of a gloo all-reduce of
-    the gradients' size to ``out``."""
+def dist_two_rank(rank: int, port: str, out: str, case: str) -> int:
+    """One of a dist_two case's two processes: a gloo group of 2 on CUDA
+    tensors (both on cuda:0), its rows of the case's global batch
+    (shard_batch_microbatched: dealt chunk-major where microbatch > 1) through
+    ``dist_two_steps``; the logs, its peak GB and the wall ms of a gloo
+    all-reduce of the gradients' size to ``out``, and on rank 0 the first
+    step's averaged gradients and the compared parameters after."""
     import torch.distributed as dist
 
-    from ddp_tpu_torch.config import get_config
+    from ddp_tpu_torch.parallel.mesh import shard_batch_microbatched
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                             world_size=2)
-    cfg = get_config("ade20k_swin_t")
-    state = dist_state(cfg)
-    batch = {k: v[rank:rank + 1] for k, v in train_batch(cfg, 2).items()}
-    grads, logs = dist_two_steps(state, batch)
+    cfg, model, batch, keys, k, expect, keep = dist_two_setup(case)
+    state = dist_state(cfg, model)
+    batch = shard_batch_microbatched(batch, k)
+    grads, logs = dist_two_steps(state, batch, expect, k, keys)
     n = sum(p.numel() for p in state.model.parameters())
+    params = params_of(state, keep) if rank == 0 else None
+    peak = torch.cuda.max_memory_allocated() / 1e9
     g = torch.ones(n, device="cuda")
     ms = []
     for _ in range(3):
@@ -5421,10 +5598,9 @@ def dist_two_rank(rank: int, port: str, out: str) -> int:
         dist.all_reduce(g)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    torch.save({"logs": logs, "grads": {k: v.cpu() for k, v in grads.items()} if rank == 0
-                else None, "params": {k: p.detach().cpu() for k, p in
-                                      state.model.named_parameters()},
-                "all_reduce_ms": ms, "numel": n}, out)
+    torch.save({"logs": logs, "grads": grads if rank == 0 else None,
+                "params": None if params is None else {k: v.cpu() for k, v in params.items()},
+                "peak_mem_gb": peak, "all_reduce_ms": ms, "numel": n}, out)
     dist.destroy_process_group()
     return 0
 
@@ -5443,52 +5619,39 @@ TOL_GRAD_TWO_RANKS = 1e-3
 TOL_UPDATE_TWO_RANKS = 1e-2
 
 
-def phase_dist_two(smi: str):
-    """Two processes of one gloo group on cuda:0 (NCCL refuses two ranks on
-    one GPU) train ade20k_swin_t eagerly for 2 steps on a global batch of 2
-    (one image each, f32, deterministic algorithms on), held to two runs of
-    the 1-process eager steps on the whole batch: both ranks' logs equal,
-    each step's loss within 1e-5 relative (+ 3 x the two 1-process runs'
-    spread), the first step's averaged gradients and each parameter tensor
-    after 2 steps within TOL_GRAD_TWO_RANKS's and TOL_UPDATE_TWO_RANKS's
-    limits. Reported beside them, not held: a 1-process run without cuDNN
-    (another summation order) against the reference, by the same limits."""
-    t_phase = time.perf_counter()
-    os.makedirs(DIST_DIR, exist_ok=True)
-    port = free_port()
-    outs = [os.path.join(DIST_DIR, f"rank{r}.pt") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-two-rank",
-                               str(r), "--port", port, "--out", outs[r]],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(2)]
-    try:
-        from ddp_tpu_torch.config import get_config
+def dist_two_references(case: str):
+    """The case's 1-process runs on the whole global batch, one model reset
+    to its start before each: deterministic algorithms on (twice), off, and
+    on without cuDNN; (cfg, [(gradients, logs, compared parameters after)],
+    the compared parameters before)."""
+    cfg, model, batch, keys, k, expect, keep = dist_two_setup(case)
+    start = {key: v.detach().cpu() for key, v in model.state_dict().items()}
+    runs = []
+    for deterministic, cudnn in ((True, True), (True, True), (False, True), (True, False)):
+        model.load_state_dict(start)
+        state = dist_state(cfg, model)
+        before = params_of(state, keep)
+        grads, logs = dist_two_steps(state, batch, expect, k, keys, deterministic, cudnn)
+        runs.append((grads, logs, params_of(state, keep)))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, runs, before
 
-        cfg = get_config("ade20k_swin_t")
-        batch = train_batch(cfg, 2)
-        runs = []
-        for deterministic, cudnn in ((True, True), (True, True), (False, True), (True, False)):
-            state = dist_state(cfg)
-            before = params_of(state)
-            grads, logs = dist_two_steps(state, batch, deterministic, cudnn)
-            runs.append((grads, logs, params_of(state)))
-            del state
-            torch.cuda.empty_cache()
-        logs_out = [p.communicate(timeout=600)[0].decode(errors="replace") for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs_out):
-        if p.returncode != 0:
-            raise AssertionError(f"dist_two: a rank failed:\n{log[-3000:]}")
-    ranks = [torch.load(o, weights_only=True) for o in outs]
+
+def dist_two_check(case: str, cfg, ranks, runs, before):
+    """A case's two ranks against its 1-process runs (phase_dist_two's
+    limits): (its line, whether it held)."""
     (grads_a, logs_a, params_a), (_, logs_b, _), (grads_c, _, _), (grads_d, _, params_d) = runs
     ranks_agree = ranks[0]["logs"] == ranks[1]["logs"]
     loss = [r["loss"] for r in ranks[0]["logs"]]
     ref = [r["loss"] for r in logs_a]
     spread = [abs(x["loss"] - y["loss"]) for x, y in zip(logs_a, logs_b)]
     loss_ok = all(abs(g - e) <= 1e-5 * abs(e) + 3.0 * s for g, e, s in zip(loss, ref, spread))
-    got_g = {k: v.cuda() for k, v in ranks[0]["grads"].items()}
+    got_g = ranks[0]["grads"]
     dg, order = l2_by_tensor(got_g, grads_a), l2_by_tensor(grads_c, grads_a)
     norm_g = {k: g.double().norm().item() for k, g in grads_a.items()}
     floor = 1e-6 * sum(v * v for v in norm_g.values()) ** 0.5
@@ -5515,14 +5678,17 @@ def phase_dist_two(smi: str):
                  "two_ranks_all_l2": all_l2(dg), "all_grads_l2": all_l2(norm_g),
                  "params_l2_over_update": all_l2(off_params) / all_l2(upd_a)}
     got = {k: v.cuda() for k, v in ranks[0]["params"].items()}
-    dist_l2, upd = l2_by_tensor(got, params_a), l2_by_tensor(params_a, before)
-    param_ratio = {k: dist_l2[k] / (TOL_UPDATE_TWO_RANKS * upd[k]) if upd[k] else
+    dist_l2 = l2_by_tensor(got, params_a)
+    param_ratio = {k: dist_l2[k] / (TOL_UPDATE_TWO_RANKS * upd_a[k]) if upd_a[k] else
                    (0.0 if dist_l2[k] == 0 else float("inf")) for k in dist_l2}
     worst_param = max(param_ratio, key=param_ratio.get)
-    out = {"phase": "dist_two", "preset": cfg.name, "group": "gloo, 2 processes on cuda:0",
-           "global_batch": [2, 512, 512, 3], "dtype": "float32, tf32 off",
-           "ranks_logged_alike": ranks_agree, "loss_two_ranks": loss, "loss_one_process": ref, "loss_one_process_again":
-               [r["loss"] for r in logs_b], "grad_norm_two_ranks":
+    preset, b, k = DIST_TWO_CASES[case]
+    out = {"phase": "dist_two", "case": case, "preset": preset,
+           "group": "gloo, 2 processes on cuda:0", "global_batch": [b, *cfg.data.crop_size, 3],
+           "microbatch": k, "rows": "dealt chunk-major" if k > 1 else "one half a rank",
+           "dtype": "float32, tf32 off",
+           "ranks_logged_alike": ranks_agree, "loss_two_ranks": loss, "loss_one_process": ref,
+           "loss_one_process_again": [r["loss"] for r in logs_b], "grad_norm_two_ranks":
                [r["grad_norm"] for r in ranks[0]["logs"]],
            "grad_norm_one_process": [r["grad_norm"] for r in logs_a], "losses_ok": loss_ok,
            "first_step_grads": {
@@ -5536,18 +5702,73 @@ def phase_dist_two(smi: str):
                         "x L2 of all the gradients + 3 x L2 between 1-process runs with "
                         "deterministic algorithms on and off"},
            "params_after_2_steps": {
+               "compared": "control_model's" if case == "controlnet" else "all",
                "worst_tensor": worst_param, "worst_over_limit": param_ratio[worst_param],
                "tensors_over_1e-3_of_update": sum(r > 0.1 for r in param_ratio.values()),
                "l2_over_update": (sum(v * v for v in dist_l2.values())
-                                  / sum(v * v for v in upd.values())) ** 0.5,
+                                  / sum(v * v for v in upd_a.values())) ** 0.5,
                "limit": f"per tensor: L2 <= {TOL_UPDATE_TWO_RANKS} x L2 of the update"},
-           "all_reduce_wall_ms": ranks[0]["all_reduce_ms"],
-           "all_reduce_numel": ranks[0]["numel"], "wall_s": time.perf_counter() - t_phase,
-           "card": smi}
-    emit(out)
-    if not (ranks_agree and loss_ok and grad_ratio[worst_grad] <= 1.0
-            and param_ratio[worst_param] <= 1.0):
-        raise AssertionError(f"dist_two: {out}, rank 1 logged {ranks[1]['logs']}")
+           "rank_peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+           "all_reduce_wall_ms": ranks[0]["all_reduce_ms"], "all_reduce_numel": ranks[0]["numel"]}
+    ok = (ranks_agree and loss_ok and grad_ratio[worst_grad] <= 1.0
+          and param_ratio[worst_param] <= 1.0)
+    return out, ok
+
+
+def phase_dist_two(smi: str):
+    """Each case of DIST_TWO_CASES: two processes of one gloo group on
+    cuda:0 (NCCL refuses two ranks on one GPU) train it eagerly for 2 steps
+    on their rows of its global batch (f32, deterministic algorithms on),
+    held to two runs of the 1-process eager steps on the whole batch: both
+    ranks' logs equal, each step's loss within 1e-5 relative (+ 3 x the two
+    1-process runs' spread), the first step's averaged gradients and each
+    compared parameter tensor after 2 steps within TOL_GRAD_TWO_RANKS's and
+    TOL_UPDATE_TWO_RANKS's limits. ade20k_swin_t at a global batch of 2 and
+    at 4 with microbatch 2 (rows dealt chunk-major), their 1-process runs
+    beside the ranks; controlnet_sd15 at 2 (one 512^2 image a rank), its
+    1-process runs after the ranks have gone (~36 GB: they do not fit
+    beside two ranks' ~30 GB each). Reported beside them, not held: a
+    1-process run without cuDNN (another summation order) against the
+    reference, by the same limits. Every case runs; a failed one raises at
+    the end."""
+    t_phase = time.perf_counter()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    failed = []
+    for case in DIST_TWO_CASES:
+        t_case = time.perf_counter()
+        port = free_port()
+        outs = [os.path.join(DIST_DIR, f"{case}_rank{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-two-rank",
+                                   str(r), "--dist-two-case", case, "--port", port,
+                                   "--out", outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            if case != "controlnet":
+                refs = dist_two_references(case)
+            logs_out = [p.communicate(timeout=900)[0].decode(errors="replace") for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, log in zip(procs, logs_out):
+            if p.returncode != 0:
+                raise AssertionError(f"dist_two {case}: a rank failed:\n{log[-3000:]}")
+        if case == "controlnet":
+            refs = dist_two_references(case)
+        ranks = [torch.load(o, weights_only=True) for o in outs]
+        for o in outs:
+            os.remove(o)
+        cfg, runs, before = refs
+        out, ok = dist_two_check(case, cfg, ranks, runs, before)
+        del refs, runs, before, ranks
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(dict(out, held=ok, wall_s=time.perf_counter() - t_case, card=smi))
+        if not ok:
+            failed.append(case)
+    if failed:
+        raise AssertionError(f"dist_two: {failed} failed their limits "
+                             f"({time.perf_counter() - t_phase:.1f} s)")
 
 
 # --- the lidar pieces and decoder_remat ------------------------------------------
@@ -5951,21 +6172,29 @@ DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
+                                 epilog="phases, in the order of the docstring's table: "
+                                        + ", ".join(PHASES))
     ap.add_argument("--profile", help="write per-kernel device-time tables here")
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of the phases after device (default: all "
                          "but dist_two, fusion_host, host_data, converge, graph_grads, replay_records, "
                          "converge_msda, "
                          "converge_depth, converge_bev, converge_bev_fusion, "
-                         "converge_seg_quarter and converge_controlnet; serve needs main)")
+                         "converge_seg_quarter and converge_controlnet; serve needs main). "
+                         "dist: ade20k_swin_t at 2 x 512^2, at 4 x 512^2 with microbatch 2, "
+                         "and controlnet_sd15 at 4 x 512^2, each under an NCCL group of 1; "
+                         "dist_two: ade20k_swin_t at a global batch of 2, at 4 with "
+                         "microbatch 2, and controlnet_sd15 at 2, each on 2 gloo ranks "
+                         "against 1 process")
     # one of dist_two's processes (chip_smoke.py starts them itself)
     ap.add_argument("--dist-two-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-two-case", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.dist_two_rank is not None:
-        return dist_two_rank(args.dist_two_rank, args.port, args.out)
+        return dist_two_rank(args.dist_two_rank, args.port, args.out, args.dist_two_case)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES) or ("serve" in phases and "main" not in phases):
         ap.error(f"--phases takes a subset of {','.join(PHASES)}; serve needs main")
@@ -6043,6 +6272,8 @@ def main(argv=None) -> int:
         cn, launches["cn_serve"] = phase_cn_main(smi)
     if "cn_train" in phases:
         launches["cn_train"] = phase_cn_train(smi, cn, args.profile)
+    if "dist" in phases:  # here, to train cn_main's model under the group
+        launches["dist_microbatch"], launches["dist_controlnet"] = phase_dist_cases(smi, cn)
     del cn
     gc.collect()
     torch.cuda.empty_cache()
@@ -6096,6 +6327,11 @@ def main(argv=None) -> int:
                                   "(the eager first chunk and the capture)"),
                 ("dist", "eager train step of ade20k_swin_t under an NCCL group of 1, with "
                          "the gradient all-reduce"),
+                ("dist_microbatch", "eager train step of ade20k_swin_t at 4 x 512^2, "
+                                    "microbatch 2, under an NCCL group of 1, with the "
+                                    "gradient all-reduce"),
+                ("dist_controlnet", "eager f32 train step of controlnet_sd15, 4 x 512^2, under "
+                                    "an NCCL group of 1, with the gradient all-reduce"),
                 ("tools_image_demo", "tools/image_demo.py on one 512^2 PNG, ade20k_swin_t"),
                 ("tools_flip_tta", "flip_tta of sample() on one 512^2 image (2 calls)"),
                 ("tools_multi_scale_flip_tta", "multi_scale_flip_tta of sample() on one 512^2 "

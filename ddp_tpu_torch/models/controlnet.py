@@ -12,7 +12,11 @@ to a sampled posterior latent times ``scale_factor``, t ~ U{0..999}, the
 latent is corrupted with SD's linear-sqrt schedule, and the UNet fed the
 ControlNet's residuals predicts the noise (MSE). The three draws (posterior
 noise, t, noise; JAX splits one key three ways) come from the
-``torch.Generator`` the caller passes, or are given.
+``torch.Generator`` the caller passes, or are given; they are the only draws
+of the training path (the UNet, the ControlNet, the VAE and CLIP have no
+dropout). Each runs over the batch and goes through ``global_draw``, so a
+rank of a data-parallel step draws the global batch's numbers and keeps its
+rows, as JAX's one key over the sharded batch gives them.
 
 Serving (``sample``): DDIM with classifier-free guidance, the batch doubled
 to [uncond, cond] for one UNet pass a step, ``guess_mode``'s control scales
@@ -41,6 +45,7 @@ from ..device import resolve_device
 from ..nn.autoencoder import AutoencoderKL
 from ..nn.clip_text import CLIPTextEncoder
 from ..nn.unet import ControlNet, UNetConfig, UNetModel
+from ..parallel.global_batch import global_draw
 
 
 def make_beta_schedule(n_timestep: int = 1000, linear_start: float = 0.00085,
@@ -153,8 +158,8 @@ class ControlLDM(nn.Module):
         if posterior_noise is not None:
             eps = _nchw(posterior_noise).to(mean.dtype)
         elif sample_posterior:
-            eps = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                              device=mean.device)
+            eps = global_draw(lambda s: torch.randn(s, generator=generator, dtype=mean.dtype,
+                                                    device=mean.device), mean.shape)
         else:
             return self.scale_factor * mean
         return self.scale_factor * (mean + torch.exp(0.5 * logvar) * eps)
@@ -178,11 +183,13 @@ class ControlLDM(nn.Module):
         context = self.get_learned_conditioning(ids)
         b = z.shape[0]
         if t is None:
-            t = torch.randint(0, self.schedule.num_timesteps, (b,), generator=generator,
-                              device=z.device)
+            t = global_draw(lambda s: torch.randint(0, self.schedule.num_timesteps, s,
+                                                    generator=generator, device=z.device),
+                            (b,))
         t = t.long()
         if noise is None:
-            noise = torch.randn(z.shape, generator=generator, dtype=z.dtype, device=z.device)
+            noise = global_draw(lambda s: torch.randn(s, generator=generator, dtype=z.dtype,
+                                                      device=z.device), z.shape)
         else:
             noise = _nchw(noise).to(z.dtype)
         z_noisy = (self.sqrt_alphas_cumprod[t][:, None, None, None] * z

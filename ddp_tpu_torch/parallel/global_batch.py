@@ -20,6 +20,19 @@ under a process group):
   - ``mean_over_ranks`` averages the gradients, in buckets of at
     most ``BUCKET`` elements (one collective each, not one per tensor).
 
+A loss that is a mean over equal local shapes needs no reduction of its
+own: the mean over the ranks of its averaged gradients is the gradient of
+the global mean. ControlNet's ε-MSE is one (``torch.mean`` over the local
+[B/n, C, h, w] latents); its GroupNorms are per sample, CLIP draws nothing,
+and its three draws (the posterior sample, t, the noise) go through
+``global_draw``, so its data-parallel step adds no collective.
+
+A microbatched step (``train/step.py``, k chunks) runs each chunk inside
+``global_batch()``: BatchNorm and ``sig_loss`` reduce over the global
+chunk, the draws are the global chunk's. So the rows a rank holds in chunk
+i must be its share of JAX's chunk i of the global batch, as
+``parallel/mesh.py: shard_batch_microbatched`` deals them.
+
 At world 1 (or outside the context) all but ``mean_over_ranks`` are the
 identity, so a 1-process run computes exactly what it did without a group.
 Collectives are ``all_reduce`` only: gloo has no other on CUDA tensors.

@@ -99,6 +99,36 @@ def shard_batch(batch: Dict[str, Any], global_batch: int, device=None) -> Dict[s
     return {k: _to(v, device, 0, want, k) for k, v in batch.items()}
 
 
+def _deal(value, microbatch: int, rank: int, n: int, device, path: str):
+    if isinstance(value, dict):
+        return {k: _deal(v, microbatch, rank, n, device, f"{path}/{k}") for k, v in value.items()}
+    x = torch.as_tensor(value)
+    rows, rest = x.shape[0], tuple(x.shape[1:])
+    if rows % (microbatch * n):
+        raise ValueError(f"batch {path!r} has {rows} rows: {microbatch} chunks over {n} "
+                         f"processes need a multiple of {microbatch * n}")
+    share = rows // (microbatch * n)
+    x = x.reshape((microbatch, n, share) + rest)[:, rank].reshape((microbatch * share,) + rest)
+    return x if device is None else x.to(device)
+
+
+def shard_batch_microbatched(batch: Dict[str, Any], microbatch: int, device=None,
+                             rank: Optional[int] = None, n: Optional[int] = None
+                             ) -> Dict[str, Any]:
+    """This process's rows of a global batch [B, ...] for a step of
+    ``microbatch`` (k) chunks, chunk-major: for each chunk i, global rows
+    i·B/k + rank·B/(k·n) + [0, B/(k·n)). The JAX step chunks the global
+    batch (``ddp_tpu/train/state.py:110-118``), so its chunk i holds rows of
+    every rank; dealt so, chunk i of this process's local batch
+    (``train/step.py: _chunk``) is its share of that chunk. Each value's
+    leading dimension runs over the batch, batch-major (a [B·h·w, C] noise
+    is dealt by image); dicts are walked. ``rank`` and ``n`` default to the
+    process group's; at world 1 the local batch is the whole batch."""
+    r, w = world()
+    rank, n = (r if rank is None else rank), (w if n is None else n)
+    return {k: _deal(v, microbatch, rank, n, device, k) for k, v in batch.items()}
+
+
 def shard_batch_chunk(batches: Dict[str, Any], global_batch: int, device=None
                       ) -> Dict[str, Any]:
     """``shard_batch`` of a stacked chunk of batches ([T, local, ...])."""

@@ -100,7 +100,7 @@ class MetricLogger:
 
 
 # the tasks whose data-parallel step the 2-process test holds to one process
-DISTRIBUTED_TASKS = ("seg", "depth", "bev", "bev_fusion")
+DISTRIBUTED_TASKS = ("seg", "depth", "bev", "bev_fusion", "controlnet")
 
 
 def params_checksum(model: torch.nn.Module) -> torch.Tensor:

@@ -3,13 +3,17 @@
 ``train/loop.py``) on the CPU.
 
 One 2-process gloo run (``tests/torch_port_dist_worker.py``, made once per
-module, with a timeout of its own) trains each of four tasks for two steps
+module, with a timeout of its own) trains each of six cases for two steps
 on its rank's rows of two global batches: ``smoke`` (seg, drop path 0.2; a
 batch of 4), the tiny depther of ``tests/test_torch_port_depth.py`` (drop
-path 0.2), ``smoke_bev`` and ``smoke_fusion`` (batches of 2). The second
-half of each global batch (rank 1's rows) is rescaled, so the ranks' rows
-differ in their statistics: a per-rank BatchNorm, ``sig_loss`` or accuracy
-would not give the 1-process numbers. Each task is held to the same
+path 0.2), ``smoke_bev`` and ``smoke_fusion`` (batches of 2), ``smoke``
+with ``microbatch`` 2 on a batch of 8 (``seg_mb2``: two rows a rank in each
+chunk, dealt chunk-major; the aux head's BatchNorm on the path) and the tiny
+``converge_controlnet`` stack (a batch of 2). Rank 1's rows of each global
+batch are rescaled, so the ranks' rows differ in their statistics: a
+per-rank BatchNorm, ``sig_loss`` or accuracy would not give the 1-process
+numbers, nor would per-rank draws or, for ``seg_mb2``, chunks of each
+rank's contiguous half. Each task is held to the same
 ``train`` in a third process, started with the two, on the whole global
 batches (the JAX package's semantics: one
 program on the global batch, ``tests/test_multiprocess.py:51-66``):
@@ -261,17 +265,42 @@ def test_global_batchnorm_and_sig_loss_match_jax(world, two_ranks, jax_collectiv
 
 
 def test_uncovered_data_parallel_cases_raise(monkeypatch):
-    """Under a world of 2 (faked): a task the 2-process test does not cover,
-    a global batch that does not divide and a microbatched step raise."""
+    """Under a world of 2 (faked): a global batch that does not divide over
+    the ranks, and a microbatched step whose chunks B/k do not (JAX's
+    condition), raise; the ControlNet presets are accepted."""
     from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.train import loop, step
 
     monkeypatch.setattr(loop, "world", lambda: (0, 2))
     monkeypatch.setattr(step, "world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="controlnet"):
-        loop.check_distributed(get_config("converge_controlnet"))
     with pytest.raises(ValueError, match="divide"):
         loop.check_distributed(get_config("smoke", {"data.batch_size": 3}))
-    loop.check_distributed(get_config("smoke", {"data.batch_size": 4}))
-    with pytest.raises(NotImplementedError, match="microbatch"):
-        step.make_train_step(microbatch=2).grads(None, {"image": torch.zeros(2, 1)})
+    for preset in ("smoke", "converge_controlnet", "controlnet_sd15"):
+        loop.check_distributed(get_config(preset, {"data.batch_size": 4}))
+    # a local batch of 3: the global batch 6 in chunks of 3, which 2 ranks cannot share
+    with pytest.raises(ValueError, match=r"B = 6, k = 2\) must divide over the 2 ranks"):
+        step.make_train_step(microbatch=2).grads(None, {"image": torch.zeros(3, 1)})
+
+
+def test_chunk_major_dealing():
+    """``shard_batch_microbatched``: rank r's rows of chunk i are global rows
+    i·B/k + r·B/(k·n) + [0, B/(k·n)), dicts walked, a [B·h·w, C] value dealt
+    by image; at world 1 (no group) the whole batch; the stacked local
+    batches of the ranks, chunk by chunk, are the global batch."""
+    b, k, n, hw = 12, 3, 2, 4
+    batch = {"image": np.arange(b), "noise": np.arange(b * hw * 2).reshape(b * hw, 2),
+             "rb": {"a": np.arange(b * 3).reshape(b, 3)}}
+    got = [tmesh.shard_batch_microbatched(batch, k, rank=r, n=n) for r in range(n)]
+    assert got[0]["image"].tolist() == [0, 1, 4, 5, 8, 9]
+    assert got[1]["image"].tolist() == [2, 3, 6, 7, 10, 11]
+    for r in range(n):
+        img = got[r]["image"]
+        assert torch.equal(got[r]["rb"]["a"], torch.from_numpy(batch["rb"]["a"])[img])
+        assert torch.equal(got[r]["noise"].reshape(-1, hw, 2),
+                           torch.from_numpy(batch["noise"]).reshape(b, hw, 2)[img])
+    chunks = [torch.cat([g["image"].reshape(k, -1)[i] for g in got]) for i in range(k)]
+    assert torch.equal(torch.cat(chunks), torch.arange(b))
+    whole = tmesh.shard_batch_microbatched(batch, k)
+    assert torch.equal(whole["image"], torch.arange(b))
+    with pytest.raises(ValueError, match="multiple of 6"):
+        tmesh.shard_batch_microbatched({"image": np.arange(8)}, k, rank=0, n=n)

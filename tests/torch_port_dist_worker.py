@@ -8,7 +8,7 @@
 Each rank joins a gloo group on 127.0.0.1:PORT through
 ``parallel/mesh.py: init_distributed`` (torchrun's variables set here) and,
 for each task of ``TASKS``, runs ``train/loop.py: train`` for two steps in
-float64 on its rows of two fixed global batches (of 4 for ``smoke``, 2 for the others),
+float64 on its rows of two fixed global batches (``GLOBAL_BATCH``),
 recording every step's logs
 (``recording``), in a workdir of its own. It writes the logs, the final
 state_dict, the files the loop wrote, and the checks of the mesh, the
@@ -16,15 +16,24 @@ metric collectives and the rank-sliced iterator to OUT_JSON; the states and
 ``collectives_case``'s tensors go to OUT_JSON.pt. At WORLD 1 the process
 runs the same tasks on the whole global batches, without a group.
 
-The global batches come from the tasks' own iterators at world 1, and the
-second half of each (rank 1's rows) is rescaled: its images ×2.5 + 1, a
+The global batches come from the tasks' own iterators at world 1, and rank
+1's rows of each (the second half; for a microbatched case the rows that
+``shard_batch_microbatched`` deals it) are rescaled: its images ×2.5 + 1, a
 depth map ×1.7, a fusion sweep's voxel features ×3. So the two ranks' rows
 differ in their statistics, and a per-rank BatchNorm, ``sig_loss`` or
 accuracy would not give the 1-process run's numbers.
+
+``seg_mb2`` is ``smoke`` with ``microbatch`` 2: the train step is
+``make_chunked_train_step(..., microbatch=2)`` (the loop has no knob for it,
+as JAX's has none), and each rank's rows are dealt chunk-major by
+``parallel/mesh.py: shard_batch_microbatched``. ``controlnet`` is
+``converge_controlnet``'s stack at the tiny scale (``cn_size="tiny"``, 32²
+images, its VAE frozen by lr_mult 0).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -36,10 +45,12 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-TASKS = ("seg", "depth", "bev", "bev_fusion")
+TASKS = ("seg", "depth", "bev", "bev_fusion", "seg_mb2", "controlnet")
 # the global batch by task: one row a rank, but smoke's at 32^2, whose FPN's
-# last level is 1 x 1, where GroupNorm needs two rows a rank
-GLOBAL_BATCH = {"seg": 4, "depth": 2, "bev": 2, "bev_fusion": 2}
+# last level is 1 x 1, where GroupNorm needs two rows a rank (in each chunk)
+GLOBAL_BATCH = {"seg": 4, "depth": 2, "bev": 2, "bev_fusion": 2, "seg_mb2": 8,
+                "controlnet": 2}
+MICROBATCH = {"seg_mb2": 2}
 STEPS = 2
 
 
@@ -53,8 +64,11 @@ def task_config(task: str, workdir: str):
           "runtime.eval_interval": 1000, "runtime.tensorboard": False,
           "runtime.workdir": os.path.join(workdir, task),
           "runtime.mixed_precision": False, "data.batch_size": GLOBAL_BATCH[task]}
-    if task == "seg":
+    if task in ("seg", "seg_mb2"):
         return get_config("smoke", {**rt, "model.drop_path_rate": 0.2})
+    if task == "controlnet":
+        return get_config("converge_controlnet", {**rt, "model.cn_size": "tiny",
+                                                  "model.cn_image_size": 32})
     if task == "depth":  # the tiny depther of tests/test_torch_port_depth.py
         cfg = get_config("converge_depth", {**rt, "model.drop_path_rate": 0.2})
         return dataclasses.replace(cfg, model=dataclasses.replace(
@@ -62,8 +76,8 @@ def task_config(task: str, workdir: str):
     return get_config("smoke_bev" if task == "bev" else "smoke_fusion", rt)
 
 
-def global_batches(cfg):
-    """Two global batches of the task's iterator at world 1, rank 1's half
+def global_batches(cfg, microbatch: int = 1):
+    """Two global batches of the task's iterator at world 1, rank 1's rows
     rescaled (module docstring)."""
     from ddp_tpu_torch.data import make_train_iter
 
@@ -71,21 +85,29 @@ def global_batches(cfg):
     out = []
     for _ in range(STEPS):
         b = next(it)
-        half = slice(cfg.data.batch_size // 2, None)
-        b["image"][half] = b["image"][half] * 2.5 + 1.0
+        rank1 = rows(np.arange(cfg.data.batch_size), 1, 2, microbatch)
+        b["image"][rank1] = b["image"][rank1] * 2.5 + 1.0
         if cfg.model.task == "depth":
-            b["label"][half] = b["label"][half] * 1.7
+            b["label"][rank1] = b["label"][rank1] * 1.7
         if cfg.model.task == "bev_fusion":
-            b["voxel_feats"][half] = b["voxel_feats"][half] * 3.0
+            b["voxel_feats"][rank1] = b["voxel_feats"][rank1] * 3.0
         out.append(b)
     return out
 
 
-def rows(value, rank: int, world: int):
+def _numpy(value):
     if isinstance(value, dict):
-        return {k: rows(v, rank, world) for k, v in value.items()}
-    n = value.shape[0] // world
-    return np.ascontiguousarray(value[rank * n:(rank + 1) * n])
+        return {k: _numpy(v) for k, v in value.items()}
+    return np.ascontiguousarray(value.numpy())
+
+
+def rows(value, rank: int, world: int, microbatch: int = 1):
+    """This rank's rows of a global batch value (numpy; dicts walked), dealt
+    chunk-major by ``shard_batch_microbatched`` (at ``microbatch`` 1: the
+    rank's slice)."""
+    from ddp_tpu_torch.parallel.mesh import shard_batch_microbatched
+
+    return _numpy(shard_batch_microbatched({"v": value}, microbatch, rank=rank, n=world)["v"])
 
 
 def float64(value):
@@ -124,7 +146,8 @@ def run_task(task: str, workdir: str, rank: int = 0, world: int = 1):
     from ddp_tpu_torch.train.step import TrainStep
 
     cfg = task_config(task, workdir)
-    batches = [float64(rows(b, rank, world)) for b in global_batches(cfg)]
+    k = MICROBATCH.get(task, 1)
+    batches = [float64(rows(b, rank, world, k)) for b in global_batches(cfg, k)]
     logs: list = []
     out: dict = {}
     make, dtype, step_grads = loop.make_chunked_train_step, torch.get_default_dtype(), \
@@ -139,7 +162,7 @@ def run_task(task: str, workdir: str, rank: int = 0, world: int = 1):
                             zip(state.model.named_parameters(), grads)}
         return grads, step_logs
 
-    loop.make_chunked_train_step = recording(make, logs)
+    loop.make_chunked_train_step = recording(functools.partial(make, microbatch=k), logs)
     TrainStep.grads = first_grads
     torch.set_default_dtype(torch.float64)
     try:
