@@ -108,7 +108,15 @@ ms_deform_attn range and by the backward nodes made there.
                convert_datasets cityscapes on a copy of tests/data/cityscapes,
                browse_dataset smoke, and tools.train smoke --yaml on the card
                and the CPU, each exit 0 with outputs held to the CPU's
-               (data_tools_check).
+               (data_tools_check); tools/export.py's export_sample of
+               ade20k_swin_t at 1 x 512^2 (export_case): saved as a .pt2,
+               loaded in a fresh process that imports torch and the
+               encode_map op only (no model module), held to the eager
+               sample() from the same noise (the main phase's limits) with 3
+               encode_map launches a call; the export, save and load seconds,
+               the .pt2's MB and the program's ms a call beside the eager
+               sample()'s, and of one profiled call of each the device's busy
+               ms and the host-to-device copies.
  10c. dist_two - (only when named) for each of three cases, two processes
                of one gloo group on cuda:0 train eagerly for 2 steps on
                their rows of a global batch, held to two 1-process runs on
@@ -243,8 +251,8 @@ ms_deform_attn range and by the backward nodes made there.
                peak memory), the frozen parts bitwise unchanged and the
                ControlNet changed, graphed bf16 and f32 chunks (f32 at the
                largest batch that fits, the misses recorded), graph against
-               eager at batch 1 with deterministic algorithms on; no kernel
-               launched.
+               eager at batch 1 with deterministic algorithms on and not
+               warn-only (SDPA's backward deterministic); no kernel launched.
  29. compat_reference - the tiny compat models (an EncoderDecoder for each
                of the 14 part-I and 13 part-II registry heads it can drive,
                on a width-8 ResNet-18 or, for SETR-MLA, a nano ViT; the FCN
@@ -336,6 +344,13 @@ ms_deform_attn range and by the backward nodes made there.
                card, PSNR and MAE of 8 held-out hints at 20 DDIM steps and
                guidance 1.0) beside work_dirs/converge_controlnet/result.json;
                on a miss two more starts (runtime.seed 1, 2).
+ 42. export  - (only when named) export_case (as in tools) for
+               ade20k_swin_t_msda at 1 x 512^2 (3 encode_map launches a call)
+               and nyu_swin_t (depther) at 1 x 480 x 640 (none; 1e-4 m).
+ 43. dispatch - (only when named) sample()'s device and wall ms at the main
+               phase's inputs, and one encode_map call's host us and device
+               ms at its path's shape. It calls only public functions: run
+               from an earlier checkout's root it measures that checkout.
 
 Before the card's line, {"phase_seconds": {...}, "total_s": ...}: host seconds
 by phase. The line before the last is {"kernels": [...]}; the last line is
@@ -1765,14 +1780,17 @@ def phase_graph(smi: str, profile: str = None):
 
 
 @contextlib.contextmanager
-def deterministic_algorithms(on: bool):
-    """PyTorch's deterministic algorithms on or off (warn-only); yields a
-    list that receives the first line of each warning raised inside."""
+def deterministic_algorithms(on: bool, warn_only: bool = True):
+    """PyTorch's deterministic algorithms on or off (warn-only unless
+    ``warn_only`` is False: then an op without a deterministic kernel raises,
+    and SDPA's flash and memory-efficient backwards take their deterministic
+    algorithms, which they take only then); yields a list that receives the
+    first line of each warning raised inside."""
     import warnings
 
     prev = (torch.are_deterministic_algorithms_enabled(),
             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.use_deterministic_algorithms(on, warn_only=warn_only)
     hits = []
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -4077,8 +4095,9 @@ def phase_cn_train(smi: str, model=None, profile: str = None):
     unchanged after every step and the ControlNet's changed; a graphed bf16
     chunk and a graphed f32 one (at the largest batch whose graph fits, with
     the recorded out-of-memory errors of those that do not); graph against
-    eager at batch 1 with deterministic algorithms on (graph_vs_eager's
-    limits, f32 and bf16), with the deterministic-algorithm warnings; 0
+    eager at batch 1 with deterministic algorithms on, not warn-only
+    (graph_vs_eager's limits, f32 and bf16), with the deterministic-algorithm
+    warnings; 0
     launches of the five kernels. Returns the launches of one eager step."""
     from ddp_tpu_torch.config import get_config
     from ddp_tpu_torch.train.optim import make_optimizer
@@ -4125,7 +4144,12 @@ def phase_cn_train(smi: str, model=None, profile: str = None):
         eager = make_train_step(mixed_precision=mixed, batch_keys=CN_KEYS)
         gc.collect()
         torch.cuda.empty_cache()
-        with deterministic_algorithms(True) as warned:
+        # strict: in warn-only mode SDPA's backward (flash in bf16, memory-
+        # efficient in f32) is the only op here without determinism, and with a
+        # learning rate of 1e-5 a norm weight near 1 moves a few tens of ulps
+        # in two steps, so one ulp its atomics flip in one element and not in
+        # the other eager run is over the limit
+        with deterministic_algorithms(True, warn_only=False) as warned:
             from ddp_tpu_torch.train.step import make_chunked_train_step
 
             held = make_chunked_train_step(2, mixed_precision=mixed, batch_keys=CN_KEYS)
@@ -5067,6 +5091,7 @@ def phase_compat_depth(smi: str):
 
 DIST_DIR = os.path.join("work_dirs", "chip_smoke_dist")
 TOOLS_DIR = os.path.join("work_dirs", "chip_smoke_tools")
+EXPORT_DIR = os.path.join("work_dirs", "chip_smoke_export")
 ADE_FIXTURE = os.path.join("tests", "data", "ade")
 
 
@@ -5420,13 +5445,232 @@ def phase_tools(smi: str):
     del model
     torch.cuda.empty_cache()
     data_tools = data_tools_check()
+    exported = export_case("ade20k_swin_t", (512, 512), TOOLS_DIR, smi)
     emit({"phase": "tools", "preset": cfg.name, "image": [512, 512],
           "eval_data": ADE_FIXTURE + " (2 val images of 64 x 48)", "outputs": out,
           "seconds": secs, "encode_map_launches": launches, "tta": tta,
-          "data_tools": data_tools, "wall_s": time.perf_counter() - t_phase, "card": smi})
+          "data_tools": data_tools, "export": exported,
+          "wall_s": time.perf_counter() - t_phase, "card": smi})
     return {"image_demo": launches["image_demo"],
             "flip_tta": tta["flip_tta"]["encode_map_launches"],
-            "multi_scale_flip_tta": tta["multi_scale_flip_tta"]["encode_map_launches"]}
+            "multi_scale_flip_tta": tta["multi_scale_flip_tta"]["encode_map_launches"],
+            "export": exported["loaded"]["encode_map_launches_per_call"]}
+
+
+# a fresh interpreter that imports torch and the encode_map op only, loads an
+# exported program, calls it on the card (TF32 off, as this script runs),
+# counts the op's kernel launches and times the call; prints one JSON line
+EXPORT_LOADER = r"""
+import json, statistics, sys, time
+import torch
+import ddp_tpu_torch.ops.q_sample as Q
+
+path, inp, out, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+img = torch.load(inp, weights_only=True).cuda()
+t0 = time.perf_counter()
+program = torch.export.load(path).module()
+load_s = time.perf_counter() - t0
+Q.reset_launches()
+t0 = time.perf_counter()
+y = program(img)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+first = Q.launches["encode_map"]
+torch.save(y.cpu(), out)
+for _ in range(3):
+    program(img)
+times = []
+for _ in range(reps):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    program(img)
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+calls = 5 + reps  # the first, 3 warm-ups, the timed ones and the profiled one
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                        torch.profiler.ProfilerActivity.CUDA]) as p:
+    time.sleep(0.1)
+    t0 = time.perf_counter()
+    program(img)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    time.sleep(0.1)
+spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+busy, last = 0.0, float("-inf")
+for lo, hi, _ in spans:
+    if hi > last:
+        busy += hi - max(lo, last)
+        last = hi
+print(json.dumps({
+    "load_s": load_s, "first_call_s": first_s, "first_call_launches": first,
+    "encode_map_launches_per_call": Q.launches["encode_map"] / calls,
+    "ms": statistics.median(times), "calls_timed": reps,
+    "profiled": {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+                 "busy_share": busy / 1e3 / wall_ms, "device_events": len(spans),
+                 "htod_copies": sum("HtoD" in n or "Host -> Device" in n for *_, n in spans)},
+    "modules": sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "jaxlib", "flax", "ddp_tpu", "ddp_tpu_torch"))}))
+"""
+
+
+def profiled_call(fn) -> dict:
+    """One profiled call of ``fn`` (``profiled``): its wall ms, the device's
+    busy ms and share (``busy``), the device events (kernels and copies) and
+    the host-to-device copies among them. EXPORT_LOADER reads a program's
+    alike."""
+    p, wall_ms = profiled(fn, timed=True)
+    names = [e.name for e in p.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation]
+    line = busy(p, wall_ms)
+    return {"wall_ms": wall_ms, "device_busy_ms": line["device_busy_ms"],
+            "busy_share": line["busy_share"], "device_events": len(names),
+            "htod_copies": sum("HtoD" in n or "Host -> Device" in n for n in names)}
+
+
+def export_case(preset: str, size, workdir: str, smi: str, reps: int = 10) -> dict:
+    """``preset`` (random weights, seed 0) exported at 1 x ``size`` on the card
+    by ``tools/export.py: export_sample`` with the tool's seeded initial
+    noise, saved, and loaded and called in a fresh process (EXPORT_LOADER):
+    held to the eager ``sample`` from the same noise within the serving limits
+    (a segmentor: 1e-4 and argmax 99.9 %, 3 encode_map launches a call; a
+    depther: 1e-4 m, none), no model module loaded there; the eager sample
+    after the export held to the one before it. Reports the export, save
+    and load seconds, the .pt2's MB, and the program's ms a call beside the
+    eager sample's (CUDA events, median of ``reps`` after 3 warm-ups), and
+    one profiled call of each (``profiled_call``)."""
+    import ddp_tpu_torch
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.tools.export import export_sample, rollout_noise
+
+    t_case = time.perf_counter()
+    os.makedirs(workdir, exist_ok=True)
+    cfg = get_config(preset)
+    mc = cfg.model
+    model = build_model(mc, device="cuda", seed=0, input_size=size)
+    noise = rollout_noise(model, mc, 1, size)
+    img = torch.randn(1, *size, 3, generator=_gen(31)).cuda()
+    reset_all_launches()
+    eager = model.sample(img, None, noise)
+    torch.cuda.synchronize()
+    eager_launches = all_launches()["encode_map"]
+    eager_ms = time_ms(lambda: model.sample(img, None, noise), reps=reps)
+    eager_profile = profiled_call(lambda: model.sample(img, None, noise))
+    t0 = time.perf_counter()
+    program = export_sample(model, noise, tuple(img.shape))
+    export_s = time.perf_counter() - t0
+    path = os.path.join(workdir, f"{preset}.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    save_s = time.perf_counter() - t0
+    del program
+    after = model.sample(img, None, noise)
+    after_diff, after_agree = compare_probs(after, eager) if mc.task == "seg" else (
+        (after - eager).abs().max().item(), None)
+    after_real = type(after) is torch.Tensor
+    del after, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    inp = os.path.join(workdir, f"{preset}.img.pt")
+    out = os.path.join(workdir, f"{preset}.out.pt")
+    torch.save(img.cpu(), inp)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ddp_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", EXPORT_LOADER, path, inp, out, str(reps)],
+                          env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"export {preset}: the loader failed ({proc.returncode})\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = torch.load(out, weights_only=True).cuda()
+    row = {"preset": preset, "image": [1, *size, 3], "task": mc.task,
+           "export_s": export_s, "save_s": save_s, "pt2_mb": os.path.getsize(path) / 1e6,
+           "loaded": loaded, "eager_sample_ms": eager_ms, "eager_profiled": eager_profile,
+           "eager_launches": eager_launches,
+           "eager_after_export_real": after_real, "eager_after_export_max_abs_diff": after_diff,
+           "bitwise_equal_to_eager": bool(torch.equal(got, eager))}
+    want_launches = mc.diffusion.timesteps if mc.task == "seg" else 0
+    bad_modules = [m for m in loaded["modules"] if not m.startswith("ddp_tpu_torch")
+                   or m.startswith("ddp_tpu_torch.models")]
+    if mc.task == "seg":
+        check_probs(got, (1, *size, mc.num_classes))
+        diff, agree = compare_probs(got, eager)
+        row.update(max_abs_prob_diff_vs_eager=diff, argmax_agreement_vs_eager=agree,
+                   eager_after_export_argmax_agreement=after_agree)
+        ok = diff <= 1e-4 and agree >= 0.999 and after_diff <= 1e-4 and after_agree >= 0.999
+    else:
+        check_depth(got, (1, *size), mc, f"export {preset}")
+        diff = (got - eager).abs().max().item()
+        row.update(max_abs_depth_diff_vs_eager_m=diff)
+        ok = diff <= 1e-4 and after_diff <= 1e-4
+    for f in (path, inp, out):
+        os.remove(f)
+    row["wall_s"] = time.perf_counter() - t_case
+    if not (ok and after_real and not bad_modules and eager_launches == want_launches
+            and loaded["first_call_launches"] == want_launches
+            and loaded["encode_map_launches_per_call"] == want_launches):
+        raise AssertionError(f"export {preset}: {row}, want {want_launches} launches a call, "
+                             f"no model module loaded ({bad_modules})")
+    return row
+
+
+def phase_export(smi: str):
+    """(only when named) export_case for ade20k_swin_t_msda at 1 x 512^2 and
+    nyu_swin_t (depther) at 1 x 480 x 640."""
+    t_phase = time.perf_counter()
+    rows = [export_case("ade20k_swin_t_msda", (512, 512), EXPORT_DIR, smi),
+            export_case("nyu_swin_t", (480, 640), EXPORT_DIR, smi)]
+    emit({"phase": "export", "cases": rows, "wall_s": time.perf_counter() - t_phase,
+          "card": smi})
+    return {"export_msda": rows[0]["loaded"]["encode_map_launches_per_call"],
+            "export_depth": rows[1]["loaded"]["encode_map_launches_per_call"]}
+
+
+def phase_dispatch(smi: str, reps: int = 20):
+    """(only when named) what a sample() and one encode_map call cost, at the
+    main phase's inputs (ade20k_swin_t, 2 x 512^2, seed 0): sample()'s device
+    ms (CUDA events) and host ms (wall, synchronised), each the median of
+    ``reps`` after warm-up; encode_map alone on the path's labels [N] and
+    table [151, 256]: the host us a call (2000 calls, one synchronise at the
+    end) and the device ms (CUDA events). It calls only public functions, so
+    run from an earlier checkout's root (the script given by path, through
+    runpy) it measures that checkout's package."""
+    from ddp_tpu_torch.config import build_model, get_config
+    from ddp_tpu_torch.ops import q_sample as Q
+
+    cfg = get_config("ade20k_swin_t")
+    m = cfg.model
+    b, (h, w) = 2, cfg.data.crop_size
+    model = build_model(m, device="cuda", seed=0)
+    g = _gen(1)
+    img = torch.randn(b, h, w, 3, generator=g).cuda()
+    noise = torch.randn(m.diffusion.randsteps * b, h // 4, w // 4, m.embed_dims,
+                        generator=g).cuda()
+    sample_ms = time_ms(lambda: model.sample(img, init_noise=noise), reps=reps)
+    sample_wall_ms = wall_s(lambda: model.sample(img, init_noise=noise), reps=reps) * 1e3
+    table = model.embedding_table.weight.detach()
+    labels = torch.randint(0, m.num_classes, (m.diffusion.randsteps * b * (h // 4) * (w // 4),),
+                           generator=g).cuda()
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: Q.encode_map(labels, table, m.bit_scale), reps=reps)
+        for _ in range(100):
+            Q.encode_map(labels, table, m.bit_scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            Q.encode_map(labels, table, m.bit_scale)
+        host_us = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    emit({"phase": "dispatch", "package": os.path.dirname(os.path.abspath(Q.__file__)),
+          "registered_op": hasattr(torch.ops, "ddp_tpu_torch")
+          and hasattr(torch.ops.ddp_tpu_torch, "encode_map"),
+          "preset": cfg.name, "img": [b, h, w, 3], "sample_device_ms": sample_ms,
+          "sample_wall_ms": sample_wall_ms, "encode_map_n": labels.shape[0],
+          "encode_map_device_ms": encode_ms, "encode_map_host_us_per_call": host_us,
+          "card": smi})
 
 
 YAML_OVERLAY = """# tools.train smoke --yaml: 4 float32 steps, logged at steps 1, 2 and 4
@@ -6162,12 +6406,13 @@ PHASES = ("build", "kernels", "reference", "train_reference", "main", "serve", "
           "converge",
           "graph_grads",
           "replay_records", "converge_msda", "converge_depth", "converge_bev",
-          "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet")
+          "converge_bev_fusion", "converge_seg_quarter", "converge_controlnet", "export",
+          "dispatch")
 ON_REQUEST = ("dist_two", "fusion_host", "host_data", "converge", "graph_grads",
               "replay_records",
               "converge_msda",
               "converge_depth", "converge_bev", "converge_bev_fusion", "converge_seg_quarter",
-              "converge_controlnet")
+              "converge_controlnet", "export", "dispatch")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in ON_REQUEST)
 
 
@@ -6181,7 +6426,8 @@ def main(argv=None) -> int:
                          "but dist_two, fusion_host, host_data, converge, graph_grads, replay_records, "
                          "converge_msda, "
                          "converge_depth, converge_bev, converge_bev_fusion, "
-                         "converge_seg_quarter and converge_controlnet; serve needs main). "
+                         "converge_seg_quarter, converge_controlnet, export and dispatch; "
+                         "serve needs main). "
                          "dist: ade20k_swin_t at 2 x 512^2, at 4 x 512^2 with microbatch 2, "
                          "and controlnet_sd15 at 4 x 512^2, each under an NCCL group of 1; "
                          "dist_two: ade20k_swin_t at a global batch of 2, at 4 with "
@@ -6213,6 +6459,10 @@ def main(argv=None) -> int:
             phase_serve(model, cfg, smi)
         del model
         torch.cuda.empty_cache()
+    if "dispatch" in phases:
+        phase_dispatch(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "train" in phases:
         launches["train"] = phase_train(smi, args.profile)
     if "table_grad" in phases:
@@ -6228,6 +6478,11 @@ def main(argv=None) -> int:
     if "tools" in phases:
         for key, n in phase_tools(smi).items():
             launches[f"tools_{key}"] = dict(NO_KERNELS, encode_map=n)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "export" in phases:
+        launches.update({key: dict(NO_KERNELS, encode_map=n)
+                         for key, n in phase_export(smi).items()})
         gc.collect()
         torch.cuda.empty_cache()
     if "dist_two" in phases:
@@ -6336,6 +6591,13 @@ def main(argv=None) -> int:
                 ("tools_flip_tta", "flip_tta of sample() on one 512^2 image (2 calls)"),
                 ("tools_multi_scale_flip_tta", "multi_scale_flip_tta of sample() on one 512^2 "
                                                "image (6 scales x 2 flips)"),
+                ("tools_export", "one call of the exported ade20k_swin_t program (1 x 512^2), "
+                                 "loaded in a fresh process: the mean over its calls"),
+                ("export_msda", "one call of the exported ade20k_swin_t_msda program "
+                                "(1 x 512^2), loaded in a fresh process: the mean over its "
+                                "calls"),
+                ("export_depth", "one call of the exported nyu_swin_t program (1 x 480 x 640), "
+                                 "loaded in a fresh process: the mean over its calls"),
                 ("msda_serve", "sample() call of ade20k_swin_t_msda"),
                 ("msda_train", "eager train step of ade20k_swin_t_msda"),
                 ("msda_graph", "replayed step of a 10-step CUDA graph (ade20k_swin_t_msda), "

@@ -67,12 +67,17 @@ names too, with two layouts of their own:
 and the bare parameters BEiT's ``rel_pos_table``, ``gamma1``, ``gamma2``,
 HAHI's ``level_embed``, the mViT's ``pos`` and BinsFormer's ``query_feat``
 keep their names. Leaves are numpy arrays (or
-anything ``np.asarray`` takes); the state_dict holds views of them, not
-copies. A flax leaf with no rule raises.
+anything ``np.asarray`` takes) or CPU tensors (``read_flax_msgpack``'s); the
+state_dict holds views of them, not copies. A flax leaf with no rule raises.
+
+``read_flax_msgpack`` reads a file that flax's ``msgpack_serialize`` wrote
+(the JAX package's ``tools/publish_model.py``: ``{"params", "batch_stats"}``)
+without the msgpack package.
 """
 from __future__ import annotations
 
 import re
+import struct
 import warnings
 from typing import Any, Dict, Iterator, Mapping, Optional, Set, Tuple
 
@@ -170,8 +175,10 @@ def _module_path(path: Tuple[str, ...], token_convs: Set[Tuple[str, ...]] = froz
 
 def _to_torch(leaf_name: str, value, module: str = "") -> torch.Tensor:
     """A view of the (transposed) leaf of flax module ``module``;
-    ``load_state_dict`` copies it."""
-    a = np.asarray(value)
+    ``load_state_dict`` copies it. A bfloat16 tensor is moved as int16, since
+    numpy has no bfloat16."""
+    bf16 = isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16
+    a = value.view(torch.int16).numpy() if bf16 else np.asarray(value)
     if leaf_name == "kernel" and _CONV_TRANSPOSE.match(module):
         a = np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
     elif leaf_name == "kernel" and a.ndim == 3 and module in _MHA:
@@ -183,7 +190,8 @@ def _to_torch(leaf_name: str, value, module: str = "") -> torch.Tensor:
     with warnings.catch_warnings():
         # arrays from jax are read-only; the view is only ever read
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        return torch.from_numpy(a)
+        t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if bf16 else t
 
 
 def _sparse_layers(params: Mapping, prefix: Tuple[str, ...] = ()) -> Set[Tuple[str, ...]]:
@@ -265,3 +273,120 @@ def load_flax(model: nn.Module, params: Mapping,
     check_complete(model, sd)
     model.load_state_dict(sd)
     return model
+
+
+# --- flax's msgpack files ---------------------------------------------------
+
+# flax's msgpack ext codes (flax/serialization.py: _MsgpackExtType): an
+# ndarray, and a numpy scalar packed as a 0-d ndarray
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+# the dtypes an ndarray may have, by flax's name (numpy's dtype.name), as
+# the little-endian numpy type of its bytes and the torch type they become
+_FLAX_DTYPES = {
+    "float32": ("<f4", torch.float32), "float16": ("<f2", torch.float16),
+    "bfloat16": ("<i2", torch.bfloat16), "int32": ("<i4", torch.int32),
+    "int64": ("<i8", torch.int64), "uint8": ("u1", torch.uint8), "bool": ("?", torch.bool),
+}
+_CHUNKED = "__msgpack_chunked_array__"
+# first byte -> (struct format of the length or value that follows, kind)
+_FIXED = {
+    0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
+    0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext"),
+    0xca: (">f", "num"), 0xcb: (">d", "num"),
+    0xcc: (">B", "num"), 0xcd: (">H", "num"), 0xce: (">I", "num"), 0xcf: (">Q", "num"),
+    0xd0: (">b", "num"), 0xd1: (">h", "num"), 0xd2: (">i", "num"), 0xd3: (">q", "num"),
+    0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
+    0xdc: (">H", "array"), 0xdd: (">I", "array"), 0xde: (">H", "map"), 0xdf: (">I", "map"),
+}
+
+
+class _Msgpack:
+    """A reader of the msgpack values flax writes: maps, arrays, str, bin,
+    int, float, bool, nil and ext codes 1 and 3. Anything else raises."""
+
+    def __init__(self, buf):
+        self.buf, self.pos = memoryview(buf), 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.buf):
+            raise ValueError("msgpack: data ends inside a value")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def value(self):
+        b = self._unpack(">B")
+        if b <= 0x7f:
+            return b
+        if b >= 0xe0:
+            return b - 0x100
+        if b <= 0x8f:
+            return self._map(b & 0x0f)
+        if b <= 0x9f:
+            return [self.value() for _ in range(b & 0x0f)]
+        if b <= 0xbf:
+            return str(self._take(b & 0x1f), "utf-8")
+        if b in (0xc0, 0xc2, 0xc3):
+            return {0xc0: None, 0xc2: False, 0xc3: True}[b]
+        if 0xd4 <= b <= 0xd8:
+            return self._ext(1 << (b - 0xd4))
+        if b not in _FIXED:
+            raise ValueError(f"msgpack: unknown type byte 0x{b:02x}")
+        fmt, kind = _FIXED[b]
+        n = self._unpack(fmt)
+        if kind == "num":
+            return n
+        if kind == "bin":
+            return bytes(self._take(n))
+        if kind == "str":
+            return str(self._take(n), "utf-8")
+        if kind == "ext":
+            return self._ext(n)
+        if kind == "array":
+            return [self.value() for _ in range(n)]
+        return self._map(n)
+
+    def _map(self, n: int):
+        out = {}
+        for _ in range(n):
+            key = self.value()
+            out[key] = self.value()
+        return _unchunk(out) if out.get(_CHUNKED) is True else out
+
+    def _ext(self, n: int) -> torch.Tensor:
+        code = self._unpack(">b")
+        data = self._take(n)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack: ext type {code} is not a flax ndarray (1) or "
+                             "numpy scalar (3)")
+        shape, name, raw = _Msgpack(data).value()  # (shape, dtype name, C-order bytes)
+        if name not in _FLAX_DTYPES:
+            raise ValueError(f"msgpack: ndarray dtype {name!r} is not one of "
+                             f"{sorted(_FLAX_DTYPES)}")
+        np_type, dtype = _FLAX_DTYPES[name]
+        a = np.frombuffer(raw, dtype=np_type).reshape(shape)
+        return torch.from_numpy(a.copy()).view(dtype)
+
+
+def _unchunk(d: Mapping) -> torch.Tensor:
+    """flax's chunked form of a leaf above its MAX_CHUNK_SIZE: the flat
+    chunks under "0", "1", ... and the shape's sizes likewise."""
+    shape = [d["shape"][str(i)] for i in range(len(d["shape"]))]
+    chunks = [d["chunks"][str(i)] for i in range(len(d["chunks"]))]
+    return torch.cat(chunks).reshape(shape)
+
+
+def read_flax_msgpack(path: str):
+    """The tree of a file that flax's ``msgpack_serialize`` wrote: dicts,
+    lists, Python scalars, and a CPU tensor for each ndarray (float32,
+    float16, bfloat16, int32, int64, uint8 or bool) or numpy scalar (0-d),
+    chunked leaves joined. Raises on any other ext code or dtype."""
+    with open(path, "rb") as f:
+        reader = _Msgpack(f.read())
+    tree = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError(f"msgpack: {len(reader.buf) - reader.pos} bytes after the value")
+    return tree

@@ -25,7 +25,6 @@ Every module carries the flax names, so ``convert.py`` maps JAX weights.
 """
 from __future__ import annotations
 
-import functools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from ..ops.bev_pool import bev_pool, quantize_geometry
 from ..ops.resize import resize
 from .common import BatchNorm2d, Conv2dSame, ConvModule
@@ -52,7 +52,7 @@ def frustum_grid(image_size, feature_size, dbound) -> np.ndarray:
 
 # constant tensors on the device, copied there once per shape: a copy from
 # the host cannot be captured into a CUDA graph (train/step.py)
-@functools.lru_cache(maxsize=16)
+@device_constant(maxsize=16)
 def _frustum_on(image_size, feature_size, dbound, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(frustum_grid(image_size, feature_size, dbound), device=device)
 
@@ -332,7 +332,7 @@ def _axis_weights(iscope, oscope, size_in: int):
     return (np.clip(lo, 0, size_in - 1), np.clip(lo + 1, 0, size_in - 1), t, lo_ok, hi_ok)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _axis_weights_on(iscope, oscope, size_in: int, device: torch.device):
     lo, hi, t, lo_ok, hi_ok = (torch.as_tensor(a, device=device)
                                for a in _axis_weights(iscope, oscope, size_in))

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from ..ops.resize import resize
 from .common import BatchNorm2d, Conv, Conv2dSame, ConvModule, dropout
 
@@ -49,7 +50,7 @@ def _adaptive_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-@functools.lru_cache(maxsize=128)
+@device_constant(maxsize=128)
 def _pool_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_adaptive_pool_matrix(in_size, out_size), device=device)
 

@@ -20,24 +20,24 @@ interface.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from .common import Conv, ConvModule, dropout, make_norm
 from .pos_embed import LearnedPositionalEncoding, sine_pos_embed
 from .transformer import TimeFiLMEncoder, reference_points
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _sine_pos(h: int, w: int, num_feats: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(sine_pos_embed(h, w, num_feats=num_feats), device=device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _reference_points(h: int, w: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(reference_points(((h, w),)), device=device)
 

@@ -29,13 +29,13 @@ the flax names (``Feature2Pyramid``'s x4 BatchNorm, flax's auto-named
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from ..ops.resize import resize
 from .common import ConvModule, gelu, make_norm, trunc_normal
 from .compat_heads import DepthwiseSeparableConv
@@ -174,12 +174,12 @@ class SkipNeck(nn.Module):
         return tuple(outs)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _sine_pos(h: int, w: int, num_feats: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(sine_pos_embed(h, w, num_feats=num_feats), device=device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant(maxsize=32)
 def _refs(spatial_shapes: Tuple[Tuple[int, int], ...], device: torch.device) -> torch.Tensor:
     return torch.as_tensor(reference_points(spatial_shapes), device=device)
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from .common import Mlp, drop_path
 
 
@@ -57,7 +58,7 @@ def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> Optional[np.n
     return np.where(diff, -100.0, 0.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=128)
+@device_constant(maxsize=128)
 def shift_attn_mask(hp: int, wp: int, window: int, shift: int,
                     device: torch.device) -> Optional[torch.Tensor]:
     """``_shift_attn_mask`` as a tensor on ``device``, built once per shape."""

@@ -16,7 +16,6 @@ Layout is batch-first [B, S, C], as in the JAX package.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -26,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import device_constant
 from ..ops.deform_attn import ms_deform_attn
 from .common import Mlp
 from .swin import shift_attn_mask, window_attention, window_partition, window_reverse
@@ -60,7 +60,7 @@ def reference_points(spatial_shapes: SpatialShapes) -> np.ndarray:
     return np.tile(ref[:, None, :], (1, len(spatial_shapes), 1))
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _normalizer(spatial_shapes: Tuple[Tuple[int, int], ...], device: torch.device
                 ) -> torch.Tensor:
     """Each level's (W, H) [L, 2], cached on the device (a copy from the host

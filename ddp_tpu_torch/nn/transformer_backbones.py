@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import device_constant
 from .common import BatchNorm2d, Conv, Conv2dSame, Mlp, drop_path, trunc_normal
 
 
@@ -76,7 +77,7 @@ class GlobalSubsampledAttention(nn.Module):
         return self.proj(_attn(self.q(x), self.k(kv_in), self.v(kv_in), self.num_heads))
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _pad_key_bias(h: int, w: int, ws: int, device: torch.device) -> torch.Tensor:
     """[nW, ws²]: −1000 at the keys that padding added, 0 elsewhere (windows
     in row-major order)."""

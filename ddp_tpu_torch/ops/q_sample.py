@@ -15,6 +15,9 @@ Each kernel has a wrapper that launches the hand-written CUDA kernel
 (``ddp_tpu_torch/csrc/encode_map.cu``, ``csrc/q_sample.cu``) for CUDA tensors
 and raises on anything it does not take, and a plain PyTorch version that
 runs for CPU tensors. There is no fallback from one to the other.
+``encode_map``'s forward is the registered op ``ddp_tpu_torch::encode_map``
+(the kernel on CUDA tensors, the plain version on CPU tensors), which a
+``torch.export`` program of ``sample`` holds and calls.
 ``encode_map`` and ``q_sample`` are differentiable (``torch.autograd.Function``)
 with the JAX package's closed-form backward. Their table gradient is one
 ``squash_dtable`` launch, which reads the cotangent in its own type and takes
@@ -276,13 +279,35 @@ def _squash_dtable(labels: torch.Tensor, g: torch.Tensor, alpha: Optional[torch.
     return dtable.to(table.dtype)
 
 
+# ``torch.ops.ddp_tpu_torch.encode_map``: the forward of ``encode_map`` as a
+# registered op, so that torch.export traces it (the fake implementation gives
+# its shape) and a saved program calls it once this module is imported. The
+# CUDA implementation is the hand-written kernel, the CPU one the plain
+# version; any other device raises. Registering builds and loads nothing.
+@torch.library.custom_op("ddp_tpu_torch::encode_map", mutates_args=(), device_types="cpu")
+def _encode_map_op(labels: torch.Tensor, table: torch.Tensor,
+                   bit_scale: float) -> torch.Tensor:
+    return encode_map_plain(labels, table, bit_scale)
+
+
+@_encode_map_op.register_kernel("cuda")
+def _encode_map_op_cuda(labels: torch.Tensor, table: torch.Tensor,
+                        bit_scale: float) -> torch.Tensor:
+    return encode_map_cuda(labels, table, bit_scale)
+
+
+@_encode_map_op.register_fake
+def _encode_map_op_fake(labels: torch.Tensor, table: torch.Tensor,
+                        bit_scale: float) -> torch.Tensor:
+    return table.new_empty((labels.shape[0], table.shape[1]))
+
+
 class _EncodeMap(torch.autograd.Function):
     @staticmethod
     def forward(ctx, labels, table, bit_scale):
         ctx.save_for_backward(labels, table)
         ctx.bit_scale = bit_scale
-        return _dispatch("encode_map", encode_map_cuda, encode_map_plain, labels.device,
-                         labels, table, bit_scale)
+        return _encode_map_op(labels, table, float(bit_scale))
 
     @staticmethod
     def backward(ctx, g):

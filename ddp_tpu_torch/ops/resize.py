@@ -17,6 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import device_constant
+
 
 @functools.lru_cache(maxsize=64)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
@@ -41,12 +43,12 @@ def _linear_weights(in_size: int, out_size: int, align_corners: bool):
 # the index and weight tensors on the device, copied there once per shape: a
 # copy from the host cannot be captured into a CUDA graph, and the train step
 # (train/step.py) is one
-@functools.lru_cache(maxsize=128)
+@device_constant(maxsize=128)
 def _nearest_index_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_nearest_index(in_size, out_size), device=device)
 
 
-@functools.lru_cache(maxsize=128)
+@device_constant(maxsize=128)
 def _linear_weights_on(in_size: int, out_size: int, align_corners: bool,
                        device: torch.device) -> Tuple[torch.Tensor, ...]:
     return tuple(torch.as_tensor(a, device=device)

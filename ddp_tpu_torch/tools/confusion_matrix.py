@@ -1,6 +1,6 @@
 """Confusion matrix over a validation set (port of ``tools/confusion_matrix.py``).
 
-    python -m ddp_tpu_torch.tools.confusion_matrix PRESET [--ckpt PUBLISHED.pt]
+    python -m ddp_tpu_torch.tools.confusion_matrix PRESET [--ckpt PUBLISHED.pt|.msgpack]
         [--limit N] [--out cm.npy] [--seed 0] [--set K=V ...] [--device cpu]
 
 Predicts each image of ``data/seg_datasets.py: build_eval_dataset`` (the

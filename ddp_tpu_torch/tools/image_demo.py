@@ -1,6 +1,6 @@
 """Single-image inference demo (port of ``tools/image_demo.py``).
 
-    python -m ddp_tpu_torch.tools.image_demo PRESET IMAGE [--ckpt PUBLISHED.pt]
+    python -m ddp_tpu_torch.tools.image_demo PRESET IMAGE [--ckpt PUBLISHED.pt|.msgpack]
         [--out pred.png] [--uncertainty heat.png] [--seed 0] [--set K=V ...]
         [--device cpu]
 
@@ -26,7 +26,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="segment one image")
     p.add_argument("preset")
     p.add_argument("image")
-    p.add_argument("--ckpt", default=None, help="published .pt model state")
+    p.add_argument("--ckpt", default=None,
+                   help="published model state: the port's .pt or the JAX package's .msgpack")
     p.add_argument("--out", default="pred.png")
     p.add_argument("--uncertainty", default=None, metavar="PNG",
                    help="also save the randsteps ensemble's per-pixel variance")

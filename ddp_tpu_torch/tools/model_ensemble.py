@@ -3,7 +3,8 @@
     python -m ddp_tpu_torch.tools.model_ensemble PRESET A.pt B.pt ... [--limit N]
         [--seed 0] [--set K=V ...] [--device cpu]
 
-The preset's segmentor with each published model state in turn: for each
+The preset's segmentor with each published model state in turn (the
+port's ``.pt`` or the JAX package's ``.msgpack``): for each
 image of ``build_eval_dataset`` the class probabilities of ``sample`` (the
 rollout noise of image i and checkpoint j from a generator seeded by
 (``--seed``, 997·i + j)) summed over the checkpoints, their argmax scored,

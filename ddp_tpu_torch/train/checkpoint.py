@@ -8,7 +8,8 @@ the optimizer's moments and count, the step, the generator's state and a
 JSON-able meta dict. Files are ``<workdir>/ckpts/step_<n>.pt`` and
 ``<workdir>/ckpts_best/step_<n>.pt``; a save writes a temporary file and
 renames it, so a reader never sees half a checkpoint. ``publish`` strips a
-checkpoint to the model state for the tools (``read_published``).
+checkpoint to the model state for the tools (``read_published``, which also
+reads the JAX package's published ``.msgpack``).
 """
 from __future__ import annotations
 
@@ -100,7 +101,15 @@ def publish(workdir: str, out_prefix: str, step: Optional[int] = None
 
 
 def read_published(path: str) -> Dict[str, torch.Tensor]:
-    """A published model state (``publish``) on the CPU."""
+    """A published model state on the CPU: the port's ``.pt`` (``publish``),
+    or the ``.msgpack`` that the JAX package's ``tools/publish_model.py``
+    writes (flax's ``{"params", "batch_stats"}``), mapped to the port's names
+    by ``params_from_flax``."""
+    if path.endswith(".msgpack"):
+        from ..convert import params_from_flax, read_flax_msgpack
+
+        tree = read_flax_msgpack(path)
+        return params_from_flax(tree["params"], tree.get("batch_stats"))
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

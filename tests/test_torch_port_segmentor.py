@@ -148,10 +148,11 @@ def test_port_imports_no_jax():
             "ddp_tpu_torch.data.transforms_3d, ddp_tpu_torch.models.depther, "
             "ddp_tpu_torch.nn.second, ddp_tpu_torch.nn.dla_vovnet, "
             "ddp_tpu_torch.tools.prepare_nuscenes, ddp_tpu_torch.tools.convert_datasets, "
-            "ddp_tpu_torch.tools.browse_dataset; "
-            # Pillow only inside read_image's JPEG branch, never at import
+            "ddp_tpu_torch.tools.browse_dataset, ddp_tpu_torch.tools.export; "
+            # Pillow only inside read_image's JPEG branch, never at import;
+            # flax's .msgpack files are read without the msgpack package
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu', 'PIL')); print(bad); "
+            "('jax', 'jaxlib', 'flax', 'optax', 'ddp_tpu', 'PIL', 'msgpack')); print(bad); "
             # importing loads no CUDA library
             "sys.exit(1 if bad or ddp_tpu_torch.ops._build._lib is not None else 0)")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
